@@ -9,20 +9,29 @@ Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit; build the CUDA kernels from
      ``database_technology_algorithms_tpu_torch/csrc`` and time the build;
   2. hold each kernel (K1 view sort, K2 segmented scan, K3 compaction,
-     K4 record gather) against its plain torch version on the card, bit for
-     bit, at the main path's shapes and at edge cases;
-  3. the main path: ``make_pipeline_staged(1)`` on 1M + 1M generated rows
-     (the bench's key range, 3*rows/10), with every launch counter set to 0
-     just before and read just after; then field 0.  Counters, join rows and
-     the u32 checksum of the join output are held against a numpy oracle
-     and against the port's plain path (the same pipeline on the host CPU);
-  4. the same at the budget edge, 8M + 8M rows (= cfg.mem_rows);
-  5. the ``mergejoin`` CLI entry point on two 100-block files written by
-     the port's codec;
-  6. timings: each kernel's device time (torch.profiler) beside its plain
-     version's, one PyTorch call for the same function (a yardstick only)
-     and its memory-bound floor; the pipeline stages with CUDA events, the
-     run's host wall time and its device kernel time.
+     K4 record gather, K5 multi-word sort, K6 adjacent-key equality,
+     K7 un-permute) against its plain torch version on the card, bit for
+     bit, at the main paths' shapes and at edge cases;
+  3. the staged pipeline: ``make_pipeline_staged(1)`` on 1M + 1M generated
+     rows (the bench's key range, 3*rows/10), with every launch counter set
+     to 0 just before and read just after; then field 0.  Counters, join
+     rows and the u32 checksum of the join output are held against a numpy
+     oracle and against the port's plain path (the same pipeline on the
+     host CPU);
+  4. the ``pipeline`` command, the reference's main program, at ``--nblocks 10000``
+     (1M + 1M rows) for fields 1, 0, 2, 3, the launch counters set to 0
+     before each run and read after it; its JSON counters are held against
+     a numpy oracle and against the same command on the host CPU; its stage
+     times (CUDA events), host wall and device busy time;
+  5. the operators alone at 1M rows: ``distinct``, ``sort_batch`` (against a
+     numpy stable sort) and ``hash_join`` on the raw tables (fields 1, 3);
+  6. the budget edge: the staged pipeline at 8M + 8M rows (= cfg.mem_rows),
+     ``distinct`` at 8M and both joins at 16M rows, field 1;
+  7. the ``mergejoin``, ``elimdup`` and ``hashjoin`` commands on 100-block
+     files written by the port's codec, output files read back;
+  8. timings: each kernel's device time (torch.profiler) beside its plain
+     version's, one PyTorch call for the same function where there is one
+     (a yardstick only) and its memory-bound floor.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -48,7 +57,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 ROWS = 1_000_000
 BIG_ROWS = 8 * 1024 * 1024  # 2 * BIG_ROWS == EngineConfig.mem_rows
+NBLOCKS = ROWS // 100  # the pipeline command's --nblocks for ROWS rows a table
 ROOT = Path(__file__).resolve().parent
+STAGED_KERNELS = ("radix_sort", "seg_scan", "compact", "take_fill")
 PKG = "database_technology_algorithms_tpu_torch"
 JAX_PKG = "database_technology_algorithms_tpu"
 
@@ -232,6 +243,58 @@ def check_kernels(dev) -> dict:
                     f"K4 n={n} k={k} {case}", got, want))
     torch.cuda.synchronize()
     log(f"[kernels] K1-K4 equal their plain versions at n in {sizes}")
+    errs.update(check_sort_kernels(dev, g, sizes))
+    return errs
+
+
+def check_sort_kernels(dev, g, sizes) -> dict:
+    """K5, K6 and K7 against their plain versions on the card."""
+    from database_technology_algorithms_tpu_torch.kernels.adj_equal import (
+        adj_equal, adj_equal_plain)
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import (
+        unpermute, unpermute_plain)
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import (
+        words_sort, words_sort_plain)
+
+    errs = {"words_sort": 0, "adj_equal": 0, "unpermute": 0}
+    for n in sizes:
+        extra = (torch.from_numpy(g.integers(-2**31, 2**31, size=n).astype(np.int32)).to(dev),)
+        for m in (1, 2, 3, 9, 33):
+            # columns of one row-major [N, m] matrix (row stride m): few values
+            # a column, so ties reach the last word; a third of them >= 2^31
+            mat = (g.integers(0, 3, size=(n, m)).astype(np.uint32) << 30) | g.integers(
+                0, 2, size=(n, m)).astype(np.uint32)
+            mat_t = torch.from_numpy(mat.view(np.int32)).to(dev)
+            for case in ("mixed", "inactive", "equal", "no mask"):
+                src = torch.zeros_like(mat_t) if case == "equal" else mat_t
+                words = [src[:, j] for j in range(m)]
+                if case == "mixed" and m == 2:  # contiguous columns as well
+                    words = [w.contiguous() for w in words]
+                inact = None
+                if case != "no mask":
+                    inact = torch.from_numpy(
+                        np.ones(n, bool) if case == "inactive" else g.random(n) < 0.1).to(dev)
+                got = words_sort(words, inact, extra)
+                want = words_sort_plain(words, inact, extra)
+                errs["words_sort"] = max(errs["words_sort"], assert_same(
+                    f"K5 n={n} m={m} {case}", (got[0], got[1], *got[2]),
+                    (want[0], want[1], *want[2])))
+                for perm in (got[0], None):
+                    errs["adj_equal"] = max(errs["adj_equal"], assert_same(
+                        f"K6 n={n} m={m} {case} perm={perm is not None}",
+                        (adj_equal(words, perm),), (adj_equal_plain(words, perm),)))
+        perm = torch.from_numpy(g.permutation(n).astype(np.int32)).to(dev)
+        flags = torch.from_numpy(g.random(n) < 0.5).to(dev)
+        for lo, m_out in ((0, n), (n // 2, n - n // 2), (n // 3, n // 3), (n, 0)):
+            for vals in (extra[0], flags):
+                errs["unpermute"] = max(errs["unpermute"], assert_same(
+                    f"K7 n={n} lo={lo} m={m_out} {vals.dtype}",
+                    (unpermute(perm, vals, lo, m_out),),
+                    (unpermute_plain(perm, vals, lo, m_out),)))
+    torch.cuda.synchronize()
+    log(f"[kernels] K5-K7 equal their plain versions at n in {sizes}: K5 with 1, 2, 3, 9 "
+        f"and 33 words (strided columns, words >= 2^31, all rows inactive, all keys equal, "
+        f"no mask), K6 through perm and in place, K7 with lo > 0, int32 and bool")
     return errs
 
 
@@ -321,9 +384,9 @@ def phase_pipeline(dev, card: str) -> dict:
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     log(f"[main path] make_pipeline_staged(1) {ROWS}+{ROWS} launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in STAGED_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"the staged pipeline never launched {missing}")
     result = {"launches": launches}
 
     for field in (1, 0):
@@ -362,7 +425,194 @@ def phase_pipeline(dev, card: str) -> dict:
         for name, us in prof["top"][:14]:
             log(f"[profile]   {us:9.1f} us  {name[:90]}")
     result["inputs"] = (r, s, a_out)
+    result["cols"] = (r_cols, s_cols)
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the ``pipeline`` command (the reference's main program)
+
+COMMAND_COUNTERS = ("nunique_r", "nunique_s", "merge_join_pairs", "hash_join_pairs")
+# what each field's run of the command must launch; K1 sorts single-word keys
+# under a mask, so the string fields never reach it
+COMMAND_KERNELS = {
+    0: ("radix_sort", "seg_scan", "compact", "take_fill", "words_sort", "adj_equal", "unpermute"),
+    1: ("radix_sort", "seg_scan", "compact", "take_fill", "words_sort", "adj_equal", "unpermute"),
+    2: ("seg_scan", "compact", "take_fill", "words_sort", "adj_equal", "unpermute"),
+    3: ("seg_scan", "compact", "take_fill", "words_sort", "adj_equal", "unpermute"),
+}
+
+
+def key_ids(cols_list: list[dict], field: int) -> list[np.ndarray]:
+    """Each table's key column as integer ids that are equal exactly where
+    the keys are equal and ordered as the keys are (u32 order; strings by
+    their bytes, which is strcmp order; (num, str) lexicographic)."""
+    if field in (0, 1):
+        return [c["recid" if field == 0 else "num"].astype(np.int64) for c in cols_list]
+    strs = np.concatenate([c["strs"] for c in cols_list])
+    width = int(np.flatnonzero(strs.any(axis=0))[-1]) + 1
+    raw = np.ascontiguousarray(strs[:, :width])
+    if field == 3:
+        num = np.concatenate([c["num"] for c in cols_list]).astype(">u4")
+        raw = np.ascontiguousarray(np.concatenate([num.view(np.uint8).reshape(-1, 4), raw], axis=1))
+    ids = np.unique(raw.view(np.dtype((np.void, raw.shape[1]))).ravel(), return_inverse=True)[1]
+    bounds = np.cumsum([0] + [len(c["recid"]) for c in cols_list])
+    return [ids[a:b].astype(np.int64) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def command_oracle(r: dict, s: dict, field: int) -> dict:
+    kr, ks = key_ids([r, s], field)
+    ur, us = np.unique(kr), np.unique(ks)
+    pairs = int(np.isin(ur, us, assume_unique=True).sum())
+    return {"nunique_r": len(ur), "nunique_s": len(us),
+            "merge_join_pairs": pairs, "hash_join_pairs": pairs}
+
+
+def run_cli(argv: list[str]) -> tuple[int, dict]:
+    """One CLI command in this process; returns (exit code, its JSON line)."""
+    from database_technology_algorithms_tpu_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_command(dev, card: str) -> dict:
+    from database_technology_algorithms_tpu_torch.io.generator import generate_columns
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+    from database_technology_algorithms_tpu_torch.ops.distinct import distinct
+    from database_technology_algorithms_tpu_torch.ops.filter import truncate
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join
+    from database_technology_algorithms_tpu_torch.ops.merge_join import join_sorted_distinct
+
+    seed = 42
+    r_cols = generate_columns(NBLOCKS, seed=seed)
+    s_cols = generate_columns(NBLOCKS, seed=seed + 1)
+    base = ["pipeline", "--nblocks", str(NBLOCKS), "--seed", str(seed), "--skip-files"]
+    run_cli([*base, "--field", "1"])  # first call: allocator warm-up
+    launches = {}
+    for field in (1, 0, 2, 3):
+        argv = [*base, "--field", str(field)]
+        # ---- the main path: counts from exactly one run of the command --------
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, line = run_cli(argv)
+        torch.cuda.synchronize()
+        cmd_s = time.perf_counter() - t0
+        launches[field] = dict(LAUNCHES)
+        missing = [k for k in COMMAND_KERNELS[field] if launches[field][k] == 0]
+        if missing:
+            raise AssertionError(f"pipeline command, field {field}: never launched {missing}")
+        if rc != 0 or line["joins_agree"] is not True:
+            raise AssertionError(f"pipeline command, field {field}: rc={rc} {line}")
+        want = command_oracle(r_cols, s_cols, field)
+        got = {k: line[k] for k in COMMAND_COUNTERS}
+        if got != want:
+            raise AssertionError(f"pipeline command, field {field}: {got}, oracle says {want}")
+        rc_cpu, plain = run_cli([*argv, "--device", "cpu"])
+        if rc_cpu != 0 or plain != line:
+            raise AssertionError(f"field {field}: card {line} != plain path on the CPU {plain}")
+        if field == 0 and got["merge_join_pairs"] != ROWS:
+            raise AssertionError("field 0: both tables share recids, every row must pair")
+        if field == 2 and got["merge_join_pairs"] < 1:
+            raise AssertionError("field 2: the planted 'Hola' key must pair")
+        log(f"[command] pipeline --nblocks {NBLOCKS} --field {field}: {json.dumps(line)} "
+            f"== numpy oracle == plain path; launches {launches[field]}; the command took "
+            f"{cmd_s:.2f} s on the host, generation and transfer included")
+
+    # ---- the command's stages, on device-resident tables ----------------------
+    r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
+    for field in (1, 0, 2, 3):
+        def dedup_r():
+            return distinct(r, field)
+
+        def dedup_s():
+            return distinct(s, field)
+
+        r_d, nu_r = dedup_r()
+        s_d, nu_s = dedup_s()
+        r_dt, s_dt = truncate(r_d, nu_r), truncate(s_d, nu_s)
+
+        def join():
+            return join_sorted_distinct(r_d, nu_r, s_d, nu_s, field)
+
+        def hjoin():
+            return hash_join(r_dt, s_dt, field)
+
+        def whole():
+            a, na = dedup_r()
+            b, nb = dedup_s()
+            out = join_sorted_distinct(a, na, b, nb, field)
+            return out, hash_join(truncate(a, na), truncate(b, nb), field)
+
+        ms = {name: cuda_ms(fn, reps=10) for name, fn in
+              (("distinct_r", dedup_r), ("distinct_s", dedup_s), ("join", join),
+               ("hash_join", hjoin))}
+        wall = wall_ms(whole, reps=5)
+        prof = profile_device(whole, reps=3)
+        share = prof["busy_us"] / (wall * 1e3)
+        log(f"[command stages] {card}: field {field}, {ROWS}+{ROWS} rows, CUDA events over 10 "
+            f"back-to-back calls: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; all four stages, host wall per synchronized run {wall:.4f} ms, device "
+            f"kernels {prof['busy_us']:.1f} us per run, busy share {share:.3f}")
+        for name, us in prof["top"][:8]:
+            log(f"[command profile]   field {field} {us:9.1f} us  {name[:90]}")
+    return {"launches": launches, "cols": (r_cols, s_cols), "batches": (r, s)}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the operators alone
+
+
+def phase_operators(dev, pipe: dict) -> None:
+    from database_technology_algorithms_tpu_torch.ops.distinct import distinct
+    from database_technology_algorithms_tpu_torch.ops.hash_join import (
+        hash_join, hash_join_count)
+    from database_technology_algorithms_tpu_torch.ops.sort import is_sorted, sort_batch
+
+    r_cols, s_cols = pipe["cols"]  # the bench's key range: duplicate nums
+    r, s, _ = pipe["inputs"]
+    for field in (1, 2, 3):
+        (kr,) = key_ids([r_cols], field)
+        # distinct: the first row of each key, in key order
+        uniq, first = np.unique(kr, return_index=True)
+        out, nu = distinct(r, field)
+        rec = out.recid[: len(uniq)].cpu().numpy().view(np.uint32)
+        if int(nu) != len(uniq) or not np.array_equal(rec, r_cols["recid"][first]):
+            raise AssertionError(f"distinct field {field}: differs from numpy unique")
+        if bool(out.valid[len(uniq):].any()) or bool(out.recid[len(uniq):].any()):
+            raise AssertionError(f"distinct field {field}: rows past nunique are not zero")
+        # sort_batch: a stable sort by the key
+        want_perm = np.argsort(kr, kind="stable")
+        sorted_b, perm = sort_batch(r, field)
+        if not np.array_equal(perm.cpu().numpy(), want_perm):
+            raise AssertionError(f"sort_batch field {field}: perm differs from numpy's stable sort")
+        if not bool(is_sorted(sorted_b, field)) or bool(is_sorted(r, field)):
+            raise AssertionError(f"sort_batch field {field}: is_sorted is wrong")
+        if not np.array_equal(sorted_b.recid.cpu().numpy().view(np.uint32),
+                              r_cols["recid"][want_perm]):
+            raise AssertionError(f"sort_batch field {field}: rows differ from numpy's")
+        log(f"[operators] field {field}, {ROWS} rows: distinct ({len(uniq)} keys) and "
+            f"sort_batch equal numpy")
+    for field in (1, 3):
+        # the raw tables: duplicate keys on both sides
+        kb, kp = key_ids([r_cols, s_cols], field)
+        counts = np.bincount(kb, minlength=int(max(kb.max(), kp.max())) + 1)
+        mult = counts[kp]
+        want_n = int(mult.sum()) if field == 3 else int((mult > 0).sum())
+        matched, got_mult, nres = hash_join_count(r, s, field)
+        if int(nres) != want_n or not np.array_equal(matched.cpu().numpy(), mult > 0):
+            raise AssertionError(f"hash_join_count field {field}: nres {int(nres)} != {want_n}")
+        if field == 3 and not np.array_equal(got_mult.cpu().numpy(), mult):
+            raise AssertionError("hash_join_count field 3: multiplicities differ from numpy's")
+        out, nres2 = hash_join(r, s, field)
+        hit = int((mult > 0).sum())
+        rec = out.recid[:hit].cpu().numpy().view(np.uint32)
+        if int(nres2) != want_n or not np.array_equal(rec, s_cols["recid"][mult > 0]):
+            raise AssertionError(f"hash_join field {field}: rows differ from numpy's")
+        log(f"[operators] hash_join on the raw tables, field {field}: nres {want_n}, "
+            f"{hit} probe rows hit, == numpy")
 
 
 def phase_budget_edge(dev) -> None:
@@ -372,19 +622,47 @@ def phase_budget_edge(dev) -> None:
 
     r_cols, s_cols = gen_pair(BIG_ROWS)
     r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
-    for field in (1, 0):
+    for field in (1,):
         run = make_pipeline_staged(field)
         reset_launches()
         out = run(r, s)
         got = check_run(out, oracle(r_cols, s_cols, field), r_cols,
                         f"field {field} {BIG_ROWS}+{BIG_ROWS}")
-        if not all(LAUNCHES.values()):
+        if not all(LAUNCHES[k] for k in STAGED_KERNELS):
             raise AssertionError(f"budget-edge run missed a kernel: {LAUNCHES}")
         log(f"[budget edge] field {field} {BIG_ROWS}+{BIG_ROWS}: {json.dumps(got)} "
             f"== numpy oracle; host wall per synchronized run "
             f"{wall_ms(lambda: run(r, s), reps=5):.4f} ms")
-    one_more = to_batch({k: v[:1] for k, v in s_cols.items()}, dev)
+    # the operators at the same edge: each distinct sees 8M rows, the merge
+    # join of the dedup'd sides and the hash join of the raw tables see 16M
     from database_technology_algorithms_tpu_torch.batch import RecordBatch
+    from database_technology_algorithms_tpu_torch.ops.distinct import distinct
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join
+    from database_technology_algorithms_tpu_torch.ops.merge_join import join_sorted_distinct
+
+    want = oracle(r_cols, s_cols, 1)
+    r_d, nu_r = distinct(r, 1)
+    s_d, nu_s = distinct(s, 1)
+    out, nres = join_sorted_distinct(r_d, nu_r, s_d, nu_s, 1)
+    got = {"nunique_r": int(nu_r), "nunique_s": int(nu_s), "merge_nres": int(nres)}
+    if got != {k: want[k] for k in got}:
+        raise AssertionError(f"budget edge operators: {got}, oracle says {want}")
+    rec = out.recid[: int(nres)].cpu().numpy().view(np.uint32)
+    if not np.array_equal(rec, r_cols["recid"][want["rows"]]):
+        raise AssertionError("budget edge join_sorted_distinct: rows differ from the oracle's")
+    hit = np.isin(s_cols["num"], r_cols["num"])
+    hout, hres = hash_join(r, s, 1)
+    hrec = hout.recid[: int(hit.sum())].cpu().numpy().view(np.uint32)
+    if int(hres) != int(hit.sum()) or not np.array_equal(hrec, s_cols["recid"][hit]):
+        raise AssertionError("budget edge hash_join: differs from numpy")
+    log(f"[budget edge] field 1: distinct at {BIG_ROWS} rows, join_sorted_distinct and "
+        f"hash_join at {2 * BIG_ROWS}: {json.dumps(got)}, hash nres {int(hres)} == numpy; "
+        f"host wall per synchronized call: distinct "
+        f"{wall_ms(lambda: distinct(r, 1), reps=3):.4f} ms, join "
+        f"{wall_ms(lambda: join_sorted_distinct(r_d, nu_r, s_d, nu_s, 1), reps=3):.4f} ms, "
+        f"hash_join {wall_ms(lambda: hash_join(r, s, 1), reps=3):.4f} ms")
+    del r_d, s_d, out, hout
+    one_more = to_batch({k: v[:1] for k, v in s_cols.items()}, dev)
 
     try:
         make_pipeline_staged(1)(r, RecordBatch.concat([s, one_more]))
@@ -418,6 +696,31 @@ def phase_cli() -> None:
         raise AssertionError("mergejoin CLI: output file rows differ from the oracle's")
     log(f"[cli] mergejoin on 2 x 100 blocks: {json.dumps(line)}; nres and the "
         f"written rows equal the oracle")
+
+    fe, fh = str(work / "outdistinct.bin"), str(work / "outhash.bin")
+    for field in (1, 2):
+        (kr,) = key_ids([r_cols], field)
+        uniq, first = np.unique(kr, return_index=True)
+        rc, line = run_cli(["elimdup", f1, fe, "--field", str(field)])
+        back = read_blockfile_numpy(fe)
+        if rc != 0 or line["nunique"] != len(uniq) or line["rows"] != len(kr):
+            raise AssertionError(f"elimdup CLI field {field}: rc={rc} {line} vs {len(uniq)}")
+        if not np.array_equal(back["recid"], r_cols["recid"][first]):
+            raise AssertionError(f"elimdup CLI field {field}: output rows differ from numpy's")
+        log(f"[cli] elimdup field {field} on 100 blocks: {json.dumps(line)}; the written "
+            f"rows are the first row of each key, in key order")
+    for field in (1, 3):
+        kb, kp = key_ids([r_cols, s_cols], field)
+        mult = np.bincount(kb, minlength=int(max(kb.max(), kp.max())) + 1)[kp]
+        reps = mult if field == 3 else (mult > 0).astype(np.int64)
+        rc, line = run_cli(["hashjoin", f1, f2, fh, "--field", str(field)])
+        back = read_blockfile_numpy(fh)
+        if rc != 0 or line["nres"] != int(reps.sum()) or line["output_order"] != "probe_scan":
+            raise AssertionError(f"hashjoin CLI field {field}: rc={rc} {line} vs {int(reps.sum())}")
+        if not np.array_equal(back["recid"], np.repeat(s_cols["recid"], reps)):
+            raise AssertionError(f"hashjoin CLI field {field}: output rows differ from numpy's")
+        log(f"[cli] hashjoin field {field} on 2 x 100 blocks: {json.dumps(line)}; the written "
+            f"rows are the probe rows in scan order, repeated per build match for field 3")
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -425,8 +728,14 @@ def phase_cli() -> None:
 # phase 6: kernel timings at the main path's shapes
 
 
-def phase_timings(pipe: dict, errs: dict, card: str) -> list[dict]:
+def phase_timings(pipe: dict, command: dict, errs: dict, card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
+    from database_technology_algorithms_tpu_torch.kernels.adj_equal import (
+        adj_equal, adj_equal_plain)
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import (
+        unpermute, unpermute_plain)
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import (
+        words_sort, words_sort_plain)
     from database_technology_algorithms_tpu_torch.kernels.compact import (
         compact_words, compact_words_plain)
     from database_technology_algorithms_tpu_torch.kernels.radix_sort import (
@@ -455,6 +764,29 @@ def phase_timings(pipe: dict, errs: dict, card: str) -> list[dict]:
         [r.recid[:, None], r.num[:, None], r.valid.to(torch.int32)[:, None], r.strw], 1)
     clamped = gather_idx.clamp(max=nr - 1)
     composite = (inact.long() << 32) | as_u32(key)
+
+    # K5-K7 at the pipeline command's shapes: field 2 of the generated tables, R||S
+    d_r, d_s = command["batches"]
+    d_both = RecordBatch.concat([d_r, d_s])
+    dn, dk = d_both.nrows, d_both.str_words
+    d_words = [d_both.strw[:, j] for j in range(dk)]
+    d_inact = torch.zeros(dn, dtype=torch.bool, device=key.device)
+    d_inact[::97] = True
+    d_perm = words_sort(d_words, d_inact)[0]
+    # the u32 words as one order-preserving int64 (sign bit flipped), for the library sort
+    wide = ((as_u32(d_words[0]) << 32) | as_u32(d_words[1])) ^ -(1 << 63) if dk == 2 else None
+    d_vals = torch.arange(dn, dtype=torch.int32, device=key.device)
+    d_perm_long = d_perm.long()
+
+    def library_words_sort():
+        order = torch.sort(wide, stable=True).indices
+        return order[torch.sort(d_inact[order].to(torch.uint8), stable=True).indices]
+
+    def library_unpermute():
+        return torch.empty_like(d_vals).scatter_(0, d_perm_long, d_vals)[d_r.nrows:]
+
+    if wide is None:
+        raise AssertionError(f"the generated tables store {dk} string words, expected 2")
 
     specs = [
         dict(name="radix_sort", source=f"{PKG}/csrc/radix_sort.cu",
@@ -485,6 +817,32 @@ def phase_timings(pipe: dict, errs: dict, card: str) -> list[dict]:
              # index read for every output row; source row read only where live
              nbytes=nr * 4 + cnt * (9 + 4 * k) + nr * (9 + 4 * k),
              shape=f"{nr} output rows x (3+{k}) words, {cnt} live"),
+        dict(name="words_sort", source=f"{PKG}/csrc/words_sort.cu",
+             replaces=f"{JAX_PKG}/ops/sort.py:99",
+             kernel=lambda: words_sort(d_words, d_inact),
+             plain=lambda: words_sort_plain(d_words, d_inact),
+             library=library_words_sort,
+             nbytes=dn * (4 * dk + 1) + dn * (4 + 1),
+             shape=f"{dn} rows, {dk} string words (columns of strw) + inact -> perm, s_act; "
+                   f"library: 2 stable torch.sort passes (int64 key, then inact)",
+             launches=command["launches"][2]["words_sort"]),
+        dict(name="adj_equal", source=f"{PKG}/csrc/adj_equal.cu",
+             replaces=f"{JAX_PKG}/ops/keys.py:68",
+             kernel=lambda: adj_equal(d_words, d_perm),
+             plain=lambda: adj_equal_plain(d_words, d_perm),
+             library=None,  # no single PyTorch call gathers two rows and compares them
+             nbytes=dn * (4 + 4 * dk) + dn,
+             shape=f"{dn} rows, {dk} key words through perm",
+             launches=command["launches"][2]["adj_equal"]),
+        dict(name="unpermute", source=f"{PKG}/csrc/unpermute.cu",
+             replaces=f"{JAX_PKG}/ops/hash_join.py:242",
+             kernel=lambda: unpermute(d_perm, d_vals, d_r.nrows, d_s.nrows),
+             plain=lambda: unpermute_plain(d_perm, d_vals, d_r.nrows, d_s.nrows),
+             library=library_unpermute,
+             nbytes=dn * (4 + 4) + 4 * d_s.nrows,
+             shape=f"{dn} sorted rows -> the {d_s.nrows} probe rows' int32 answers (lo = "
+                   f"{d_r.nrows}); library: Tensor.scatter_ of all rows, then a slice",
+             launches=command["launches"][1]["unpermute"]),
     ]
     extra_scans = {
         "reversed segmented max (any-S suffix)": lambda: seg_scan(
@@ -498,15 +856,21 @@ def phase_timings(pipe: dict, errs: dict, card: str) -> list[dict]:
     for sp in specs:
         rec = {
             "name": sp["name"], "route": "cuda", "source": sp["source"],
-            "replaces": sp["replaces"], "launches": pipe["launches"][sp["name"]],
+            "replaces": sp["replaces"],
+            # K1-K4: one run of the staged pipeline; K5-K7: one run of the
+            # pipeline command (field 2 for K5 and K6, field 1 for K7)
+            "launches": sp.get("launches", pipe["launches"].get(sp["name"])),
             "max_abs_err": errs[sp["name"]],
             "ms": device_ms(sp["kernel"]), "plain_ms": device_ms(sp["plain"]),
             "bound_ms": bound_ms(sp["nbytes"]), "bound_by": "bytes",
-            "library_ms": device_ms(sp["library"]),
+            "library_ms": device_ms(sp["library"]) if sp["library"] else None,
+            "launches_pipeline_command": {
+                f"field {f}": c[sp["name"]] for f, c in command["launches"].items()},
         }
+        lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         log(f"[timing] {card}: {sp['name']} ({sp['shape']}): device time per call: "
             f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
-            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({sp['nbytes']} B); "
+            f"{lib}, bound {rec['bound_ms']:.4f} ms ({sp['nbytes']} B); "
             f"CUDA-event span per back-to-back call: kernel {cuda_ms(sp['kernel']):.4f} ms")
         out.append(rec)
     return out
@@ -524,9 +888,11 @@ def main() -> int:
     card = phase_device_and_build()
     errs = check_kernels(dev)
     pipe = phase_pipeline(dev, card)
+    command = phase_command(dev, card)
+    phase_operators(dev, pipe)
     phase_budget_edge(dev)
     phase_cli()
-    kernels = phase_timings(pipe, errs, card)
+    kernels = phase_timings(pipe, command, errs, card)
     torch.cuda.synchronize()
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

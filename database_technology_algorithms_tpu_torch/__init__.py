@@ -5,11 +5,15 @@ on an NVIDIA H100, built slice by slice; the JAX package stays the
 reference and each ported function matches it bit for bit.  The port
 imports no JAX.
 
-Ported so far: the staged merge-join pipeline for the u32 key fields
+Ported so far, in the device budget and on the gather route, for all four
+key fields: the stand-alone operators (``ops.sort.sort_batch``,
+``ops.distinct.distinct``, ``ops.merge_join.merge_join``,
+``ops.hash_join.hash_join``), the staged merge-join pipeline
 (``models.pipeline.make_pipeline_staged``, ``pipeline_single_impl``), the
-block-file codec, the seeded generator and the ``mergejoin`` CLI.  Its
-device work runs in four hand-written CUDA kernels (``kernels/``,
-``csrc/``).  Entry points run on the card unless given ``device="cpu"``.
+block-file codec, the seeded generator and the ``pipeline``, ``elimdup``,
+``mergejoin`` and ``hashjoin`` commands.  Its device work runs in seven
+hand-written CUDA kernels (``kernels/``, ``csrc/``).  Entry points run on
+the card unless given ``device="cpu"``.
 """
 
 from .batch import RecordBatch, canonical_field

@@ -150,6 +150,9 @@ class RecordBatch:
     def str_words(self) -> int:
         return self.strw.shape[1]
 
+    def __len__(self) -> int:
+        return self.nrows
+
     def pad_str_words(self, k: int) -> "RecordBatch":
         """Widen the string column to k words (zero-pad; no-op if already >=)."""
         cur = self.str_words
@@ -164,6 +167,21 @@ class RecordBatch:
         from .kernels.take_fill import take_fill
 
         return RecordBatch(*take_fill(self.recid, self.num, self.strw, self.valid, idx))
+
+    def take(self, idx: torch.Tensor) -> "RecordBatch":
+        """Gather rows by index, every index in [-N, N) (a permutation, a
+        sorted view's ``perm``); the record gather kernel as ``take_fill``."""
+        return self.take_fill(idx)
+
+    def slice(self, start: int, size: int) -> "RecordBatch":
+        """Rows [start, start + size), as views."""
+        end = start + size
+        return RecordBatch(
+            recid=self.recid[start:end],
+            num=self.num[start:end],
+            strw=self.strw[start:end],
+            valid=self.valid[start:end],
+        )
 
     @staticmethod
     def concat(batches: list["RecordBatch"]) -> "RecordBatch":

@@ -31,6 +31,7 @@ class EngineConfig:
     # --- hash join ----------------------------------------------------------
     hash_load_factor_inv: int = 2
     hash_max_probe: int = 64
+    # only the generic (sort-based) engines are ported; another value raises
     u32_join_engine: str = "generic"
     u32_distinct_engine: str = "generic"
 

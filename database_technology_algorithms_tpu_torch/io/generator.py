@@ -55,3 +55,16 @@ def generate_batch(nblocks: int, seed: int = 42, device=None, **kw) -> RecordBat
         cols["recid"], cols["num"], cols["strs"], cols["valid"],
         normalize=False, device=device,
     )
+
+
+def generate_pair_files(path1: str, path2: str, nblocks: int, seed: int = 42, **kw) -> None:
+    """Write the two-file fixture the reference's main program creates
+    (``main.cpp:36-79``): seeds `seed` and `seed + 1`, both files with the
+    same recids."""
+    from .blockfile import write_blockfile
+
+    cols1 = generate_columns(nblocks, seed=seed, **kw)
+    cols2 = generate_columns(nblocks, seed=seed + 1, **kw)
+    cols2["recid"] = cols1["recid"]
+    write_blockfile(path1, cols1)
+    write_blockfile(path2, cols2)

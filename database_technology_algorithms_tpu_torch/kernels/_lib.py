@@ -29,7 +29,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES = {"radix_sort": 0, "seg_scan": 0, "compact": 0, "take_fill": 0}
+LAUNCHES = {
+    "radix_sort": 0, "seg_scan": 0, "compact": 0, "take_fill": 0,
+    "words_sort": 0, "adj_equal": 0, "unpermute": 0,
+}
 
 
 def reset_launches() -> None:
@@ -99,6 +102,7 @@ def build() -> Path:
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I64 = ctypes.c_int64
+_PI64 = ctypes.POINTER(ctypes.c_int64)
 _I = ctypes.c_int
 _SIGNATURES = {
     "dbt_error_string": ([_I], ctypes.c_char_p),
@@ -108,6 +112,10 @@ _SIGNATURES = {
     "dbt_view_sort": ([_P, _P, _I64, _P, _P, _P, _PP, _PP, _I, _P, _P], _I),
     "dbt_compact_scatter": ([_P, _P, _I64, _PP, _PP, _I, _P], _I),
     "dbt_take_fill": ([_P, _I64, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "dbt_words_sort_scratch_words": ([_I64], _I64),
+    "dbt_words_sort": ([_PP, _PI64, _I, _P, _I64, _P, _P, _PP, _PP, _I, _P, _P], _I),
+    "dbt_adj_equal": ([_PP, _PI64, _I, _P, _I64, _P, _P], _I),
+    "dbt_unpermute": ([_P, _P, _I64, _I64, _I64, _P, _I, _P], _I),
 }
 
 
@@ -144,6 +152,23 @@ def ptr_array(tensors) -> ctypes.Array | None:
     if not tensors:
         return None
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def check_columns(name: str, words, n: int, device) -> None:
+    """Raise unless every word is an int32 CUDA column of `n` rows on
+    `device`; a column may be strided (a column of a row-major matrix)."""
+    for w in words:
+        if w.device != device:
+            raise ValueError(f"{name}: column on {w.device}, expected {device}")
+        if w.dtype != torch.int32:
+            raise TypeError(f"{name}: expected torch.int32 columns, got {w.dtype}")
+        if w.shape != (n,):
+            raise ValueError(f"{name}: column of shape {tuple(w.shape)}, expected ({n},)")
+
+
+def stride_array(words) -> ctypes.Array:
+    """Host array of the row strides (in words) of 1-D columns."""
+    return (ctypes.c_int64 * len(words))(*[w.stride(0) for w in words])
 
 
 def raise_on_error(err: int, kernel: str) -> None:

@@ -1,5 +1,5 @@
 """The composed query pipeline (port of the JAX package's ``models/pipeline.py``,
-fields 0 and 1, in budget, gather route).
+all four key fields, in budget, gather route).
 
 The reference driver's workload (``main.cpp:109-123``) is MergeJoin
 (sort -> distinct -> two-pointer join) followed by HashJoin on the dedup'd
@@ -8,10 +8,11 @@ derived from ONE sort of R||S by (inactive, key, row): both sides' distinct
 counts, the merge-join pair set, the hash-join cross-check and the group
 aggregates, then one record gather materializes the join output.
 
-Kernel launches per staged run: K1 once (the view sort), K2 three times
-(the forward run-head carry, the reversed any-S max, the compaction's rank
-scan), K3 once (compaction of the sorted row indices), K4 once (the record
-gather).  The flag and counter arithmetic between them is plain torch.
+Kernel launches per staged run: K1 once (the view sort; for the string
+fields 2 and 3 K5 and K6 instead), K2 three times (the forward run-head
+carry, the reversed any-S max, the compaction's rank scan), K3 once
+(compaction of the sorted row indices), K4 once (the record gather).  The
+flag and counter arithmetic between them is plain torch.
 """
 
 from __future__ import annotations
@@ -23,18 +24,10 @@ from ..config import DEFAULT_CONFIG, EngineConfig
 from ..ops.keys import key_words
 from ..ops.movement import compact_words, use_sort_placement
 from ..ops.scan import cumsum, seg_carry, seg_max, seg_min
-from ..ops.sort import SortedView, packed_u32_view_sort, view_sort_3key
+from ..ops.sort import (
+    SortedView, materialize_survivors, packed_u32_view_sort, sort_keys, sorted_adjacent_equal,
+    view_sort_3key)
 from ..utils.checks import ensure_device_budget
-
-
-def _check_field(field) -> int:
-    fld = canonical_field(field)
-    if fld not in (0, 1):
-        raise NotImplementedError(
-            f"field {fld}: string keys need sort_keys, which is not ported yet "
-            "(ROADMAP.md, Queue 1: fields 2 and 3)"
-        )
-    return fld
 
 
 def _shift_in(x: torch.Tensor, fill, at_end: bool = False) -> torch.Tensor:
@@ -50,14 +43,21 @@ def _pipeline_view(both: RecordBatch, nr: int, field: int, cfg: EngineConfig):
     Returns (view, adj, is_r, is_s, prev_side, v_num); ``prev_side`` is True
     where the previous sorted row is an S row.
     """
-    field = _check_field(field)
+    field = canonical_field(field)
     inact = ~both.valid
-    (kw,) = key_words(both, field)
-    extra = () if field == 1 else (both.num,)
-    sort = packed_u32_view_sort if cfg.packed_u32_sorts else view_sort_3key
-    s_key, perm, v_act, ex = sort(inact, kw, extra)
-    v_num = s_key if field == 1 else ex[0]
-    adj = torch.cat([s_key.new_zeros(1, dtype=torch.bool), s_key[1:] == s_key[:-1]])
+    if field in (0, 1):
+        (kw,) = key_words(both, field)
+        extra = () if field == 1 else (both.num,)
+        sort = packed_u32_view_sort if cfg.packed_u32_sorts else view_sort_3key
+        s_key, perm, v_act, ex = sort(inact, kw, extra)
+        v_num = s_key if field == 1 else ex[0]
+        adj = sorted_adjacent_equal(s_key)
+    else:
+        view = sort_keys(both, field, cfg, pre_words=(inact,),
+                         extra=(both.valid.to(torch.int32), both.num))
+        v_act_w, v_num = view.extras
+        v_act = v_act_w == 1
+        perm, adj = view.perm, view.adj_eq
     v_side = perm >= nr
     is_r = v_act & ~v_side
     is_s = v_act & v_side
@@ -77,16 +77,6 @@ def _stage_a_flags(adj, is_r, is_s, prev_side):
     any_s_suffix = seg_max(end_flags, is_s.to(torch.int32), reverse=True) == 1
     matched = r_first & any_s_suffix
     return r_first, s_first, run_has_r, matched
-
-
-def _gather_join(matched: torch.Tensor, perm: torch.Tensor, r: RecordBatch, n: int) -> RecordBatch:
-    """The one record materialization: matched R rows in key order, then
-    zero rows.  Matched rows are always R rows, so the gather reads R alone;
-    the fill index n is out of range for R as it is for R||S."""
-    nr = r.nrows
-    cnt, (orig_front,) = compact_words(matched, (perm,))
-    live = torch.arange(nr, dtype=torch.int32, device=perm.device) < cnt
-    return r.take_fill(torch.where(live, orig_front[:nr], n))
 
 
 def pipeline_single_impl(
@@ -129,7 +119,8 @@ def pipeline_single_impl(
         "hash_nres": (s_first & run_has_r).sum(dtype=torch.int32),
         "agg_groups": nu_s,
         "aggs": aggs,
-        "join_out": _gather_join(matched, view.perm, r, n),
+        # matched rows are always R rows, so the record gather reads R alone
+        "join_out": materialize_survivors(r, view.perm, matched, cfg)[0],
         "join_count": mj_n,
     }
 
@@ -144,7 +135,7 @@ def make_pipeline_staged(field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
     Inputs beyond ``cfg.mem_rows`` raise ``MemoryBudgetError``: the
     over-budget route is not ported yet.
     """
-    fld = _check_field(field)
+    fld = canonical_field(field)
     use_sort_placement(cfg)
 
     def stage_a(r: RecordBatch, s: RecordBatch) -> dict:
@@ -166,7 +157,7 @@ def make_pipeline_staged(field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
 
     def materialize(out: dict, r: RecordBatch, s: RecordBatch) -> RecordBatch:
         """Stage B: the one record materialization from stage A's words."""
-        return _gather_join(out["matched"], out["perm"], r, r.nrows + s.nrows)
+        return materialize_survivors(r, out["perm"], out["matched"], cfg)[0]
 
     def run(r: RecordBatch, s: RecordBatch) -> dict:
         out = stage_a(r, s)

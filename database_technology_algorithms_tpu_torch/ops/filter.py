@@ -8,10 +8,4 @@ from ..batch import RecordBatch
 
 def truncate(batch: RecordBatch, count) -> RecordBatch:
     """Host-side: keep only the first `count` rows."""
-    c = int(count)
-    return RecordBatch(
-        recid=batch.recid[:c],
-        num=batch.num[:c],
-        strw=batch.strw[:c],
-        valid=batch.valid[:c],
-    )
+    return batch.slice(0, int(count))

@@ -2,7 +2,9 @@
 
 A key is a list of u32 words (int32 tensors), most significant first:
 recid and num are one word; str is the packed string words; (num, str) is
-[num] ++ str words.
+[num] ++ str words.  String words are column views of ``strw`` (row stride
+K): the kernels that read keys (K5, K6) take strided columns, so no word is
+copied out.
 """
 
 from __future__ import annotations
@@ -10,11 +12,12 @@ from __future__ import annotations
 import torch
 
 from ..batch import FIELD_NUM, FIELD_NUMSTR, FIELD_RECID, FIELD_STR, RecordBatch, canonical_field
+from ..kernels.adj_equal import adj_equal
 
 
 def str_key_words(strw: torch.Tensor, nwords: int) -> list[torch.Tensor]:
-    """First nwords packed string words (most significant first)."""
-    return [strw[:, j].contiguous() for j in range(nwords)]
+    """First nwords packed string words (most significant first), as views."""
+    return [strw[:, j] for j in range(nwords)]
 
 
 def key_words(batch: RecordBatch, field, nwords: int | None = None) -> list[torch.Tensor]:
@@ -31,3 +34,27 @@ def key_words(batch: RecordBatch, field, nwords: int | None = None) -> list[torc
     if field == FIELD_NUMSTR:
         return [batch.num] + str_key_words(batch.strw, sw)
     raise ValueError(field)
+
+
+def uses_strings(field) -> bool:
+    return canonical_field(field) in (FIELD_STR, FIELD_NUMSTR)
+
+
+def rows_equal_on_field(batch: RecordBatch, field, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Exact key equality between row sets i and j (full width, never
+    prefixed), elementwise.  The sorted-neighbour form the engine needs,
+    ``(perm[:-1], perm[1:])``, is ``adjacent_equal(batch, field, perm)``
+    (kernel K6), which gathers no rows."""
+    i, j = i.long(), j.long()
+    eq = torch.ones(i.shape, dtype=torch.bool, device=i.device)
+    for w in key_words(batch, field):
+        eq &= w[i] == w[j]
+    return eq
+
+
+def adjacent_equal(batch: RecordBatch, field, perm: torch.Tensor | None = None) -> torch.Tensor:
+    """bool[N]: row k has the same full key as row k-1 (element 0 is False).
+    With `perm` (sorted position -> row) the rows are read in sorted order,
+    which is ``rows_equal_on_field(batch, field, perm[:-1], perm[1:])`` with
+    a leading False."""
+    return adj_equal(key_words(batch, field), perm)

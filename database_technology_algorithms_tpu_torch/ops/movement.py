@@ -1,18 +1,22 @@
 """Word-level data movement.
 
 Port of the gather route of the JAX package's ``ops/movement.py``.  The
-JAX package moves rows through placement sorts on the TPU, where a random
-gather costs ~32 ns/row, and through a compaction plus one record gather
+JAX package moves rows through placement sorts on the TPU, where it found
+random gathers slow, and through a compaction plus one record gather
 elsewhere (``config.py``: "gather … fast on CPU/GPU").  The port takes the
 gather route: ``compact_words`` is kernel K3, the record gather kernel K4.
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..batch import RecordBatch
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..kernels.compact import compact_words
+from .scan import cumsum
 
-__all__ = ["compact_words", "use_sort_placement"]
+__all__ = ["compact_words", "compaction_dest", "compact_rows", "use_sort_placement"]
 
 
 def use_sort_placement(cfg: EngineConfig = DEFAULT_CONFIG) -> bool:
@@ -27,3 +31,32 @@ def use_sort_placement(cfg: EngineConfig = DEFAULT_CONFIG) -> bool:
     if cfg.materialize in ("gather", "auto"):
         return False
     raise ValueError(f"unknown materialize engine: {cfg.materialize!r}")
+
+
+def compaction_dest(keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dest, count): dest[i] = survivor rank if kept, else count + drop rank.
+
+    dest is a dense permutation of [0, N): survivors to the front in order,
+    drops after in order.
+    """
+    n = keep.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=keep.device)
+    ranks = cumsum(keep.to(torch.int32)) - 1  # kept rank at kept rows
+    count = keep.sum(dtype=torch.int32)
+    return torch.where(keep, ranks, count + (iota - ranks - 1)), count
+
+
+def compact_rows(
+    batch: RecordBatch,
+    keep: torch.Tensor,
+    extra: tuple = (),
+    cfg: EngineConfig = DEFAULT_CONFIG,
+) -> tuple[RecordBatch, torch.Tensor, tuple]:
+    """Keep-masked rows to the front, order preserved; rows past `count`
+    are zero with valid False.  Returns (batch, count, extras compacted
+    alongside).  One word compaction (K3) and one record gather (K4)."""
+    use_sort_placement(cfg)
+    n = batch.nrows
+    iota = torch.arange(n, dtype=torch.int32, device=keep.device)
+    count, out = compact_words(keep, (iota, *extra))
+    return batch.take_fill(torch.where(iota < count, out[0], n)), count, out[1:]

@@ -13,11 +13,14 @@ import torch
 from ..kernels.seg_scan import seg_scan
 
 
-def seg_carry(start_flags: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+def seg_carry(start_flags: torch.Tensor, vals: torch.Tensor,
+              reverse: bool = False) -> torch.Tensor:
     """vals[row] := vals at the start of row's run (an add scan over the
-    start-masked values, as in the JAX package)."""
+    start-masked values, as in the JAX package).  ``reverse=True`` with the
+    runs' END flags hands each row its run's last value:
+    ``flip(seg_carry(flip(end_flags), flip(vals)))``."""
     masked = torch.where(start_flags, vals, 0)
-    return seg_scan(start_flags, masked, "add")
+    return seg_scan(start_flags, masked, "add", reverse=reverse)
 
 
 def seg_min(start_flags: torch.Tensor, vals: torch.Tensor, signed: bool = False,

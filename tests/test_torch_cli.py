@@ -1,0 +1,165 @@
+"""The PyTorch port's CLI against the JAX package's CLI on the same files.
+
+Each command runs in both packages (the port with ``--device cpu``, JAX on
+the CPU by conftest) and must print the same JSON counters and write the
+same bytes.  Every value is an integer: exact compare.
+"""
+
+import json
+import sys
+
+import numpy as np
+import pytest
+
+from database_technology_algorithms_tpu.__main__ import main as j_main
+from database_technology_algorithms_tpu_torch.__main__ import main as t_main
+from database_technology_algorithms_tpu_torch.io.blockfile import (
+    read_blockfile_numpy, write_blockfile)
+from database_technology_algorithms_tpu_torch.io.generator import (
+    generate_columns, generate_pair_files)
+from database_technology_algorithms_tpu_torch.utils.checks import MemoryBudgetError
+
+NBLOCKS = 20
+FIELDS = ["0", "1", "2", "3"]
+
+
+def last_json(capsys) -> dict:
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    line.pop("wall_s", None)
+    return line
+
+
+def run_jax(monkeypatch, capsys, argv) -> tuple[int, dict]:
+    monkeypatch.setattr(sys, "argv", ["database_technology_algorithms_tpu", *argv])
+    rc = j_main()
+    return rc, last_json(capsys)
+
+
+def run_port(capsys, argv) -> tuple[int, dict]:
+    rc = t_main([*argv, "--device", "cpu"])
+    return rc, last_json(capsys)
+
+
+@pytest.fixture
+def pair_files(tmp_path):
+    """Two tables with repeated keys in every field: num in a small range,
+    strings from a small alphabet, file2 a reshuffle of part of file1."""
+    g = np.random.default_rng(17)
+    n = NBLOCKS * 100
+    r = generate_columns(NBLOCKS, seed=3, key_range=n // 4)
+    r["strs"][:, 2:5] = 0  # two-letter strings: many repeats
+    rows = g.integers(0, n, size=n)
+    s = {k: v[rows] for k, v in r.items()}
+    s["num"] = np.where(g.random(n) < 0.5, s["num"], s["num"] + np.uint32(n)).astype(np.uint32)
+    s["recid"] = (s["recid"] + np.uint32(n // 2)).astype(np.uint32)
+    f1, f2 = str(tmp_path / "a.bin"), str(tmp_path / "b.bin")
+    write_blockfile(f1, r)
+    write_blockfile(f2, s)
+    return f1, f2
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_pipeline_command_matches_jax(field, tmp_path, monkeypatch, capsys):
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jdir.mkdir()
+    tdir.mkdir()
+    argv = ["pipeline", "--nblocks", str(NBLOCKS), "--field", field, "--seed", "7"]
+    jrc, want = run_jax(monkeypatch, capsys, [*argv, "--workdir", str(jdir)])
+    trc, got = run_port(capsys, [*argv, "--workdir", str(tdir)])
+    assert jrc == trc == 0
+    assert got == want and got["joins_agree"] is True
+    assert set(got) == {"nblocks", "field", "merge_join_pairs", "hash_join_pairs",
+                        "joins_agree", "nunique_r", "nunique_s"}
+    for name in ("file.bin", "file2.bin", "outmerge.bin", "outhash.bin"):
+        assert (tdir / name).read_bytes() == (jdir / name).read_bytes(), name
+    if field == "0":  # both files share recids
+        assert got["merge_join_pairs"] == NBLOCKS * 100
+    if field == "2":  # the planted "Hola" is in both files
+        assert got["merge_join_pairs"] >= 1
+        out = read_blockfile_numpy(str(tdir / "outmerge.bin"))
+        assert any(bytes(row[:5]) == b"Hola\0" for row in out["strs"])
+
+
+def test_bare_invocation_runs_the_pipeline(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)  # the default --workdir
+    argv = ["--nblocks", "3", "--field", "1", "--skip-files"]
+    rc, got = run_port(capsys, argv)
+    rc2, want = run_port(capsys, ["pipeline", *argv])
+    assert rc == rc2 == 0 and got == want and got["nblocks"] == 3
+    assert not list(tmp_path.iterdir())  # --skip-files writes nothing
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_elimdup_command_matches_jax(field, pair_files, tmp_path, monkeypatch, capsys):
+    f1, _ = pair_files
+    jout, tout = str(tmp_path / "j.bin"), str(tmp_path / "t.bin")
+    jrc, want = run_jax(monkeypatch, capsys, ["elimdup", f1, jout, "--field", field])
+    trc, got = run_port(capsys, ["elimdup", f1, tout, "--field", field])
+    assert jrc == trc == 0
+    assert got == want and set(got) == {"nunique", "rows"}
+    assert 0 < got["nunique"] <= got["rows"] == NBLOCKS * 100
+    if field != "0":
+        assert got["nunique"] < got["rows"]
+    assert open(tout, "rb").read() == open(jout, "rb").read()
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_hashjoin_command_matches_jax(field, pair_files, tmp_path, monkeypatch, capsys):
+    f1, f2 = pair_files
+    jout, tout = str(tmp_path / "j.bin"), str(tmp_path / "t.bin")
+    jrc, want = run_jax(monkeypatch, capsys, ["hashjoin", f1, f2, jout, "--field", field])
+    trc, got = run_port(capsys, ["hashjoin", f1, f2, tout, "--field", field])
+    assert jrc == trc == 0
+    assert got == want and got["output_order"] == "probe_scan" and got["nres"] > 0
+    # the same rows in the same (probe scan) order
+    assert open(tout, "rb").read() == open(jout, "rb").read()
+    back = read_blockfile_numpy(tout)
+    assert len(back["recid"]) == got["nres"]
+    if field == "3":  # build duplicates repeat probe rows: more rows out than probe rows hit
+        probe = read_blockfile_numpy(f2)
+        assert got["nres"] > len(np.unique(back["recid"]))
+        assert got["nres"] != len(probe["recid"])
+
+
+@pytest.mark.parametrize("field", ["2", "3"])
+def test_mergejoin_command_matches_jax_on_string_fields(field, pair_files, tmp_path,
+                                                        monkeypatch, capsys):
+    f1, f2 = pair_files
+    jout, tout = str(tmp_path / "j.bin"), str(tmp_path / "t.bin")
+    jrc, want = run_jax(monkeypatch, capsys, ["mergejoin", f1, f2, jout, "--field", field])
+    trc, got = run_port(capsys, ["mergejoin", f1, f2, tout, "--field", field])
+    assert jrc == trc == 0
+    assert got == want and got["nres"] > 0
+    assert open(tout, "rb").read() == open(jout, "rb").read()
+
+
+def test_unported_flags_and_commands_raise(pair_files, tmp_path):
+    f1, f2 = pair_files
+    out = str(tmp_path / "o.bin")
+    cpu = ["--device", "cpu"]
+    for argv in (
+        ["pipeline", "--nblocks", "1", "--dist", "4", *cpu],
+        ["mergesort", f1, out, *cpu],
+        ["elimdup", f1, out, "--mem-blocks", "10", *cpu],
+        ["hashjoin", f1, f2, out, "--mem-blocks", "10", *cpu],
+        ["mergejoin", f1, f2, out, "--mem-blocks", "10", *cpu],
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_main(argv)
+    with pytest.raises(SystemExit):  # --platform belongs to the JAX CLI
+        t_main(["pipeline", "--nblocks", "1", "--platform", "cpu"])
+    with pytest.raises(ValueError):
+        t_main(["elimdup", f1, out, "--field", "4", *cpu])
+
+
+def test_commands_refuse_inputs_beyond_the_device_budget(tmp_path, monkeypatch):
+    from database_technology_algorithms_tpu_torch import config
+
+    f1, f2 = str(tmp_path / "a.bin"), str(tmp_path / "b.bin")
+    generate_pair_files(f1, f2, 2)
+    monkeypatch.setattr(config, "DEFAULT_CONFIG", config.EngineConfig(mem_rows=300))
+    out = str(tmp_path / "o.bin")
+    assert t_main(["elimdup", f1, out, "--device", "cpu"]) == 0  # 200 rows fit
+    for argv in (["hashjoin", f1, f2, out], ["mergejoin", f1, f2, out]):
+        with pytest.raises(MemoryBudgetError):  # 400 rows do not
+            t_main([*argv, "--device", "cpu"])

@@ -42,7 +42,9 @@ def port_sources() -> list[Path]:
 
 def test_port_sources_found():
     names = {p.name for p in port_sources()}
-    assert {"chip_smoke.py", "pipeline.py", "radix_sort.py", "_lib.py"} <= names
+    assert {"chip_smoke.py", "pipeline.py", "radix_sort.py", "_lib.py", "words_sort.py",
+            "adj_equal.py", "unpermute.py", "distinct.py", "merge_join.py", "hash_join.py",
+            "__main__.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -88,6 +90,10 @@ def test_entry_points_need_a_device_without_cuda(no_cuda, tmp_path):
         lambda: generate_batch(1),
         lambda: read_blockfile(path),
         lambda: main(["mergejoin", path, path, str(tmp_path / "o.bin")]),
+        lambda: main(["hashjoin", path, path, str(tmp_path / "o.bin")]),
+        lambda: main(["elimdup", path, str(tmp_path / "o.bin")]),
+        lambda: main(["pipeline", "--nblocks", "1", "--skip-files"]),
+        lambda: main(["--nblocks", "1", "--skip-files"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -102,6 +108,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     from database_technology_algorithms_tpu_torch.kernels.radix_sort import view_sort
     from database_technology_algorithms_tpu_torch.kernels.seg_scan import seg_scan
     from database_technology_algorithms_tpu_torch.kernels.take_fill import take_fill
+    from database_technology_algorithms_tpu_torch.kernels.adj_equal import adj_equal
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import unpermute
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import words_sort
 
     meta = torch.device("meta")
     words = torch.empty(8, dtype=torch.int32, device=meta)
@@ -112,6 +121,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: compact_words(flags, (words,)),
         lambda: take_fill(words, words, torch.empty((8, 2), dtype=torch.int32, device=meta),
                           flags, words),
+        lambda: words_sort([words, words], flags, (words,)),
+        lambda: adj_equal([words], words),
+        lambda: unpermute(words, flags, 2, 4),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

@@ -33,10 +33,21 @@ COUNTERS = ("nunique_r", "nunique_s", "merge_nres", "hash_nres", "agg_groups", "
 
 def make_side(seed, recid_start, kind):
     """One side: the bench's key range (3n/10), or keys over the full u32
-    range with repeats; about 5% of rows valid=False either way."""
+    range with repeats; about 5% of rows valid=False either way.  Half the
+    rows take a 10-byte string from a pool shared by both sides and tied to
+    num, so that the string fields repeat and match too, and rows tie on the
+    JAX package's 8-byte sort prefix with different full keys."""
     g = np.random.default_rng(seed)
     cols = generate_columns(NBLOCKS, seed=seed, key_range=3 * ROWS // 10,
                             recid_start=recid_start)
+    pool = np.zeros((64, 128), dtype=np.uint8)
+    pool[:, :8] = np.frombuffer(b"sameprefSAMEPREF", dtype=np.uint8).reshape(2, 8)[
+        np.arange(64) % 2]
+    pool[:, 8:10] = np.frombuffer(b"abcdefgh", dtype=np.uint8)[
+        np.random.default_rng(98).integers(0, 8, size=(64, 2))]
+    pooled = g.random(ROWS) < 0.5
+    pick = (cols["num"].astype(np.int64) * 7 + g.integers(0, 2, size=ROWS)) % 64
+    cols["strs"][pooled] = pool[pick[pooled]]
     if kind == "full_range":
         # one pool of keys for both sides, so that they share keys
         pool = np.random.default_rng(99).integers(0, 2**32, size=ROWS // 4, dtype=np.uint64)
@@ -78,7 +89,7 @@ def batches(request):
 
 
 @pytest.mark.parametrize("jax_route", ["gather", "sort"])
-@pytest.mark.parametrize("field", [0, 1])
+@pytest.mark.parametrize("field", [0, 1, 2, 3])
 def test_staged_pipeline_matches_jax(batches, field, jax_route):
     jr, js, tr, ts = batches
     want = jpipe.make_pipeline_staged(field, JConfig(materialize=jax_route))(jr, js)
@@ -90,7 +101,7 @@ def test_staged_pipeline_matches_jax(batches, field, jax_route):
         assert_same_batch(got["join_out"], want["join_out"])
 
 
-@pytest.mark.parametrize("field", [0, 1])
+@pytest.mark.parametrize("field", [0, 1, 2, 3])
 def test_stages_compose_to_run(batches, field):
     _, _, tr, ts = batches
     run = tpipe.make_pipeline_staged(field)
@@ -103,7 +114,7 @@ def test_stages_compose_to_run(batches, field):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("field", [0, 1])
+@pytest.mark.parametrize("field", [0, 1, 2, 3])
 def test_pipeline_single_matches_jax(batches, field):
     jr, js, tr, ts = batches
     want = jpipe.pipeline_single(jr, js, field, JConfig(materialize="gather"))
@@ -134,13 +145,12 @@ def test_aggregate_sum_wraps_mod_2_32():
 
 
 def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError):
-        tpipe.make_pipeline_staged(2)
-    with pytest.raises(NotImplementedError):
-        tpipe.make_pipeline_staged("numstr")
+    with pytest.raises(ValueError):
+        tpipe.make_pipeline_staged(4)
     for route in ("sort", "sort2d"):
-        with pytest.raises(NotImplementedError):
-            tpipe.make_pipeline_staged(1, TConfig(materialize=route))
+        for field in (1, "numstr"):
+            with pytest.raises(NotImplementedError):
+                tpipe.make_pipeline_staged(field, TConfig(materialize=route))
     with pytest.raises(ValueError):
         tpipe.make_pipeline_staged(1, TConfig(materialize="scatter"))
     r = TBatch.from_numpy(np.arange(10, dtype=np.uint32), np.arange(10, dtype=np.uint32),
