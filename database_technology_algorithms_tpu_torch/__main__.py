@@ -13,10 +13,13 @@ program (``main.cpp:20-136``), with the JAX package's subcommands:
 
 All commands read and write the reference's binary block format, print a
 stats JSON line, and run on the card unless ``--device cpu`` is given.
-Everything runs in the device budget (``EngineConfig.mem_rows``): larger
-inputs raise ``MemoryBudgetError``, and the flags of the bounded-memory and
-distributed routes (``--mem-blocks``, ``--dist``) raise
-``NotImplementedError`` until those routes are ported.
+The ``pipeline`` command's generated tables take the library routes at any
+size: beyond the device budget (``EngineConfig.mem_rows``) ``distinct`` goes
+through the chunked passes and ``hash_join`` through the tiled join.  Block
+files beyond the budget belong to the external operators, which are not ported
+yet: the file commands raise ``MemoryBudgetError`` for them, and the flags of
+the bounded-memory and distributed routes (``--mem-blocks``, ``--dist``)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def _blockfile_rows(path: str) -> int:
 
 
 def _in_budget_only(args, op: str, *paths) -> None:
-    """The ported commands run in the device budget only."""
+    """The file commands run in the device budget only."""
     from .config import DEFAULT_CONFIG
     from .utils.checks import ensure_device_budget
 
@@ -50,6 +53,7 @@ def _in_budget_only(args, op: str, *paths) -> None:
 
 def cmd_pipeline(args) -> int:
     from .batch import canonical_field
+    from .config import DEFAULT_CONFIG as cfg
     from .io.blockfile import read_blockfile, write_blockfile
     from .io.generator import generate_batch, generate_pair_files
     from .ops.distinct import distinct
@@ -78,9 +82,9 @@ def cmd_pipeline(args) -> int:
 
     print("\n--------------MERGE JOIN-------------------")
     t1 = time.time()
-    r_d, nu_r = distinct(r, field)
-    s_d, nu_s = distinct(s, field)
-    out, nres = join_sorted_distinct(r_d, nu_r, s_d, nu_s, field)
+    r_d, nu_r = distinct(r, field, cfg)
+    s_d, nu_s = distinct(s, field, cfg)
+    out, nres = join_sorted_distinct(r_d, nu_r, s_d, nu_s, field, cfg)
     nres = int(nres)
     dt = time.time() - t1
     print(f"UNIQUE R: {int(nu_r)}  UNIQUE S: {int(nu_s)}")
@@ -92,7 +96,7 @@ def cmd_pipeline(args) -> int:
     print("\n--------------HASH JOIN-------------------")
     t2 = time.time()
     r_dt, s_dt = truncate(r_d, nu_r), truncate(s_d, nu_s)
-    hout, hres = hash_join(r_dt, s_dt, field)
+    hout, hres = hash_join(r_dt, s_dt, field, cfg)
     hres = int(hres)
     dt2 = time.time() - t2
     print(f"PAIRS IN THE OUTPUT: {hres} OUT OF {s.nrows}")

@@ -17,15 +17,7 @@
 
 namespace {
 
-constexpr int MAX_KEY_WORDS = 40;  // num + the 32 string words, with room
-
-struct KeyCols {
-  const uint32_t* ptr[MAX_KEY_WORDS];
-  int64_t stride[MAX_KEY_WORDS];
-  int count;
-};
-
-__global__ void adj_equal_kernel(KeyCols c, const int32_t* perm, int64_t n, uint8_t* adj) {
+__global__ void adj_equal_kernel(dbt::KeyCols c, const int32_t* perm, int64_t n, uint8_t* adj) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (i == 0) {
@@ -46,14 +38,9 @@ __global__ void adj_equal_kernel(KeyCols c, const int32_t* perm, int64_t n, uint
 // each in `strides` (host array, in words); perm i32[n] or null; adj u8[n].
 DBT_API int dbt_adj_equal(const void* const* words, const int64_t* strides, int m,
                           const void* perm, int64_t n, void* adj, void* stream) {
-  if (m < 1 || m > MAX_KEY_WORDS) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > dbt::MAX_KEY_WORDS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  KeyCols c;
-  c.count = m;
-  for (int k = 0; k < m; ++k) {
-    c.ptr[k] = static_cast<const uint32_t*>(words[k]);
-    c.stride[k] = strides[k];
-  }
+  const dbt::KeyCols c = dbt::key_cols(words, strides, m);
   adj_equal_kernel<<<dbt::blocks_for(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       c, static_cast<const int32_t*>(perm), n, static_cast<uint8_t*>(adj));
   DBT_CHECK_LAUNCH();

@@ -40,6 +40,26 @@ inline WordPtrs word_ptrs(const void* const* src, void* const* dst, int first, i
   return w;
 }
 
+// Up to MAX_KEY_WORDS u32 columns of one table (num + the 32 string words,
+// with room), each with its own row stride in words, passed by value: a
+// column of a row-major [N, K] matrix is read where it lies.
+constexpr int MAX_KEY_WORDS = 40;
+struct KeyCols {
+  const uint32_t* ptr[MAX_KEY_WORDS];
+  int64_t stride[MAX_KEY_WORDS];
+  int count;
+};
+
+inline KeyCols key_cols(const void* const* words, const int64_t* strides, int m) {
+  KeyCols c;
+  c.count = m;
+  for (int k = 0; k < m; ++k) {
+    c.ptr[k] = static_cast<const uint32_t*>(words[k]);
+    c.stride[k] = strides[k];
+  }
+  return c;
+}
+
 inline unsigned blocks_for(int64_t n, int64_t per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
 }

@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "radix_sort": 0, "seg_scan": 0, "compact": 0, "take_fill": 0,
     "words_sort": 0, "adj_equal": 0, "unpermute": 0,
+    "hash_words": 0, "stage_cells": 0, "member_mult": 0,
 }
 
 
@@ -104,6 +105,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _I64 = ctypes.c_int64
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 _I = ctypes.c_int
+_U32 = ctypes.c_uint32
 _SIGNATURES = {
     "dbt_error_string": ([_I], ctypes.c_char_p),
     "dbt_seg_scan_scratch_words": ([_I64], _I64),
@@ -116,6 +118,13 @@ _SIGNATURES = {
     "dbt_words_sort": ([_PP, _PI64, _I, _P, _I64, _P, _P, _PP, _PP, _I, _P, _P], _I),
     "dbt_adj_equal": ([_PP, _PI64, _I, _P, _I64, _P, _P], _I),
     "dbt_unpermute": ([_P, _P, _I64, _I64, _I64, _P, _I, _P], _I),
+    "dbt_hash_words": ([_PP, _PI64, _I, _I64, _U32, _I, _P, _P], _I),
+    "dbt_value_boundaries_scratch_words": ([_I64], _I64),
+    "dbt_value_boundaries": ([_P, _I64, _I64, _P, _P, _P], _I),
+    "dbt_stage_cells_scratch_words": ([_I64, _I64], _I64),
+    "dbt_stage_cells": ([_P, _P, _I64, _I64, _I64, _PP, _PI64, _PP, _I, _P, _P, _P, _P, _P, _P], _I),
+    "dbt_member_mult_scratch_words": ([_I64, _I64], _I64),
+    "dbt_member_mult": ([_PP, _PI64, _PP, _PI64, _I, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P], _I),
 }
 
 

@@ -1,5 +1,7 @@
 """The composed query pipeline (port of the JAX package's ``models/pipeline.py``,
-all four key fields, in budget, gather route).
+all four key fields, gather route; beyond the device budget the staged
+runner composes the chunked distinct, the tiled join and the chunked
+compaction).
 
 The reference driver's workload (``main.cpp:109-123``) is MergeJoin
 (sort -> distinct -> two-pointer join) followed by HashJoin on the dedup'd
@@ -132,8 +134,8 @@ def make_pipeline_staged(field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
     ``run.materialize`` (the compaction and record gather) are exposed for
     per-stage timing, as in the JAX package.
 
-    Inputs beyond ``cfg.mem_rows`` raise ``MemoryBudgetError``: the
-    over-budget route is not ported yet.
+    Inputs beyond ``cfg.mem_rows`` take the over-budget composition
+    (``_run_overbudget``); ``run.stage_a`` itself keeps the budget gate.
     """
     fld = canonical_field(field)
     use_sort_placement(cfg)
@@ -159,7 +161,40 @@ def make_pipeline_staged(field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
         """Stage B: the one record materialization from stage A's words."""
         return materialize_survivors(r, out["perm"], out["matched"], cfg)[0]
 
+    def _run_overbudget(r: RecordBatch, s: RecordBatch) -> dict:
+        """Host-level composition from the operators that take any size:
+        distinct through the chunked two-pass route, the intersection
+        through the tiled join, materialization through gather chunks;
+        every device program touches O(mem_rows) rows.  The same result
+        dict as the in-budget runner."""
+        from ..ops.chunked import compact_rows_chunked
+        from ..ops.distinct import distinct
+        from ..ops.hash_join import hash_join_count
+
+        # the valid predicate is the pipeline's selection filter (an activity
+        # mask in the in-budget view sort): the composition honours it too
+        r_d, nu_r = distinct(r, fld, cfg, active=r.valid)
+        s_d, nu_s = distinct(s, fld, cfg, active=s.valid)
+        # matched R survivors in key order = the semi-join of the dedup'd
+        # sides (a distinct build side makes field 3's multiplicities 1, so
+        # nres is the intersection count for every field)
+        m_r, _, mjn = hash_join_count(s_d, r_d, fld, cfg, build_count=nu_s, probe_count=nu_r)
+        mj_out, _ = compact_rows_chunked(r_d, m_r, cfg)
+        return {
+            "nunique_r": nu_r,
+            "nunique_s": nu_s,
+            "merge_nres": mjn,
+            # over dedup'd sides both cross-check counters are the same
+            # intersection cardinality: no second tiled join
+            "hash_nres": mjn,
+            "agg_groups": nu_s,
+            "join_out": mj_out,
+            "join_count": mjn,
+        }
+
     def run(r: RecordBatch, s: RecordBatch) -> dict:
+        if r.nrows + s.nrows > cfg.mem_rows:
+            return _run_overbudget(r, s)
         out = stage_a(r, s)
         return {
             "nunique_r": out["nunique_r"],

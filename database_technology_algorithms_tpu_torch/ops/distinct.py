@@ -7,7 +7,8 @@ order; ``nunique`` counts the unique keys.  Which record of a duplicate
 group survives is the lowest original row (the sort's total order).
 
 One key sort (K1 or K5 with K6), one compaction (K3) and one record gather
-(K4).
+(K4).  Beyond ``cfg.mem_rows`` the public ``distinct`` takes the chunked
+route (``ops/chunked.py``).
 """
 
 from __future__ import annotations
@@ -88,7 +89,18 @@ def distinct_impl(
     return materialize_survivors(batch, view.perm, keep, cfg)
 
 
-# The JAX package's public form sends over-budget batches through a chunked
-# two-pass route; that route is not ported, so the public name is the
-# in-budget function, whose budget gate raises.
-distinct = distinct_impl
+def distinct(
+    batch: RecordBatch,
+    field,
+    cfg: EngineConfig = DEFAULT_CONFIG,
+    count=None,
+    active: torch.Tensor | None = None,
+) -> tuple[RecordBatch, torch.Tensor]:
+    """The public form: batches beyond ``cfg.mem_rows`` route through the
+    chunked route (``ops/chunked.py``) instead of raising; the core
+    ``distinct_impl`` keeps its budget gate."""
+    if batch.nrows > cfg.mem_rows:
+        from .chunked import distinct_chunked
+
+        return distinct_chunked(batch, field, cfg, count, active=active)
+    return distinct_impl(batch, field, cfg, count, active)

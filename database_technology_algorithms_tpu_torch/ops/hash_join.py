@@ -12,20 +12,35 @@ key's build rows before its probe rows; a prefix count of active build rows
 with one forward and one reversed run carry (K2) gives every row its run's
 build total; one un-permute (K7) returns the probe rows' answers to probe
 order.  No record moves until the matched probe rows are compacted.
+
+Beyond ``cfg.mem_rows`` the public forms route through the device-tiled
+join: both sides are hashed (K8) and staged into cells (K9), the cell pairs
+are joined a budget-sized group at a time (K10), and the counts return to
+probe order through one compaction (K3) and one un-permute (K7).
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
 from ..batch import FIELD_NUMSTR, RecordBatch, canonical_field
 from ..config import DEFAULT_CONFIG, EngineConfig
+from ..kernels.member_mult import member_multiplicity_cells
 from ..kernels.unpermute import unpermute
 from ..utils.checks import ensure_device_budget
-from .movement import compact_rows
+from .keys import key_hash, key_words
+from .movement import compact_rows, compact_words, stage_to_cells
 from .scan import cumsum, seg_carry
 from .sort import packed_u32_view_sort, sort_keys, sorted_adjacent_equal
+
+
+log = logging.getLogger(__name__)
+
+# K9 addresses a side's cells with 32-bit slots
+_MAX_CELL_SLOTS = (1 << 31) - 1
 
 
 def _fused_matched_mult(
@@ -108,10 +123,199 @@ def hash_join_count_impl(
     return matched, mult, mult.sum(dtype=torch.int32)
 
 
-# The JAX package's public forms route over-budget pairs through a tiled
-# join with a capacity-doubling retry; that route is not ported, so the
-# public names are the in-budget functions, whose budget gate raises.
-hash_join_count = hash_join_count_impl
+def member_multiplicity(bwords: list, n_bkeys, kwords: list, live_k: torch.Tensor) -> torch.Tensor:
+    """Per query key, the number of live build rows with the same key: one
+    cell pair of kernel K10.  `bwords` are the build key's words (live rows
+    first, `n_bkeys` of them; the port needs no order among them), `kwords`
+    the query keys in any order with the mask `live_k`.  Returns int32 counts
+    in query order, 0 for no match or a dead query row; fields 0-2 read them
+    as a boolean, field 3 sums them."""
+    dev = bwords[0].device
+    nb = torch.as_tensor(n_bkeys, dtype=torch.int32, device=dev).reshape(1)
+    out = member_multiplicity_cells(
+        [w.contiguous()[None, :] for w in bwords], nb,
+        [w.contiguous()[None, :] for w in kwords], None, live_k.contiguous()[None, :],
+    )
+    return out[0]
+
+
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def _tile_layout(nb: int, npr: int, mem_rows: int, cap_mult: int = 1) -> tuple[int, int, int, int]:
+    """(ntiles, cap_b, cap_p, group) for the tiled over-budget join: the one
+    definition of the tiling geometry, copied from the JAX package
+    (``ops/hash_join.py:355``).  Tiles are sized so that a group of cell pairs
+    fits the row budget and a pair holds at most about 16384 rows a side;
+    cell capacity carries 1.5x slack over a uniform hash split, times
+    `cap_mult`."""
+    mem = max(int(mem_rows), 2)
+    ntiles = max(
+        _next_pow2(-(-(2 * (nb + npr)) // mem)),
+        _next_pow2(-(-(nb + npr) // 16384)),
+        2,
+    )
+
+    def cap_for(n):
+        c = max(((-(-n // ntiles)) * 3 * cap_mult + 1) // 2, 64)
+        return -(-c // 8) * 8  # 8-row aligned cells
+
+    cap_b, cap_p = cap_for(nb), cap_for(npr)
+    group = max(min(mem // (cap_b + cap_p), ntiles), 1)
+    while ntiles % group:
+        group -= 1
+    return ntiles, cap_b, cap_p, group
+
+
+def _tiled_matched_mult(
+    build: RecordBatch,
+    probe: RecordBatch,
+    field,
+    cfg: EngineConfig,
+    build_count,
+    probe_count,
+    cap_mult: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One attempt of the over-budget join: (matched, mult, overflow).
+
+    Both sides are hash-partitioned into ``ntiles`` cells (K8, K9; only key
+    words ride the cells) and ``group`` cell pairs are joined per step (K10),
+    so each step's working set stays within ``cfg.mem_rows`` rows.  The
+    counts come back from slot order to probe order through the compaction
+    of the occupied slots (K3) and the staging permutation (K7).  Cell
+    overflow is returned, not handled: ``hash_join_count`` retries with
+    doubled capacity, and the result of an attempt that overflowed is
+    discarded."""
+    nb, npr = build.nrows, probe.nrows
+    dev = build.recid.device
+    ntiles, cap_b, cap_p, group = _tile_layout(nb, npr, cfg.mem_rows, cap_mult)
+    b_active = p_active = None
+    if build_count is not None:
+        b_active = torch.arange(nb, dtype=torch.int32, device=dev) < build_count
+    if probe_count is not None:
+        p_active = torch.arange(npr, dtype=torch.int32, device=dev) < probe_count
+    # ntiles is a power of two: the mask is the modulo of the unsigned hash
+    hb = key_hash(build, field) & (ntiles - 1)
+    hp = key_hash(probe, field) & (ntiles - 1)
+    bkw = key_words(build, field)
+    pkw = key_words(probe, field)
+    # cross-width string keys: the narrower side's missing trailing words are
+    # zero by the narrow-width invariant, so both lists are zero-padded to a
+    # common width before the cells compare them word by word
+    nw = max(len(bkw), len(pkw))
+    bkw = bkw + [torch.zeros(nb, dtype=torch.int32, device=dev)] * (nw - len(bkw))
+    pkw = pkw + [torch.zeros(npr, dtype=torch.int32, device=dev)] * (nw - len(pkw))
+    bcells, bcnt, _, ovf_b = stage_to_cells(hb, b_active, ntiles, cap_b, bkw, row_map="none")
+    pcells, pcnt, si_p, ovf_p = stage_to_cells(hp, p_active, ntiles, cap_p, pkw, row_map="si")
+
+    bcells = [w.view(ntiles, cap_b) for w in bcells]
+    pcells = [w.view(ntiles, cap_p) for w in pcells]
+    steps = []
+    for lo in range(0, ntiles, group):
+        hi = lo + group
+        steps.append(member_multiplicity_cells(
+            [w[lo:hi] for w in bcells], bcnt[lo:hi], [w[lo:hi] for w in pcells], pcnt[lo:hi]))
+    mp = ntiles * cap_p
+    mult_cells = torch.cat(steps).reshape(mp)
+    # slot order back to probe rows: compact the occupied slots' counts; the
+    # staging permutation si_p is the probe rows in slot order while nothing
+    # overflowed, so one un-permute finishes.  Probe rows that were inactive
+    # carry 0.
+    occupied = (torch.arange(cap_p, dtype=torch.int32, device=dev)[None, :]
+                < pcnt[:, None]).reshape(mp)
+    _, (mult_slots,) = compact_words(occupied, (mult_cells,))
+    n_staged = pcnt.sum(dtype=torch.int32)
+    pos = torch.arange(npr, dtype=torch.int32, device=dev)
+    mult_rows = unpermute(si_p, torch.where(pos < n_staged, mult_slots[:npr], 0))
+    return mult_rows > 0, mult_rows, ovf_b + ovf_p
+
+
+def _tiled_count_impl(
+    build: RecordBatch,
+    probe: RecordBatch,
+    field,
+    cfg: EngineConfig = DEFAULT_CONFIG,
+    build_count=None,
+    probe_count=None,
+    cap_mult: int = 1,
+):
+    """One tiled attempt: (matched, mult, nres, overflow)."""
+    field = canonical_field(field)
+    matched, mult, ovf = _tiled_matched_mult(
+        build, probe, field, cfg, build_count, probe_count, cap_mult)
+    if field != FIELD_NUMSTR:
+        mult = matched.to(torch.int32)
+    return matched, mult, mult.sum(dtype=torch.int32), ovf
+
+
+def _ensure_cells_fit(build: RecordBatch, probe: RecordBatch, field, cfg: EngineConfig,
+                      cap_mult: int) -> None:
+    """Raise before a tiled attempt whose cells cannot be addressed or held."""
+    ntiles, cap_b, cap_p, _ = _tile_layout(build.nrows, probe.nrows, cfg.mem_rows, cap_mult)
+    dev = build.recid.device
+    nw = max(len(key_words(build, field)), len(key_words(probe, field)))
+    # the key words of both sides' cells, and the probe side's counts
+    need = 4 * ntiles * (nw * (cap_b + cap_p) + cap_p)
+    free = None
+    if dev.type == "cuda":
+        free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
+    if ntiles * max(cap_b, cap_p) <= _MAX_CELL_SLOTS and (free is None or need <= free):
+        return
+    limit = (f"{need} bytes of cells against {free} free on the card" if free is not None
+             and need > free else f"more than {_MAX_CELL_SLOTS} slots a side")
+    raise RuntimeError(
+        f"tiled hash join: the keys are too skewed for {build.nrows} + {probe.nrows} rows: "
+        f"cells overflowed up to cap_mult={cap_mult // 2}, and {ntiles} cells of "
+        f"{cap_b} + {cap_p} rows at cap_mult={cap_mult} need {limit}")
+
+
+def hash_join_count(
+    build: RecordBatch,
+    probe: RecordBatch,
+    field,
+    cfg: EngineConfig = DEFAULT_CONFIG,
+    build_count=None,
+    probe_count=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(matched, mult, nres) at any size.
+
+    In-budget pairs take ``hash_join_count_impl``.  Pairs beyond
+    ``cfg.mem_rows`` run the device-tiled passes; when a cell overflows
+    (key skew) the attempt is discarded and retried with doubled cell
+    capacity.  The retry is bounded: at ``cap_mult = ntiles`` a cell holds a
+    whole side and cannot overflow, so there are at most log2(ntiles) + 1
+    attempts, each overflow is logged, and running out of them raises.
+
+    The number of cells stays fixed while their capacity doubles, so heavy
+    skew at a large size ends earlier: an attempt whose cells would pass
+    2^31 - 1 slots a side, or the card's free memory, is not made and a
+    ``RuntimeError`` names the skew and the size reached."""
+    if build.nrows + probe.nrows <= cfg.mem_rows:
+        return hash_join_count_impl(build, probe, field, cfg, build_count, probe_count)
+    ntiles = _tile_layout(build.nrows, probe.nrows, cfg.mem_rows)[0]
+    attempts = ntiles.bit_length()  # log2(ntiles) + 1: ntiles is a power of two
+    cap_mult = 1
+    for attempt in range(1, attempts + 1):
+        _ensure_cells_fit(build, probe, field, cfg, cap_mult)
+        matched, mult, nres, ovf = _tiled_count_impl(
+            build, probe, field, cfg, build_count, probe_count, cap_mult)
+        ovf = int(ovf)
+        if ovf == 0:
+            if attempt > 1:
+                log.info("tiled hash join: done in %d attempts (cap_mult=%d)", attempt, cap_mult)
+            return matched, mult, nres
+        log.warning(
+            "tiled hash join: %d rows overflowed their cells at cap_mult=%d "
+            "(attempt %d of %d); doubling the cell capacity", ovf, cap_mult, attempt, attempts)
+        cap_mult *= 2
+    raise RuntimeError(
+        f"tiled hash join: cells still overflow after {attempts} attempts "
+        f"(ntiles={ntiles}, cap_mult={cap_mult // 2})")
 
 
 def hash_join_impl(
@@ -133,7 +337,22 @@ def hash_join_impl(
     return out, nres
 
 
-hash_join = hash_join_impl
+def hash_join(
+    build: RecordBatch,
+    probe: RecordBatch,
+    field,
+    cfg: EngineConfig = DEFAULT_CONFIG,
+) -> tuple[RecordBatch, torch.Tensor]:
+    """Semi-join at any size.  Pairs beyond ``cfg.mem_rows`` get their match
+    mask from the tiled ``hash_join_count`` and materialize through
+    budget-sized gather chunks (``ops/chunked.py``)."""
+    if build.nrows + probe.nrows <= cfg.mem_rows:
+        return hash_join_impl(build, probe, field, cfg)
+    from .chunked import compact_rows_chunked
+
+    matched, _, nres = hash_join_count(build, probe, field, cfg)
+    out, _ = compact_rows_chunked(probe, matched, cfg)
+    return out, nres
 
 
 def materialize_field3(probe: RecordBatch, matched, mult) -> RecordBatch:

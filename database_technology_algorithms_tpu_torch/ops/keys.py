@@ -3,8 +3,8 @@
 A key is a list of u32 words (int32 tensors), most significant first:
 recid and num are one word; str is the packed string words; (num, str) is
 [num] ++ str words.  String words are column views of ``strw`` (row stride
-K): the kernels that read keys (K5, K6) take strided columns, so no word is
-copied out.
+K): the kernels that read keys (K5, K6, K8) take strided columns, so no word
+is copied out.  ``hash_words`` is kernel K8 (``kernels/hash_words.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,12 @@ import torch
 
 from ..batch import FIELD_NUM, FIELD_NUMSTR, FIELD_RECID, FIELD_STR, RecordBatch, canonical_field
 from ..kernels.adj_equal import adj_equal
+from ..kernels.hash_words import hash_words
+
+__all__ = [
+    "str_key_words", "key_words", "uses_strings", "rows_equal_on_field", "adjacent_equal",
+    "hash_words", "key_hash",
+]
 
 
 def str_key_words(strw: torch.Tensor, nwords: int) -> list[torch.Tensor]:
@@ -58,3 +64,12 @@ def adjacent_equal(batch: RecordBatch, field, perm: torch.Tensor | None = None) 
     which is ``rows_equal_on_field(batch, field, perm[:-1], perm[1:])`` with
     a leading False."""
     return adj_equal(key_words(batch, field), perm)
+
+
+def key_hash(batch: RecordBatch, field, seed: int = 0) -> torch.Tensor:
+    """u32 hash (int32 bits) of each row's full key, the same at every stored
+    strw width: zero string words are skipped, while the num word of field 3
+    (where 0 is a legal key value) always hashes."""
+    field = canonical_field(field)
+    skip = (1 if field == FIELD_NUMSTR else 0) if uses_strings(field) else None
+    return hash_words(key_words(batch, field), seed=seed, skip_zero_from=skip)

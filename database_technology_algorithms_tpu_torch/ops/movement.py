@@ -5,6 +5,8 @@ JAX package moves rows through placement sorts on the TPU, where it found
 random gathers slow, and through a compaction plus one record gather
 elsewhere (``config.py``: "gather … fast on CPU/GPU").  The port takes the
 gather route: ``compact_words`` is kernel K3, the record gather kernel K4.
+``stage_to_cells`` and ``value_boundaries``, the partition pass of the tiled
+over-budget join, are kernel K9 (``kernels/stage_cells.py``).
 """
 
 from __future__ import annotations
@@ -14,9 +16,13 @@ import torch
 from ..batch import RecordBatch
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..kernels.compact import compact_words
+from ..kernels.stage_cells import stage_to_cells, value_boundaries
 from .scan import cumsum
 
-__all__ = ["compact_words", "compaction_dest", "compact_rows", "use_sort_placement"]
+__all__ = [
+    "compact_words", "compaction_dest", "compact_rows", "use_sort_placement",
+    "stage_to_cells", "value_boundaries",
+]
 
 
 def use_sort_placement(cfg: EngineConfig = DEFAULT_CONFIG) -> bool:

@@ -159,10 +159,20 @@ def sort_batch_impl(
     return batch.take(view.perm), view.perm
 
 
-# The JAX package's public form sends over-budget batches through a chunked
-# two-pass route; that route is not ported, so the public name is the
-# in-budget function, whose budget gate raises.
-sort_batch = sort_batch_impl
+def sort_batch(
+    batch: RecordBatch,
+    field,
+    cfg: EngineConfig = DEFAULT_CONFIG,
+    count=None,
+) -> tuple[RecordBatch, torch.Tensor]:
+    """The public form: batches beyond ``cfg.mem_rows`` route through the
+    chunked two-pass route (``ops/chunked.py``) instead of raising; the
+    core ``sort_batch_impl`` keeps its budget gate."""
+    if batch.nrows > cfg.mem_rows:
+        from .chunked import sort_batch_chunked
+
+        return sort_batch_chunked(batch, field, cfg, count)
+    return sort_batch_impl(batch, field, cfg, count)
 
 
 def sort_perm(batch: RecordBatch, field, cfg: EngineConfig = DEFAULT_CONFIG) -> torch.Tensor:

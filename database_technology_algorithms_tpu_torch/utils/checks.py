@@ -16,13 +16,18 @@ class MemoryBudgetError(ValueError):
 
 def ensure_device_budget(nrows: int, cfg, op: str) -> None:
     """Refuse inputs beyond ``cfg.mem_rows`` (the reference's nmem_blocks
-    bounded-buffer contract, ``dbtproj.h:48,76``).  The external and
-    over-budget routes that would take such inputs are not ported yet."""
+    bounded-buffer contract, ``dbtproj.h:48,76``).  This is the gate of the
+    in-budget ``_impl`` forms; the public operators route such inputs
+    instead of calling them."""
     if nrows > cfg.mem_rows:
         raise MemoryBudgetError(
             f"{op}: {nrows} rows exceed the device budget "
-            f"cfg.mem_rows={cfg.mem_rows}; the over-budget route is not "
-            f"ported yet (ROADMAP.md)"
+            f"cfg.mem_rows={cfg.mem_rows}; use the public sort_batch, distinct, "
+            f"hash_join_count, hash_join or make_pipeline_staged, which route "
+            f"device-resident inputs of any size through chunked and tiled passes "
+            f"(ops/chunked.py, the tiled join of ops/hash_join.py); block files "
+            f"beyond the budget need the external operators, which are not ported "
+            f"yet (ROADMAP.md, Queue 1 item 9)"
         )
 
 

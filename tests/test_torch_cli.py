@@ -161,5 +161,25 @@ def test_commands_refuse_inputs_beyond_the_device_budget(tmp_path, monkeypatch):
     out = str(tmp_path / "o.bin")
     assert t_main(["elimdup", f1, out, "--device", "cpu"]) == 0  # 200 rows fit
     for argv in (["hashjoin", f1, f2, out], ["mergejoin", f1, f2, out]):
-        with pytest.raises(MemoryBudgetError):  # 400 rows do not
+        # 400 rows do not: block files beyond the budget belong to the external
+        # operators, and the message names where they stand in the ROADMAP
+        with pytest.raises(MemoryBudgetError, match="external operators.*ROADMAP"):
             t_main([*argv, "--device", "cpu"])
+
+
+def test_pipeline_command_routes_generated_tables_beyond_the_budget(monkeypatch, capsys):
+    """The pipeline command's generated tables reach the library routes: a
+    budget below one table gives the counters of the default budget."""
+    from database_technology_algorithms_tpu_torch import config
+    from database_technology_algorithms_tpu_torch.ops import chunked
+
+    argv = ["pipeline", "--nblocks", "3", "--field", "1", "--skip-files"]
+    _, want = run_port(capsys, argv)
+    monkeypatch.setattr(config, "DEFAULT_CONFIG", config.EngineConfig(mem_rows=128))
+    routed = []
+    real = chunked.distinct_chunked
+    monkeypatch.setattr(chunked, "distinct_chunked",
+                        lambda *a, **k: (routed.append(1), real(*a, **k))[1])
+    rc, got = run_port(capsys, argv)
+    assert rc == 0 and got == want and got["joins_agree"] and got["merge_join_pairs"] > 0
+    assert len(routed) == 2  # both tables went through the chunked distinct

@@ -44,6 +44,7 @@ def test_port_sources_found():
     names = {p.name for p in port_sources()}
     assert {"chip_smoke.py", "pipeline.py", "radix_sort.py", "_lib.py", "words_sort.py",
             "adj_equal.py", "unpermute.py", "distinct.py", "merge_join.py", "hash_join.py",
+            "hash_words.py", "stage_cells.py", "member_mult.py", "chunked.py",
             "__main__.py"} <= names
 
 
@@ -111,10 +112,16 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     from database_technology_algorithms_tpu_torch.kernels.adj_equal import adj_equal
     from database_technology_algorithms_tpu_torch.kernels.unpermute import unpermute
     from database_technology_algorithms_tpu_torch.kernels.words_sort import words_sort
+    from database_technology_algorithms_tpu_torch.kernels.hash_words import hash_words
+    from database_technology_algorithms_tpu_torch.kernels.member_mult import (
+        member_multiplicity_cells)
+    from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
+        stage_to_cells, value_boundaries)
 
     meta = torch.device("meta")
     words = torch.empty(8, dtype=torch.int32, device=meta)
     flags = torch.empty(8, dtype=torch.bool, device=meta)
+    cells = torch.empty((2, 4), dtype=torch.int32, device=meta)
     calls = [
         lambda: view_sort(flags, words),
         lambda: seg_scan(flags, words),
@@ -124,6 +131,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: words_sort([words, words], flags, (words,)),
         lambda: adj_equal([words], words),
         lambda: unpermute(words, flags, 2, 4),
+        lambda: hash_words([words, words], 0, 1),
+        lambda: value_boundaries(words, 4),
+        lambda: stage_to_cells(words, flags, 2, 4, [words], "si"),
+        lambda: member_multiplicity_cells([cells], words[:2], [cells]),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

@@ -389,14 +389,25 @@ def test_unported_engines_and_routes_raise():
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # beyond the budget the in-budget cores refuse; the public forms route
+    # (tests/test_torch_overbudget.py), on the gather route only
     small = TConfig(mem_rows=60)
     for call in (
-        lambda: tsort.sort_batch(tb, 1, TConfig(mem_rows=49)),
-        lambda: tdistinct.distinct(tb, 1, TConfig(mem_rows=49)),
-        lambda: thash.hash_join_count(tb, tb, 1, small),
-        lambda: thash.hash_join(tb, tb, 1, small),
+        lambda: tsort.sort_batch_impl(tb, 1, TConfig(mem_rows=49)),
+        lambda: tdistinct.distinct_impl(tb, 1, TConfig(mem_rows=49)),
+        lambda: thash.hash_join_count_impl(tb, tb, 1, small),
+        lambda: thash.hash_join_impl(tb, tb, 1, small),
     ):
-        with pytest.raises(MemoryBudgetError):
+        with pytest.raises(MemoryBudgetError, match="ROADMAP"):
+            call()
+    assert int(tdistinct.distinct(tb, 1, TConfig(mem_rows=49))[1]) == int(
+        tdistinct.distinct(tb, 1)[1])
+    assert int(thash.hash_join(tb, tb, 1, small)[1]) == int(thash.hash_join(tb, tb, 1)[1])
+    for call in (
+        lambda: tsort.sort_batch(tb, 2, TConfig(mem_rows=49, materialize="sort")),
+        lambda: thash.hash_join(tb, tb, 0, TConfig(mem_rows=60, materialize="sort")),
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
 

@@ -155,8 +155,14 @@ def test_unported_routes_raise():
         tpipe.make_pipeline_staged(1, TConfig(materialize="scatter"))
     r = TBatch.from_numpy(np.arange(10, dtype=np.uint32), np.arange(10, dtype=np.uint32),
                           device="cpu")
+    # one row over the budget: the runner routes, its in-budget stage and the
+    # fused single program still refuse
+    over = tpipe.make_pipeline_staged(1, TConfig(mem_rows=19))
+    assert int(over(r, r)["merge_nres"]) == 10
+    with pytest.raises(MemoryBudgetError, match="ROADMAP"):
+        over.stage_a(r, r)
     with pytest.raises(MemoryBudgetError):
-        tpipe.make_pipeline_staged(1, TConfig(mem_rows=19))(r, r)
+        tpipe.pipeline_single_impl(r, r, 1, TConfig(mem_rows=19))
     assert int(tpipe.make_pipeline_staged(1, TConfig(mem_rows=20))(r, r)["merge_nres"]) == 10
 
 
