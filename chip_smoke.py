@@ -11,14 +11,27 @@ Phases (any failure raises and the script exits non-zero):
   2. hold each kernel (K1 view sort, K2 segmented scan, K3 compaction,
      K4 record gather, K5 multi-word sort, K6 adjacent-key equality,
      K7 un-permute, K8 key hash, K9 staging into cells, K10 build
-     multiplicity over cell pairs) against its plain torch version on the
-     card, bit for bit, at the main paths' shapes and at edge cases;
+     multiplicity over cell pairs, K11 tile copy, K12 row move) against its
+     plain torch version on the card, bit for bit, at the main paths'
+     shapes and at edge cases;
   3. the staged pipeline: ``make_pipeline_staged(1)`` on 1M + 1M generated
      rows (the bench's key range, 3*rows/10), with every launch counter set
      to 0 just before and read just after; then field 0.  Counters, join
      rows and the u32 checksum of the join output are held against a numpy
      oracle and against the port's plain path (the same pipeline on the
      host CPU);
+     the placement route: the same pipeline under
+     ``EngineConfig(materialize="sort")`` and ``"sort2d"`` for fields 0-3,
+     the launch counters set to 0 before each run and read after it,
+     against the numpy oracle and column for column against the gather
+     route; ``sort_batch``, ``distinct``, ``merge_join``,
+     ``join_sorted_distinct``, ``hash_join`` and ``compact_rows`` at 1M
+     rows on both placement routes against the gather route; device time
+     and host wall of the three routes side by side;
+     the probes: the K11 tile copy (``tools/bench_pallas_dma``'s Pallas
+     kernel) for each chunk size G and the K12 row move (P4 and P5 of
+     ``tools/bench_permute_prims``) through the port's probe modules, with
+     their bounds and library yardsticks;
   4. the ``pipeline`` command, the reference's main program, at ``--nblocks 10000``
      (1M + 1M rows) for fields 1, 0, 2, 3, the launch counters set to 0
      before each run and read after it; its JSON counters are held against
@@ -310,6 +323,68 @@ def check_kernels(dev) -> dict:
     log(f"[kernels] K1-K4 equal their plain versions at n in {sizes}")
     errs.update(check_sort_kernels(dev, g, sizes))
     errs.update(check_overbudget_kernels(dev, g, sizes))
+    errs.update(check_probe_kernels(dev, g, sizes[:4] + sizes[5:]))
+    return errs
+
+
+def probe_inputs(dev, g) -> dict:
+    """The probes' own inputs: K11's [n*32/128, 128] words with identity and
+    tile-permuted starts (on the host, as the TPU's scalar prefetch takes
+    them), K12's [N, 36] words with one random slot permutation a tile."""
+    from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as dma
+    from database_technology_algorithms_tpu_torch.tools import bench_permute_prims as prims
+
+    n, tiles = dma.N, dma.N // dma.T
+    x = torch.from_numpy(g.integers(0, 2**32, size=(n * dma.W // 128, 128), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32)).to(dev)
+    starts = {"identity": torch.arange(tiles, dtype=torch.int32) * dma.T,
+              "tile-permuted": torch.from_numpy(g.permutation(tiles).astype(np.int32)) * dma.T}
+    rows = torch.from_numpy(g.integers(0, 2**32, size=(prims.N, prims.W), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    slot = torch.from_numpy(prims.tile_slots(prims.N, prims.T)).to(dev)
+    return {"x": x, "starts": starts, "rows": rows, "slot": slot}
+
+
+def check_probe_kernels(dev, g, sizes) -> dict:
+    """K11 and K12 against their plain versions on the card: K11 for every G
+    of the probe with identity and tile-permuted starts; K12 in both modes at
+    the probe's tiles and as one tile spanning all rows (the placement
+    route's form) with slots outside the tile."""
+    from database_technology_algorithms_tpu_torch.kernels.row_move import (
+        row_move, row_move_plain)
+    from database_technology_algorithms_tpu_torch.kernels.tile_copy import (
+        tile_copy, tile_copy_plain)
+    from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as dma
+    from database_technology_algorithms_tpu_torch.tools import bench_permute_prims as prims
+
+    errs = {"tile_copy": 0, "row_move": 0}
+    pin = probe_inputs(dev, g)
+    for G in dma.GS:
+        for order, st in pin["starts"].items():
+            errs["tile_copy"] = max(errs["tile_copy"], assert_same(
+                f"K11 n={dma.N} G={G} {order} starts",
+                (tile_copy(pin["x"], st, G),), (tile_copy_plain(pin["x"], st, G),)))
+    for load in (True, False):
+        errs["row_move"] = max(errs["row_move"], assert_same(
+            f"K12 N={prims.N} tile={prims.T} load={load}",
+            (row_move(pin["rows"], pin["slot"], prims.T, load),),
+            (row_move_plain(pin["rows"], pin["slot"], prims.T, load),)))
+    for n in sizes:
+        for w in (5, prims.W):
+            x = torch.from_numpy(g.integers(-2**31, 2**31, size=(n, w)).astype(np.int32)).to(dev)
+            load_slot = g.integers(-3, n + 3, size=n).astype(np.int32)
+            store_slot = g.permutation(n).astype(np.int32)
+            store_slot[g.random(n) < 0.2] = n + 1  # these rows land nowhere
+            for load, slot in ((True, load_slot), (False, store_slot)):
+                s = torch.from_numpy(slot).to(dev)
+                errs["row_move"] = max(errs["row_move"], assert_same(
+                    f"K12 N={n} W={w} one tile load={load}",
+                    (row_move(x, s, max(n, 1), load),), (row_move_plain(x, s, max(n, 1), load),)))
+    torch.cuda.synchronize()
+    log(f"[kernels] K11 equals its plain version at n={dma.N} for G in {dma.GS} with identity "
+        f"and tile-permuted starts; K12 in both modes at N={prims.N} in tiles of {prims.T} "
+        f"(W={prims.W}) and as one tile at N in {sizes} (W 5 and {prims.W}) with slots outside "
+        f"the tile")
     return errs
 
 
@@ -777,6 +852,195 @@ def phase_operators(dev, pipe: dict) -> None:
             f"{hit} probe rows hit, == numpy")
 
 
+# ---------------------------------------------------------------------------
+# the placement route (EngineConfig(materialize="sort"/"sort2d"))
+
+# what one staged run of each route must launch: the u32 fields place R
+# directly ("sort"), the others and "sort2d" place survivor_dest's
+# destinations (K2 ranks, K7), with K1 + K4 or K1 + K12
+SORT_ROUTE_KERNELS = {
+    ("sort", True): ("radix_sort", "seg_scan", "unpermute", "take_fill"),
+    ("sort", False): ("words_sort", "adj_equal", "seg_scan", "unpermute", "radix_sort",
+                      "take_fill"),
+    ("sort2d", True): ("radix_sort", "seg_scan", "unpermute", "row_move"),
+    ("sort2d", False): ("words_sort", "adj_equal", "seg_scan", "unpermute", "radix_sort",
+                        "row_move"),
+}
+ROUTES = ("gather", "sort", "sort2d")
+
+
+def same_batch(a, b, what: str) -> None:
+    for col in ("recid", "num", "strw", "valid"):
+        if not torch.equal(getattr(a, col), getattr(b, col)):
+            raise AssertionError(f"{what}: column {col} differs")
+
+
+def phase_sort_route(dev, card: str, pipe: dict) -> dict:
+    from database_technology_algorithms_tpu_torch.config import EngineConfig
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+    from database_technology_algorithms_tpu_torch.models.pipeline import make_pipeline_staged
+
+    r, s, _ = pipe["inputs"]
+    r_cols, s_cols = pipe["cols"]
+    cfgs = {route: EngineConfig(materialize=route) for route in ROUTES}
+    runs = {(route, f): make_pipeline_staged(f, cfgs[route]) for route in ROUTES for f in range(4)}
+    launches = {}
+    for field in (1, 0, 2, 3):
+        want = oracle(r_cols, s_cols, field)
+        gather_out = runs[("gather", field)](r, s)["join_out"]
+        for route in ("sort", "sort2d"):
+            run = runs[(route, field)]
+            # ---- the main path of the route: counts from exactly one run ------
+            reset_launches()
+            out = run(r, s)
+            torch.cuda.synchronize()
+            launches[(route, field)] = dict(LAUNCHES)
+            missing = [k for k in SORT_ROUTE_KERNELS[(route, field in (0, 1))] if LAUNCHES[k] == 0]
+            if missing:
+                raise AssertionError(f"{route} route, field {field}: never launched {missing}")
+            got = check_run(out, want, r_cols, f"{route} route, field {field} {ROWS}+{ROWS}")
+            same_batch(out["join_out"], gather_out, f"{route} route, field {field}")
+            log(f"[sort route] {route}, field {field}, {ROWS}+{ROWS}: {json.dumps(got)} == numpy "
+                f"oracle, every output column == the gather route's; launches "
+                f"{ {k: v for k, v in launches[(route, field)].items() if v} }")
+    check_operators_on_routes(dev, r, s, cfgs)
+
+    # ---- the two routes side by side, in turns (gather, sort, sort2d, and back) --
+    times = {}
+    for field, rounds in ((1, 2), (2, 1)):
+        order = list(ROUTES) + list(reversed(ROUTES)) if rounds == 2 else list(ROUTES)
+        for route in order:
+            run = runs[(route, field)]
+            busy = profile_device(lambda: run(r, s))["busy_us"]
+            wall = wall_ms(lambda: run(r, s))
+            times.setdefault((route, field), []).append((busy, wall))
+        for route in ROUTES:
+            run = runs[(route, field)]
+            a_out = run.stage_a(r, s)
+            stage_b = device_ms(lambda: run.materialize(a_out, r, s))
+            stage_a = device_ms(lambda: run.stage_a(r, s))
+            reads = "; ".join(f"device {b:.1f} us, host wall {w:.4f} ms"
+                              for b, w in times[(route, field)])
+            log(f"[sort route] {card}: staged pipeline field {field}, {ROWS}+{ROWS}, route "
+                f"{route}: per run {reads}; stage A device {stage_a * 1e3:.1f} us, stage B "
+                f"device {stage_b * 1e3:.1f} us")
+    prof = profile_device(lambda: runs[("sort", 1)](r, s))
+    for name, us in prof["top"][:10]:
+        log(f"[sort route profile]   field 1 sort {us:9.1f} us  {name[:90]}")
+    a2d = runs[("sort2d", 1)].stage_a(r, s)
+    return {"launches": launches, "times": times, "inputs_2d": (r, a2d)}
+
+
+def check_operators_on_routes(dev, r, s, cfgs) -> None:
+    """The stand-alone operators on 1M-row tables: each placement route's
+    result equals the gather route's, column for column."""
+    from database_technology_algorithms_tpu_torch.ops.distinct import distinct
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join
+    from database_technology_algorithms_tpu_torch.ops.merge_join import (
+        join_sorted_distinct, merge_join)
+    from database_technology_algorithms_tpu_torch.ops.movement import compact_rows
+    from database_technology_algorithms_tpu_torch.ops.sort import sort_batch
+
+    g = np.random.default_rng(11)
+    keep = torch.from_numpy(g.random(r.nrows) < 0.4).to(dev)
+    extra = torch.from_numpy(g.integers(-2**31, 2**31, size=r.nrows).astype(np.int32)).to(dev)
+    for field in (1, 3):
+        d = {route: (distinct(r, field, cfg), distinct(s, field, cfg))
+             for route, cfg in cfgs.items()}
+        calls = {
+            "sort_batch": lambda cfg, route: sort_batch(r, field, cfg),
+            "distinct": lambda cfg, route: d[route][0],
+            "merge_join": lambda cfg, route: merge_join(r, s, field, cfg)[:2],
+            "join_sorted_distinct": lambda cfg, route: join_sorted_distinct(
+                *d[route][0], *d[route][1], field, cfg),
+            "hash_join": lambda cfg, route: hash_join(r, s, field, cfg),
+            "compact_rows": lambda cfg, route: compact_rows(r, keep, (extra,), cfg),
+        }
+        for name, call in calls.items():
+            base = call(cfgs["gather"], "gather")
+            for route in ("sort", "sort2d"):
+                got = call(cfgs[route], route)
+                same_batch(got[0], base[0], f"{name} field {field} on the {route} route")
+                for a, b in zip(got[1:], base[1:]):
+                    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                                    b if isinstance(b, tuple) else (b,)):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"{name} field {field} on the {route} route: "
+                                                 f"a second result differs")
+    torch.cuda.synchronize()
+    log(f"[sort route] sort_batch, distinct, merge_join, join_sorted_distinct, hash_join and "
+        f"compact_rows on {r.nrows}-row tables, fields 1 and 3: the sort and sort2d routes "
+        f"equal the gather route, column for column")
+
+
+def phase_probes(dev, card: str, g) -> dict:
+    """The probes' own readings: K11 for each G, K12's P4 and P5."""
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+    from database_technology_algorithms_tpu_torch.kernels.tile_copy import bulk_copies
+    from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as dma
+    from database_technology_algorithms_tpu_torch.tools import bench_permute_prims as prims
+
+    pin = probe_inputs(dev, g)
+    x, st, rows, slot = pin["x"], pin["starts"]["identity"], pin["rows"], pin["slot"]
+    copiers = {G: dma.make_kernel(G, dma.N) for G in dma.GS}
+    movers = {load: prims.make_rowmove(load) for load in (True, False)}
+    copiers[dma.T](x, st)
+    # ---- the probes' main path: each entry point once -----------------------------
+    reset_launches()
+    outs = [copiers[G](x, st) for G in dma.GS]
+    moved = {load: movers[load](rows, slot) for load in (True, False)}
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if not launches["tile_copy"] or not launches["row_move"]:
+        raise AssertionError(f"the probes launched {launches}")
+    if not all(torch.equal(o, x) for o in outs):
+        raise AssertionError("K11 with identity starts is not a copy")
+    gidx = torch.arange(prims.N, device=dev) // prims.T * prims.T + slot.long()
+    if not torch.equal(moved[True], rows[gidx]) or not torch.equal(moved[False][gidx], rows):
+        raise AssertionError("K12's probe moves differ from indexing by global rows")
+    del outs, moved
+
+    def kernel_ms(prof, name):  # the kernel alone: not the starts' upload, not a zero fill
+        return sum(us for n, us in prof["top"] if name in n) / 1e3
+
+    res = {"launches": launches, "k11": {}, "k12": {}}
+    nbytes = 2 * dma.N * dma.W * 4 + st.numel() * 4
+    copy_out = torch.empty_like(x)
+    lib = device_ms(lambda: copy_out.copy_(x))
+    for G in dma.GS:
+        prof = profile_device(lambda: copiers[G](x, st), reps=10)
+        ms = kernel_ms(prof, "tile_copy")
+        copies = bulk_copies(dma.N, G)
+        res["k11"][G] = {"ms": ms, "gb_s": nbytes / ms / 1e6, "copies": copies,
+                         "ns_per_copy": ms * 1e6 / copies, "bound_ms": bound_ms(nbytes),
+                         "library_ms": lib, "wrapper_ms": prof["busy_us"] / 1e3}
+        log(f"[probes] {card}: K11 tile copy n={dma.N} W={dma.W} T={dma.T} G={G}: kernel "
+            f"{ms:.4f} ms ({prof['busy_us'] / 1e3:.4f} ms with the starts' upload), "
+            f"{nbytes / ms / 1e6:.1f} GB/s, {copies} bulk copies -> {ms * 1e6 / copies:.2f} "
+            f"ns/copy; bound {bound_ms(nbytes):.4f} ms ({nbytes} B); library copy_ {lib:.4f} ms; "
+            f"CUDA-event span per back-to-back call {cuda_ms(lambda: copiers[G](x, st)):.4f} ms")
+    nbytes = prims.N * 4 + 2 * prims.N * prims.W * 4
+    into = torch.empty_like(rows)
+    libs = {True: lambda: torch.index_select(rows, 0, gidx),
+            False: lambda: into.index_copy_(0, gidx, rows)}
+    for load, name in ((False, "P4 row-store"), (True, "P5 row-load")):
+        prof = profile_device(lambda: movers[load](rows, slot), reps=10)
+        ms = kernel_ms(prof, "row_move")
+        lib = device_ms(libs[load])
+        res["k12"][name] = {"ms": ms, "ns_per_row": ms * 1e6 / prims.N,
+                            "bound_ms": bound_ms(nbytes), "library_ms": lib,
+                            "wrapper_ms": prof["busy_us"] / 1e3}
+        log(f"[probes] {card}: K12 {name} N={prims.N} W={prims.W} T={prims.T}: kernel "
+            f"{ms:.4f} ms ({prof['busy_us'] / 1e3:.4f} ms the whole wrapper call"
+            f"{', its zero fill included' if not load else ''}), "
+            f"{ms * 1e6 / prims.N:.3f} ns/row; bound {bound_ms(nbytes):.4f} ms ({nbytes} B); "
+            f"library {'index_select' if load else 'index_copy_'} with global rows {lib:.4f} ms")
+    # the probe modules' own entry points, as a user runs them
+    if dma.main([]) != 0 or prims.main(["P4", "P5"]) != 0:
+        raise AssertionError("a probe module's main failed")
+    return res
+
+
 def phase_budget_edge(dev) -> None:
     from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
     from database_technology_algorithms_tpu_torch.models.pipeline import make_pipeline_staged
@@ -1215,7 +1479,8 @@ def phase_cli() -> None:
 # phase 6: kernel timings at the main path's shapes
 
 
-def phase_timings(pipe: dict, command: dict, over: dict, errs: dict, card: str) -> list[dict]:
+def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dict, errs: dict,
+                  card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
     from database_technology_algorithms_tpu_torch.kernels.adj_equal import (
         adj_equal, adj_equal_plain)
@@ -1364,7 +1629,59 @@ def phase_timings(pipe: dict, command: dict, over: dict, errs: dict, card: str) 
     # on the card; their launches are that run's
     for rec in over["recs"]:
         out.append({**rec, "max_abs_err": max(rec["max_abs_err"], errs[rec["name"]])})
+    out += probe_records(sort, probes, errs, card)
     return out
+
+
+def probe_records(sort: dict, probes: dict, errs: dict, card: str) -> list[dict]:
+    """K11 at the probe's shapes (its launches: one probe run for each G) and
+    K12 at the "sort2d" route's shape, stage B of the staged pipeline, field
+    1 at 1M + 1M (its launches: one run of that route), with the probe's P4
+    and P5 readings beside."""
+    from database_technology_algorithms_tpu_torch.kernels.radix_sort import view_sort
+    from database_technology_algorithms_tpu_torch.kernels.row_move import (
+        row_move, row_move_plain)
+    from database_technology_algorithms_tpu_torch.kernels.tile_copy import tile_copy_plain
+    from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as dma
+
+    k11 = probes["k11"]
+    r, a2d = sort["inputs_2d"]
+    pin = probe_inputs(r.recid.device, np.random.default_rng(7))
+    rec11 = {
+        "name": "tile_copy", "route": "cuda",
+        "source": f"{PKG}/csrc/tile_copy.cu", "replaces": "tools/bench_pallas_dma.py:43",
+        "launches": probes["launches"]["tile_copy"], "max_abs_err": errs["tile_copy"],
+        "ms": k11[32]["ms"],
+        "plain_ms": device_ms(lambda: tile_copy_plain(pin["x"], pin["starts"]["identity"], 32)),
+        "bound_ms": k11[32]["bound_ms"], "bound_by": "bytes", "library_ms": k11[32]["library_ms"],
+        "shape": f"n={dma.N} rows x {dma.W} words, T={dma.T}, G=32 (ms_by_G: every G)",
+        "ms_by_G": {str(G): r["ms"] for G, r in k11.items()},
+    }
+    del pin
+    dest, cnt = a2d["dest"], a2d["cnt"]
+    n = dest.shape[0]
+    words = torch.stack(r.payload_words(), dim=1)
+    perm = view_sort(torch.zeros(n, dtype=torch.bool, device=dest.device), dest)[1]
+    slot = torch.where(torch.arange(n, dtype=torch.int32, device=dest.device) < cnt, perm, n)
+    clamped = slot.clamp(max=n - 1)
+    w, live = words.shape[1], int(cnt)
+    nbytes = n * 4 + live * w * 4 + n * w * 4  # slots; live source rows; every output row
+    rec12 = {
+        "name": "row_move", "route": "cuda",
+        "source": f"{PKG}/csrc/row_move.cu", "replaces": "tools/bench_permute_prims.py:155",
+        "launches": sort["launches"][("sort2d", 1)]["row_move"], "max_abs_err": errs["row_move"],
+        "ms": device_ms(lambda: row_move(words, slot, n, True)),
+        "plain_ms": device_ms(lambda: row_move_plain(words, slot, n, True)),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": device_ms(lambda: torch.index_select(words, 0, clamped)),
+        "shape": f"{n} rows x {w} words, one tile, {live} live (sort2d stage B, field 1)",
+        "probe": probes["k12"],
+    }
+    log(f"[timing] {card}: row_move ({rec12['shape']}): device time per call: kernel "
+        f"{rec12['ms']:.4f} ms, plain {rec12['plain_ms']:.4f} ms, library index_select (no fill) "
+        f"{rec12['library_ms']:.4f} ms, bound {rec12['bound_ms']:.4f} ms ({nbytes} B); "
+        f"tile_copy at G=32: kernel {rec11['ms']:.4f} ms, plain {rec11['plain_ms']:.4f} ms")
+    return [rec11, rec12]
 
 
 def main() -> int:
@@ -1387,6 +1704,10 @@ def main() -> int:
     done("kernels")
     pipe = phase_pipeline(dev, card)
     done("pipeline")
+    sort = phase_sort_route(dev, card, pipe)
+    done("sort route")
+    probes = phase_probes(dev, card, np.random.default_rng(8))
+    done("probes")
     command = phase_command(dev, card)
     done("command")
     phase_operators(dev, pipe)
@@ -1397,7 +1718,7 @@ def main() -> int:
     done("over budget")
     phase_cli()
     done("cli")
-    kernels = phase_timings(pipe, command, over, errs, card)
+    kernels = phase_timings(pipe, command, over, sort, probes, errs, card)
     done("timings")
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks[:-1], marks[1:])))

@@ -173,6 +173,20 @@ class RecordBatch:
         sorted view's ``perm``); the record gather kernel as ``take_fill``."""
         return self.take_fill(idx)
 
+    def payload_words(self) -> list[torch.Tensor]:
+        """Every live column as an int32 word (the placement route's form):
+        recid, num, valid as a 0/1 word, then the K string words (columns
+        of ``strw``, strided).  Words past K need not move: the
+        narrow-width invariant makes them zero."""
+        return [self.recid, self.num, self.valid.to(torch.int32)] + [
+            self.strw[:, j] for j in range(self.str_words)]
+
+    @staticmethod
+    def from_payload_words(words: list[torch.Tensor]) -> "RecordBatch":
+        """The batch of ``payload_words()`` (valid is the third word != 0)."""
+        return RecordBatch(recid=words[0], num=words[1],
+                           strw=torch.stack(list(words[3:]), dim=1), valid=words[2] != 0)
+
     def slice(self, start: int, size: int) -> "RecordBatch":
         """Rows [start, start + size), as views."""
         end = start + size

@@ -25,7 +25,8 @@ class EngineConfig:
     packed_u32_sorts: bool = True
     # row-movement engine: "gather" and "auto" take the gather route
     # (compaction + record gather) on every torch device; "sort" and
-    # "sort2d" are the TPU's placement-sort routes, not ported yet.
+    # "sort2d" the placement route (rows moved to the rank of their
+    # destination, ops/movement.py), with "sort2d" moving payload words.
     materialize: str = "auto"
 
     # --- hash join ----------------------------------------------------------

@@ -12,10 +12,14 @@
                                 <- ops/movement.py:354,319 stage_to_cells, value_boundaries
     K10 member_mult.member_multiplicity_cells
                                 <- ops/hash_join.py:256,459-469 member_multiplicity under vmap
+    K11 tile_copy.tile_copy     <- tools/bench_pallas_dma.py:43,73 make_kernel (Pallas)
+    K12 row_move.row_move       <- tools/bench_permute_prims.py:155,176 make_rowmove (Pallas);
+                                   the placement route's word gather (ops/movement.py:51,68,108)
 
-(paths in the JAX package).  Each wrapper runs its plain torch version
-for CPU tensors and launches its kernel for CUDA tensors, counting the
-launch in ``LAUNCHES``; there is no fallback from one to the other.
+(paths in the JAX package; K11 and K12's in the repository's ``tools/``).
+Each wrapper runs its plain torch version for CPU tensors and launches its
+kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
+fallback from one to the other.
 """
 
 from ._lib import LAUNCHES, build, library, reset_launches

@@ -33,6 +33,7 @@ LAUNCHES = {
     "radix_sort": 0, "seg_scan": 0, "compact": 0, "take_fill": 0,
     "words_sort": 0, "adj_equal": 0, "unpermute": 0,
     "hash_words": 0, "stage_cells": 0, "member_mult": 0,
+    "tile_copy": 0, "row_move": 0,
 }
 
 
@@ -125,6 +126,8 @@ _SIGNATURES = {
     "dbt_stage_cells": ([_P, _P, _I64, _I64, _I64, _PP, _PI64, _PP, _I, _P, _P, _P, _P, _P, _P], _I),
     "dbt_member_mult_scratch_words": ([_I64, _I64], _I64),
     "dbt_member_mult": ([_PP, _PI64, _PP, _PI64, _I, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P], _I),
+    "dbt_tile_copy": ([_P, _P, _P, _I64, _I, _I, _I, _I, _P], _I),
+    "dbt_row_move": ([_P, _P, _P, _I64, _I, _I64, _I, _P], _I),
 }
 
 

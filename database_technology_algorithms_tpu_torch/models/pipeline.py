@@ -1,7 +1,7 @@
 """The composed query pipeline (port of the JAX package's ``models/pipeline.py``,
-all four key fields, gather route; beyond the device budget the staged
-runner composes the chunked distinct, the tiled join and the chunked
-compaction).
+all four key fields, both materialization routes; beyond the device budget
+the staged runner composes the chunked distinct, the tiled join and the
+chunked compaction).
 
 The reference driver's workload (``main.cpp:109-123``) is MergeJoin
 (sort -> distinct -> two-pointer join) followed by HashJoin on the dedup'd
@@ -14,7 +14,11 @@ Kernel launches per staged run: K1 once (the view sort; for the string
 fields 2 and 3 K5 and K6 instead), K2 three times (the forward run-head
 carry, the reversed any-S max, the compaction's rank scan), K3 once
 (compaction of the sorted row indices), K4 once (the record gather).  The
-flag and counter arithmetic between them is plain torch.
+flag and counter arithmetic between them is plain torch.  On the placement
+route (``materialize="sort"``) stage B of fields 0 and 1 is K7 (the matched
+mask back to R's order) and ``place_join_by_key`` (K1 over R, K4); the
+other fields and ``"sort2d"`` place ``survivor_dest``'s destinations (one
+more K2 scan, K7, then K1 and K4, or K1 and K12 for ``"sort2d"``).
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ import torch
 from ..batch import RecordBatch, as_u32, canonical_field, u32_bits
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..ops.keys import key_words
-from ..ops.movement import compact_words, use_sort_placement
+from ..ops.movement import (
+    compact_words, packed_keep_backsort, packed_placement, permute_rows, place_join_by_key,
+    use_sort_placement)
 from ..ops.scan import cumsum, seg_carry, seg_max, seg_min
 from ..ops.sort import (
     SortedView, materialize_survivors, packed_u32_view_sort, sort_keys, sorted_adjacent_equal,
-    view_sort_3key)
+    survivor_dest, view_sort_3key)
 from ..utils.checks import ensure_device_budget
 
 
@@ -131,14 +137,20 @@ def make_pipeline_staged(field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
     """Build the staged runner: ``run(r, s)`` returns the reference driver's
     counters and the join output, as ``pipeline_single_impl`` does without
     the aggregates.  ``run.stage_a`` (the view sort, scans and counters) and
-    ``run.materialize`` (the compaction and record gather) are exposed for
-    per-stage timing, as in the JAX package.
+    ``run.materialize`` (the one record materialization) are exposed for
+    per-stage timing, as in the JAX package.  Stage A hands stage B the
+    words its route reads: ``perm`` and ``matched`` on the gather route,
+    ``matched_r`` (the matched mask in R's row order) on the direct
+    placement of the u32 fields, ``dest`` (R's destinations) otherwise.
 
     Inputs beyond ``cfg.mem_rows`` take the over-budget composition
     (``_run_overbudget``); ``run.stage_a`` itself keeps the budget gate.
     """
     fld = canonical_field(field)
-    use_sort_placement(cfg)
+    sort_route = use_sort_placement(cfg)
+
+    def _direct_place(r: RecordBatch, s: RecordBatch) -> bool:
+        return packed_placement(cfg, fld, r.str_words) and r.nrows + s.nrows < (1 << 30)
 
     def stage_a(r: RecordBatch, s: RecordBatch) -> dict:
         nr = r.nrows
@@ -147,18 +159,29 @@ def make_pipeline_staged(field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
         view, adj, is_r, is_s, prev_side, _ = _pipeline_view(both, nr, fld, cfg)
         r_first, s_first, run_has_r, matched = _stage_a_flags(adj, is_r, is_s, prev_side)
         mj_n = matched.sum(dtype=torch.int32)
-        return {
+        out = {
             "nunique_r": r_first.sum(dtype=torch.int32),
             "nunique_s": s_first.sum(dtype=torch.int32),
             "merge_nres": mj_n,
             "hash_nres": (s_first & run_has_r).sum(dtype=torch.int32),
             "cnt": mj_n,
-            "perm": view.perm,
-            "matched": matched,
         }
+        if not sort_route:
+            out["perm"] = view.perm
+            out["matched"] = matched
+        elif _direct_place(r, s):
+            out["matched_r"] = packed_keep_backsort(view.perm, matched, nr)
+        else:
+            out["dest"] = survivor_dest(view.perm, matched)[0][:nr]
+        return out
 
     def materialize(out: dict, r: RecordBatch, s: RecordBatch) -> RecordBatch:
         """Stage B: the one record materialization from stage A's words."""
+        if "matched_r" in out:
+            return place_join_by_key(out["matched_r"], r.recid if fld == 0 else r.num,
+                                     out["cnt"], r, key_plane="recid" if fld == 0 else "num")
+        if "dest" in out:  # place_batch, or the payload words' place_words_2d for "sort2d"
+            return permute_rows(r, out["dest"], out["cnt"], cfg)
         return materialize_survivors(r, out["perm"], out["matched"], cfg)[0]
 
     def _run_overbudget(r: RecordBatch, s: RecordBatch) -> dict:

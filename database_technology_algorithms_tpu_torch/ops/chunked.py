@@ -14,7 +14,8 @@ words, row index) only:
           columns and row indices); a worklist re-splits the ranges a
           splitter missed.
 
-Record materialization goes through budget-sized ``take_fill`` gathers (K4).
+Record materialization goes through budget-sized ``take_fill`` gathers (K4)
+under every ``cfg.materialize`` engine, as in the JAX package.
 Host RAM is the spill tier of the sorted chunks; every device program
 touches O(mem_rows) rows.  A spill from the card lands in page-locked host
 memory, and a range goes back up from a page-locked staging buffer, so both
@@ -37,7 +38,7 @@ from ..config import DEFAULT_CONFIG, EngineConfig
 from ..kernels.adj_equal import adj_equal
 from ..kernels.words_sort import words_sort
 from .keys import key_words
-from .movement import compact_words, use_sort_placement
+from .movement import compact_words
 from .sort import sort_keys
 
 
@@ -235,7 +236,6 @@ def sort_batch_chunked(
     first in exact key order, padding rows (past `count`) sunk to the tail in
     index order, all rows preserved.
     """
-    use_sort_placement(cfg)
     order = [g for _, g in _global_key_order(batch, field, cfg, cfg.mem_rows, count)]
     perm = _cat_indices(order, batch.recid.device)
     parts = _gather_rows_chunked(batch, perm, cfg.mem_rows)
@@ -255,7 +255,6 @@ def distinct_chunked(
     the first live row of each key group in key order, rows past nunique
     zero; `active` composes with `count` as in ``distinct_view``.
     """
-    use_sort_placement(cfg)
     surv: list[torch.Tensor] = []
     prev_key = None
     for cols, gidx in _global_key_order(batch, field, cfg, cfg.mem_rows, count, active):
@@ -286,7 +285,6 @@ def compact_rows_chunked(
     ``movement.compact_rows`` for batches beyond the budget.  The kept rows
     are listed on the device, a budget-sized chunk of the mask at a time (K3),
     for the gather chunks (K4)."""
-    use_sort_placement(cfg)
     dev = batch.recid.device
     m = max(int(cfg.mem_rows), 1)
     kept = []

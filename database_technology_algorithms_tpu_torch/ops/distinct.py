@@ -1,25 +1,27 @@
 """Duplicate elimination (sort-based DISTINCT on the join field).
 
-Port of the JAX package's ``ops/distinct.py`` on the gather route.
+Port of the JAX package's ``ops/distinct.py``, both routes.
 Reference semantics (``DatabaseProject.cpp:94-170``): sort by the field,
 then keep the first record of each equal-key group, survivors in sorted key
 order; ``nunique`` counts the unique keys.  Which record of a duplicate
 group survives is the lowest original row (the sort's total order).
 
-One key sort (K1 or K5 with K6), one compaction (K3) and one record gather
-(K4).  Beyond ``cfg.mem_rows`` the public ``distinct`` takes the chunked
-route (``ops/chunked.py``).
+One key sort (K1 or K5 with K6), then on the gather route one compaction
+(K3) and one record gather (K4).  The placement route places the survivors
+directly for the u32 fields (K7 and ``place_join_by_key``) and through
+``survivor_dest`` otherwise.  Beyond ``cfg.mem_rows`` the public
+``distinct`` takes the chunked route (``ops/chunked.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..batch import RecordBatch
+from ..batch import RecordBatch, canonical_field
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..utils.checks import ensure_device_budget
 from .keys import adjacent_equal
-from .movement import compact_rows
+from .movement import compact_rows, packed_keep_backsort, packed_placement, place_join_by_key
 from .sort import SortedView, materialize_survivors, sort_keys
 
 
@@ -85,7 +87,19 @@ def distinct_impl(
             f"u32_distinct_engine={cfg.u32_distinct_engine!r}: the alternative "
             "distinct engines are not ported yet (ROADMAP.md, Queue 1 item 12)"
         )
-    view, keep = distinct_view(batch, field, cfg, count=count, active=active)
+    fld = canonical_field(field)
+    view, keep = distinct_view(batch, fld, cfg, count=count, active=active)
+    n = batch.nrows
+    if packed_placement(cfg, fld, batch.str_words) and n < (1 << 30):
+        # "survivors first, in key order" is an order of the batch by
+        # (dropped, key, row): the keep mask back to row order (K7), then
+        # the placement by key with the key column rebuilt
+        nunique = keep.sum(dtype=torch.int32)
+        keep_orig = packed_keep_backsort(view.perm, keep, n)
+        key = batch.recid if fld == 0 else batch.num
+        out = place_join_by_key(keep_orig, key, nunique, batch,
+                                key_plane="recid" if fld == 0 else "num")
+        return out, nunique
     return materialize_survivors(batch, view.perm, keep, cfg)
 
 

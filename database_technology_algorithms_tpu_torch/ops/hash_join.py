@@ -333,7 +333,9 @@ def hash_join_impl(
     """
     ensure_device_budget(probe.nrows, cfg, "hash_join[materializing]")
     matched, _, nres = hash_join_count_impl(build, probe, field, cfg)
-    out, _, _ = compact_rows(probe, matched, cfg=cfg)
+    # the default config, as the JAX package compacts here: the gather route
+    # under every engine (the result is the same on both routes)
+    out, _, _ = compact_rows(probe, matched)
     return out, nres
 
 

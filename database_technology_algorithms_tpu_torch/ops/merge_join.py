@@ -1,6 +1,6 @@
 """Sort-merge join (distinct-key intersection, R-side emission).
 
-Port of the JAX package's ``ops/merge_join.py`` on the gather route.
+Port of the JAX package's ``ops/merge_join.py``, both routes.
 Reference semantics (``DatabaseProject.cpp:384-502``): MergeJoin runs
 EliminateDuplicates on both inputs, so the join is a set-semantics join on
 distinct key values, and emits, for each key present on both sides, the
@@ -17,9 +17,10 @@ from __future__ import annotations
 
 import torch
 
-from ..batch import RecordBatch
+from ..batch import RecordBatch, canonical_field
 from ..config import DEFAULT_CONFIG, EngineConfig
 from .distinct import distinct_impl
+from .movement import packed_keep_backsort, packed_placement, place_join_by_key
 from .sort import materialize_survivors, sort_keys
 
 
@@ -69,9 +70,19 @@ def join_sorted_distinct_impl(
 
     Returns (r_matched, nres): R rows whose key also appears in S, in sorted
     key order, compacted to the front of an R-capacity batch.  Matched rows
-    are always R rows, so the record gather reads R alone.
+    are always R rows, so the materialization reads R alone: the record
+    gather on the gather route; on the placement route the direct placement
+    of R by (unmatched, key) for the u32 fields, else the destinations of
+    the concatenation's R half.
     """
-    _, view, matched = join_view(r, r_count, s, s_count, field, cfg)
+    fld = canonical_field(field)
+    _, view, matched = join_view(r, r_count, s, s_count, fld, cfg)
+    if packed_placement(cfg, fld, r.str_words) and r.nrows + s.nrows < (1 << 30):
+        nres = matched.sum(dtype=torch.int32)
+        matched_r = packed_keep_backsort(view.perm, matched, r.nrows)
+        key_r = r.recid if fld == 0 else r.num
+        return place_join_by_key(matched_r, key_r, nres, r,
+                                 key_plane="recid" if fld == 0 else "num"), nres
     return materialize_survivors(r, view.perm, matched, cfg)
 
 

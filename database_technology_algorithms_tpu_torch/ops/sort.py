@@ -1,9 +1,10 @@
 """Total-order key sorts over record batches.
 
-Port of the JAX package's ``ops/sort.py`` on the gather route.  A key sort
-moves no record: it returns a permutation, the exact adjacency mask and the
-caller's extra words (``SortedView``); one record gather (K4) then
-materializes what an operator emits.
+Port of the JAX package's ``ops/sort.py``.  A key sort moves no record: it
+returns a permutation, the exact adjacency mask and the caller's extra words
+(``SortedView``); on the gather route one record gather (K4) then
+materializes what an operator emits, on the placement route
+(``materialize="sort"``/``"sort2d"``) ``ops/movement.py``'s placements do.
 
 The JAX package packs (inact, key, row) into two u32 operands and sorts
 string keys by a prefix with a ``lax.cond`` fallback to exact stable passes,
@@ -28,10 +29,12 @@ from ..config import DEFAULT_CONFIG, EngineConfig
 from ..kernels.adj_equal import adj_equal
 from ..kernels.compact import compact_words
 from ..kernels.radix_sort import view_sort
+from ..kernels.unpermute import unpermute
 from ..kernels.words_sort import words_sort
 from ..utils.checks import ensure_device_budget
 from .keys import key_words
-from .movement import use_sort_placement
+from .movement import packed_placement, permute_rows, use_sort_placement
+from .scan import cumsum
 
 
 class SortedView(NamedTuple):
@@ -110,6 +113,24 @@ def sort_keys(
     return SortedView(perm=perm, adj_eq=adj_equal(kw, perm), extras=extras)
 
 
+def survivor_dest(view_perm: torch.Tensor, keep_sorted: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dest, count): each ORIGINAL row's output position under "kept rows,
+    in sorted order, to the front; drops after, in sorted order".
+
+    `keep_sorted` is a mask over the sorted positions of `view_perm`; dest is
+    a dense permutation of [0, N) in original row order.  The ranks are one
+    K2 scan; K7 hands them back to original order (the JAX package's
+    un-permute sort).
+    """
+    n = view_perm.shape[0]
+    count = keep_sorted.sum(dtype=torch.int32)
+    pos = torch.arange(n, dtype=torch.int32, device=view_perm.device)
+    rank = cumsum(keep_sorted.to(torch.int32)) - 1
+    dest_sorted = torch.where(keep_sorted, rank, count + (pos - rank - 1))
+    return unpermute(view_perm, dest_sorted), count
+
+
 def materialize_survivors(
     batch: RecordBatch,
     view_perm: torch.Tensor,
@@ -124,11 +145,15 @@ def materialize_survivors(
     `batch` holds the rows the permutation indexes, or only the leading
     ones when every kept row lies among them (the join keeps R rows of
     R||S): the output then has that many rows, as the JAX package's slice of
-    the full gather has.  One compaction (K3) and one record gather (K4).
+    the full gather has.  Gather route: one compaction (K3) and one record
+    gather (K4).  Placement route: ``survivor_dest``, whose leading
+    destinations stay unique, placed by ``permute_rows``.
     """
-    use_sort_placement(cfg)
-    n = view_perm.shape[0]
     nout = batch.nrows
+    if use_sort_placement(cfg):
+        dest, count = survivor_dest(view_perm, keep_sorted)
+        return permute_rows(batch, dest[:nout], count=count, cfg=cfg), count
+    n = view_perm.shape[0]
     count, (front,) = compact_words(keep_sorted, (view_perm,))
     live = torch.arange(nout, dtype=torch.int32, device=view_perm.device) < count
     # n is out of range for every prefix of the table: a fill row
@@ -145,17 +170,23 @@ def sort_batch_impl(
 
     Exact for all four key domains.  With `count`, only the first `count`
     rows are live; padding sinks to the tail (static-capacity convention).
-    One key sort, then one record gather.
+    One key sort, then one record gather, or on the placement route the
+    inverse permutation (K7) placed by ``permute_rows``.
     """
     field = canonical_field(field)
     n = batch.nrows
     ensure_device_budget(n, cfg, "sort_batch")
-    use_sort_placement(cfg)
     rows = torch.arange(n, dtype=torch.int32, device=batch.recid.device)
     if n <= 1:
         return batch, rows
     pre = () if count is None else (rows >= count,)
     view = sort_keys(batch, field, cfg, pre_words=pre, pre_is_mask=True)
+    # The JAX package's fused branch (packed_placement: the u32 fields on the
+    # "sort" route at 4 + K <= 8) carries the whole record through one sort
+    # keyed by (inactive, key, row): the view sort and record gather below.
+    if use_sort_placement(cfg) and not packed_placement(cfg, field, batch.str_words):
+        # dest = the inverse permutation: each row's sorted position
+        return permute_rows(batch, unpermute(view.perm, rows), cfg=cfg), view.perm
     return batch.take(view.perm), view.perm
 
 

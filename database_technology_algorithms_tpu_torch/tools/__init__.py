@@ -1,0 +1,28 @@
+"""The probes of the repository's ``tools/`` that hold Pallas kernels, on the
+card: ``bench_pallas_dma`` (K11) and ``bench_permute_prims`` (K12).  Each
+runs as ``python -m database_technology_algorithms_tpu_torch.tools.<name>``,
+on the card, or with ``--cpu`` through the plain versions for correctness
+only."""
+
+from __future__ import annotations
+
+import torch
+
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean time of fn() over `reps` back-to-back calls, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -45,7 +45,8 @@ def test_port_sources_found():
     assert {"chip_smoke.py", "pipeline.py", "radix_sort.py", "_lib.py", "words_sort.py",
             "adj_equal.py", "unpermute.py", "distinct.py", "merge_join.py", "hash_join.py",
             "hash_words.py", "stage_cells.py", "member_mult.py", "chunked.py",
-            "__main__.py"} <= names
+            "__main__.py", "tile_copy.py", "row_move.py", "bench_pallas_dma.py",
+            "bench_permute_prims.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -117,6 +118,8 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         member_multiplicity_cells)
     from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
         stage_to_cells, value_boundaries)
+    from database_technology_algorithms_tpu_torch.kernels.row_move import row_move
+    from database_technology_algorithms_tpu_torch.kernels.tile_copy import tile_copy
 
     meta = torch.device("meta")
     words = torch.empty(8, dtype=torch.int32, device=meta)
@@ -135,6 +138,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: value_boundaries(words, 4),
         lambda: stage_to_cells(words, flags, 2, 4, [words], "si"),
         lambda: member_multiplicity_cells([cells], words[:2], [cells]),
+        # the starts of a tile copy are checked on the host, so they may lie there
+        lambda: tile_copy(torch.empty((2048, 32), dtype=torch.int32, device=meta),
+                          torch.zeros(1, dtype=torch.int32), 64),
+        lambda: row_move(cells, words[:2], 2, True),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

@@ -379,16 +379,21 @@ def test_unported_engines_and_routes_raise():
     for engine in ("searchsorted", "table", "bucketed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             thash.hash_join_count(tb, tb, 1, TConfig(u32_join_engine=engine))
+    # the placement route runs (tests/test_torch_placement.py holds it
+    # against JAX) and gives the gather route's result
     sort_route = TConfig(materialize="sort")
     for call in (
-        lambda: tsort.sort_batch(tb, 2, sort_route),
-        lambda: tdistinct.distinct(tb, 1, sort_route),
-        lambda: tmerge.merge_join(tb, tb, 3, sort_route),
-        lambda: thash.hash_join(tb, tb, 0, sort_route),
-        lambda: tmove.compact_rows(tb, tb.valid, cfg=sort_route),
+        lambda cfg: tsort.sort_batch(tb, 2, cfg)[0],
+        lambda cfg: tdistinct.distinct(tb, 1, cfg)[0],
+        lambda cfg: tmerge.merge_join(tb, tb, 3, cfg)[0],
+        lambda cfg: thash.hash_join(tb, tb, 0, cfg)[0],
+        lambda cfg: tmove.compact_rows(tb, tb.valid, cfg=cfg)[0],
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+        a, b = call(sort_route), call(TConfig())
+        for x, y in zip((a.recid, a.num, a.strw, a.valid), (b.recid, b.num, b.strw, b.valid)):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="unknown materialize"):
+        tdistinct.distinct(tb, 1, TConfig(materialize="scatter"))
     # beyond the budget the in-budget cores refuse; the public forms route
     # (tests/test_torch_overbudget.py), on the gather route only
     small = TConfig(mem_rows=60)
@@ -403,12 +408,12 @@ def test_unported_engines_and_routes_raise():
     assert int(tdistinct.distinct(tb, 1, TConfig(mem_rows=49))[1]) == int(
         tdistinct.distinct(tb, 1)[1])
     assert int(thash.hash_join(tb, tb, 1, small)[1]) == int(thash.hash_join(tb, tb, 1)[1])
-    for call in (
-        lambda: tsort.sort_batch(tb, 2, TConfig(mem_rows=49, materialize="sort")),
-        lambda: thash.hash_join(tb, tb, 0, TConfig(mem_rows=60, materialize="sort")),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # over the budget the chunked route keeps its gather chunks under every engine
+    for route in ("sort", "sort2d"):
+        got = tsort.sort_batch(tb, 2, TConfig(mem_rows=49, materialize=route))[0]
+        assert torch.equal(got.recid, tsort.sort_batch(tb, 2)[0].recid)
+        got = thash.hash_join(tb, tb, 0, TConfig(mem_rows=60, materialize=route))[0]
+        assert torch.equal(got.recid, thash.hash_join(tb, tb, 0)[0].recid)
 
 
 # ---------------------------------------------------------------------------
