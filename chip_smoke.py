@@ -56,7 +56,9 @@ Phases (any failure raises and the script exits non-zero):
      files written by the port's codec, output files read back;
   9. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
-     (a yardstick only) and its memory-bound floor.
+     (a yardstick only) and its memory-bound floor; K1 also at 16M rows
+     beside a stable torch.sort, and how many radix passes K1 and K5
+     scattered and skipped, as the card chose them.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -98,6 +100,8 @@ MID_ROWS = 1_500_000  # fields 0, 2, 3 under a 512K-row budget
 SKEW_ROWS = 200_000  # all keys equal under a 64K-row budget
 PKG = "database_technology_algorithms_tpu_torch"
 JAX_PKG = "database_technology_algorithms_tpu"
+# the sources that build on the one-sweep radix sort of csrc/radix.cuh
+RADIX_SOURCES = ("radix_sort.cu", "words_sort.cu", "stage_cells.cu")
 
 
 def log(msg: str) -> None:
@@ -188,6 +192,13 @@ def profile_device(fn, reps: int = 5) -> dict:
     return {"busy_us": sum(by_name.values()), "top": top}
 
 
+def device_parts(prof: dict, top: int = 4) -> str:
+    """The largest kernels of a profile_device reading, with their ms a call."""
+    return ", ".join(
+        f"{re.sub(r'^void |[(]anonymous namespace[)]::|dbt::', '', name).split('(')[0]} "
+        f"{us / 1e3:.4f}" for name, us in prof["top"][:top])
+
+
 def device_ms(fn) -> float:
     """Device time of the kernels one call of fn launches (torch.profiler,
     mean of 10 calls).  Unlike a CUDA-event span over back-to-back calls it
@@ -253,7 +264,33 @@ def phase_device_and_build() -> str:
             smem = [int(x) for x in re.findall(r"(\d+) bytes smem", chunk)] or [0]
             log(f"[ptxas] {chunk.split()[0]}: {len(regs)} kernels, max {max(regs)} "
                 f"registers, max {max(smem)} B static smem, {sum(spills)} B spilled")
+            if chunk.split()[0] in RADIX_SOURCES:
+                for name, props in ptxas_kernels(chunk).items():
+                    if name.startswith("onesweep_"):
+                        log(f"[ptxas]   {chunk.split()[0]} {name}: {props}")
     return card
+
+
+def ptxas_kernels(chunk: str) -> dict:
+    """Registers, static shared memory and spills of each kernel in one
+    source's ``-Xptxas -v`` output, by demangled-enough name."""
+    out, name, spill = {}, None, "0 B"
+    for line in chunk.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw = m.group(1)
+            # _ZN3dbt13onesweep_passILi512ELb1EEEvNS_8PassArgsE -> onesweep_pass<512,1>
+            tmpl = re.findall(r"L[ib](\d+)E", raw)
+            base = re.search(r"onesweep_[a-z]+", raw)
+            name = (base.group(0) if base else raw) + (f"<{','.join(tmpl)}>" if tmpl else "")
+            spill = "0 B"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = f"{m.group(1)} B"
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, {m.group(2) or 0} B static smem, {spill} spilled"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -319,12 +356,59 @@ def check_kernels(dev) -> dict:
                 want = take_fill_plain(*cols, idx)
                 errs["take_fill"] = max(errs["take_fill"], assert_same(
                     f"K4 n={n} k={k} {case}", got, want))
+    for n, case, key, inact in radix_edge_inputs(g, 1):
+        key = i32(np.ascontiguousarray(key[:, 0]))
+        extra = (i32(g.integers(0, 2**32, size=n, dtype=np.uint64)),)
+        got = view_sort(boolean(inact), key, extra)
+        want = view_sort_plain(boolean(inact), key, extra)
+        errs["radix_sort"] = max(errs["radix_sort"], assert_same(
+            f"K1 n={n} {case}", got[:3] + got[3], want[:3] + want[3]))
+    del got, want
+    # the budget edge, beyond the 50 MB L2 cache
+    n = 2 * BIG_ROWS
+    key = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    inact = torch.rand(n, device=dev, generator=torch.Generator(device=dev).manual_seed(6)) < 0.1
+    errs["radix_sort"] = max(errs["radix_sort"], assert_same(
+        f"K1 n={n}", view_sort(inact, key)[:3], view_sort_plain(inact, key)[:3]))
+    del key, inact
     torch.cuda.synchronize()
-    log(f"[kernels] K1-K4 equal their plain versions at n in {sizes}")
+    log(f"[kernels] K1-K4 equal their plain versions at n in {sizes}; K1 also at the radix "
+        f"tile's edges and {2 * ROWS} rows ({RADIX_EDGE_CASES}) and at {n} rows")
     errs.update(check_sort_kernels(dev, g, sizes))
     errs.update(check_overbudget_kernels(dev, g, sizes))
     errs.update(check_probe_kernels(dev, g, sizes[:4] + sizes[5:]))
     return errs
+
+
+RADIX_EDGE_CASES = ("equal", "one run", "equal, flag varies", "constant digits", "all inactive")
+
+
+def radix_edge_inputs(g, m: int):
+    """The cases that only the one-sweep radix sort (csrc/radix.cuh) can get
+    wrong, as (n, case, u32 keys [n, m], inactive mask): n at the edges of
+    its 4096-row tile and at 2M rows; all keys equal (every pass trivial,
+    the input copied through); one digit run across every tile with a few
+    other keys (the look-back carries it from tile to tile); equal keys with
+    a varying flag (only the flag's pass scatters); digits 1 and 3 of every
+    word constant (those passes skipped); every row inactive."""
+    from database_technology_algorithms_tpu_torch.kernels.radix_plan import TILE
+
+    for n in (TILE - 1, TILE, TILE + 1, 2 * TILE + 1, 2 * ROWS):
+        for case in RADIX_EDGE_CASES:
+            key = np.full((n, m), 0x2A2A2A2A, np.uint32)
+            inact = np.zeros(n, bool)
+            if case == "one run":
+                key[::4099] = g.integers(0, 2**32, size=key[::4099].shape, dtype=np.uint64)
+            elif case == "equal, flag varies":
+                inact = g.random(n) < 0.1
+            elif case == "constant digits":
+                key = (g.integers(0, 2**32, size=(n, m), dtype=np.uint64).astype(np.uint32)
+                       & np.uint32(0x00FF00FF)) | np.uint32(0x5A003C00)
+            elif case == "all inactive":
+                key = g.integers(0, 2**32, size=(n, m), dtype=np.uint64).astype(np.uint32)
+                inact = np.ones(n, bool)
+            yield n, case, key, inact
 
 
 def probe_inputs(dev, g) -> dict:
@@ -432,10 +516,21 @@ def check_sort_kernels(dev, g, sizes) -> dict:
                     f"K7 n={n} lo={lo} m={m_out} {vals.dtype}",
                     (unpermute(perm, vals, lo, m_out),),
                     (unpermute_plain(perm, vals, lo, m_out),)))
+    for m in (2, 3):
+        for n, case, mat, inact in radix_edge_inputs(g, m):
+            mat_t = torch.from_numpy(mat.view(np.int32)).to(dev)
+            words = [mat_t[:, j] for j in range(m)]
+            for mask in (torch.from_numpy(inact).to(dev), None):
+                got = words_sort(words, mask)
+                want = words_sort_plain(words, mask)
+                errs["words_sort"] = max(errs["words_sort"], assert_same(
+                    f"K5 n={n} m={m} {case} mask={mask is not None}", got[:2], want[:2]))
     torch.cuda.synchronize()
     log(f"[kernels] K5-K7 equal their plain versions at n in {sizes}: K5 with 1, 2, 3, 9 "
         f"and 33 words (strided columns, words >= 2^31, all rows inactive, all keys equal, "
-        f"no mask), K6 through perm and in place, K7 with lo > 0, int32 and bool")
+        f"no mask), and with 2 and 3 strided words at the radix tile's edges and {2 * ROWS} rows "
+        f"({RADIX_EDGE_CASES}, with and without the mask); K6 through perm and in place, "
+        f"K7 with lo > 0, int32 and bool")
     return errs
 
 
@@ -524,6 +619,20 @@ def check_overbudget_kernels(dev, g, sizes) -> dict:
                         f"K10 n={n} pairs={pairs} m={m}", (got,), (want,)))
                 if n >= 2049 and int(got.max()) < 2:
                     raise AssertionError("K10 check: no build key repeats, the test is too weak")
+    # ---- K9's bucket passes on the one-sweep sort: destinations below 4096 from
+    # the radix edge keys (the low 12 bits; "constant digits" keeps the second
+    # pass constant), and every row inactive
+    for n, case, key, inact in radix_edge_inputs(g, 1):
+        dest = i32(key[:, 0] & np.uint32(0xFFF if case != "constant digits" else 0xFF))
+        active = torch.from_numpy(~inact).to(dev)
+        nparts, cap = 4096, max(2 * (n // 4096), 8)
+        for act in (active, None):
+            got = stage_to_cells(dest, act, nparts, cap, [dest], "si")
+            want = stage_to_cells_plain(dest, act, nparts, cap, [dest], "si")
+            errs["stage_cells"] = max(errs["stage_cells"], assert_same(
+                f"K9 n={n} {case} active={act is not None}",
+                (*got[0], got[1], got[2], got[3].reshape(1)),
+                (*want[0], want[1], want[2], want[3].reshape(1))))
     torch.cuda.synchronize()
     log(f"[kernels] K8-K10 equal their plain versions at n in {sizes}: K8 with 1, 2, 3, 9 and "
         f"33 strided words, words >= 2^31, zero words in and before the skipped range, seeds 0 "
@@ -531,7 +640,8 @@ def check_overbudget_kernels(dev, g, sizes) -> dict:
         f">= nparts, a cap that overflows, 1 and 3 payload words, and value_boundaries on both "
         f"sides of 1024 probes; K10 on batched pairs with 1, 2 and 3 key words, repeated and "
         f"unsorted build keys, n_bkeys of 0 and of cap, dead query rows, tables in shared "
-        f"memory and in global scratch")
+        f"memory and in global scratch; K9 also into 4096 cells at the radix tile's edges and "
+        f"{2 * ROWS} rows ({RADIX_EDGE_CASES})")
     return errs
 
 
@@ -1370,8 +1480,7 @@ def phase_overbudget(dev, card: str) -> dict:
             f"PyTorch call computes it), bound {rec['bound_ms']:.4f} ms by {bound_by} "
             f"({sp['nbytes']} B, {sp['nops']} operations); CUDA-event span per back-to-back "
             f"call: kernel {cuda_ms(sp['kernel'], reps=10):.4f} ms; its largest parts: "
-            + ", ".join(f"{re.sub(r'^void |[(]anonymous namespace[)]::|dbt::', '', name).split('(')[0]} "
-                        f"{us / 1e3:.4f}" for name, us in prof["top"][:4]))
+            + device_parts(prof))
         recs.append(rec)
     del bcells, pcells, bw, pw, hb, hp, r_d, s_d, m_r
     spill_copy_rates(dev, card, min(cfg.mem_rows, rows))
@@ -1482,6 +1591,7 @@ def phase_cli() -> None:
 def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dict, errs: dict,
                   card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
+    from database_technology_algorithms_tpu_torch.kernels import radix_plan
     from database_technology_algorithms_tpu_torch.kernels.adj_equal import (
         adj_equal, adj_equal_plain)
     from database_technology_algorithms_tpu_torch.kernels.unpermute import (
@@ -1625,12 +1735,65 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
             f"{lib}, bound {rec['bound_ms']:.4f} ms ({sp['nbytes']} B); "
             f"CUDA-event span per back-to-back call: kernel {cuda_ms(sp['kernel']):.4f} ms")
         out.append(rec)
+    recs = {rec["name"]: rec for rec in out}
+    for what, fn in ((f"K1 at {n} rows", lambda: view_sort(inact, key)),
+                     (f"K5 at {dn} rows", lambda: words_sort(d_words, d_inact))):
+        log(f"[timing] {card}: {what}, device ms a call by kernel: "
+            f"{device_parts(profile_device(fn, reps=10), top=5)}")
+    # the passes of the timed K1 and K5 calls that scattered and that were
+    # trivial (skipped), as the kernel chose them on the card
+    recs["radix_sort"]["passes"] = pass_kinds(
+        "K1", f"{n} rows", lambda: view_sort(inact, key), [key], inact,
+        radix_plan.view_sort_schedule())
+    recs["words_sort"]["passes"] = pass_kinds(
+        "K5", f"{dn} rows, {dk} words", lambda: words_sort(d_words, d_inact), d_words, d_inact,
+        radix_plan.words_sort_schedule(dk, True))
+    # K1 at the budget edge, beyond L2: the keys of an 8M + 8M staged run
+    big = 2 * BIG_ROWS
+    b_key = torch.randint(0, 3 * BIG_ROWS // 10, (big,), dtype=torch.int32, device=key.device,
+                          generator=torch.Generator(device=key.device).manual_seed(9))
+    b_inact = torch.zeros(big, dtype=torch.bool, device=key.device)
+    b_comp = as_u32(b_key)
+    recs["radix_sort"].update({
+        "ms_16M": device_ms(lambda: view_sort(b_inact, b_key)),
+        "library_ms_16M": device_ms(lambda: torch.sort(b_comp, stable=True)),
+        "bound_ms_16M": bound_ms(big * (4 + 1) + big * (4 + 4 + 1)),
+        "passes_16M": pass_kinds("K1", f"{big} rows", lambda: view_sort(b_inact, b_key),
+                                 [b_key], b_inact, radix_plan.view_sort_schedule()),
+    })
+    log(f"[timing] {card}: radix_sort ({big} rows, the 8M + 8M staged run's keys, beyond L2): "
+        f"device time per call: kernel {recs['radix_sort']['ms_16M']:.4f} ms, library stable "
+        f"torch.sort {recs['radix_sort']['library_ms_16M']:.4f} ms, bound "
+        f"{recs['radix_sort']['bound_ms_16M']:.4f} ms ({big * 14} B); by kernel: "
+        f"{device_parts(profile_device(lambda: view_sort(b_inact, b_key), reps=10), top=5)}")
+    del b_key, b_inact, b_comp
     # K8-K10 were timed at the over-budget run's shapes while its tables were
     # on the card; their launches are that run's
     for rec in over["recs"]:
         out.append({**rec, "max_abs_err": max(rec["max_abs_err"], errs[rec["name"]])})
     out += probe_records(sort, probes, errs, card)
     return out
+
+
+def pass_kinds(kernel: str, shape: str, fn, words, inact, sched) -> dict:
+    """One call of fn with the pass kinds recorded: how many passes the kernel
+    scattered and how many were trivial and skipped, checked against the rule of
+    kernels/radix_plan.py applied to the same inputs."""
+    from database_technology_algorithms_tpu_torch.kernels import radix_plan
+
+    with radix_plan.record_pass_kinds() as kinds:
+        fn()
+    torch.cuda.synchronize()
+    got = kinds[0].tolist()
+    want = [radix_plan.KIND_TRIVIAL if t else radix_plan.KIND_SCATTERED
+            for t in radix_plan.trivial_passes(words, inact, sched)]
+    if got != want:
+        raise AssertionError(f"{kernel} {shape}: pass kinds {got}, expected {want}")
+    res = {"scattered": got.count(radix_plan.KIND_SCATTERED),
+           "trivial": got.count(radix_plan.KIND_TRIVIAL)}
+    log(f"[passes] {kernel} {shape}: {res['scattered']} passes scattered, {res['trivial']} "
+        f"trivial and skipped (kinds by pass, least significant first: {got})")
+    return res
 
 
 def probe_records(sort: dict, probes: dict, errs: dict, card: str) -> list[dict]:

@@ -10,9 +10,10 @@
 //            histogram of the buckets (warp-aggregated atomics, so that a
 //            table whose keys are all equal does not serialize);
 //   scan     of the nparts + 1 bucket counts (scan.cuh, K2's scan);
-//   order    a stable LSD radix sort of the row index by bucket, one 8-bit
-//            pass of radix.cuh for every 8 bits of nparts (2 passes for 4096
-//            cells): the staging permutation si, rows in (bucket, row) order;
+//   order    a stable LSD radix sort of the row index by bucket, the
+//            one-sweep sort of radix.cuh with one 8-bit pass for every 8 bits
+//            of nparts (2 passes for 4096 cells): the staging permutation si,
+//            rows in (bucket, row) order;
 //   place    sorted position i of bucket b has rank i - start[b]; the row
 //            goes to slot b * cap + rank where rank < cap, its payload words
 //            are gathered there, and its slot is written to the row map;
@@ -25,6 +26,7 @@
 // w payload words and writes the w words, plus the nparts * cap cell slots
 // that stay zero.  The radix passes move 8 B a row each beyond that.
 #include "radix.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -157,7 +159,8 @@ DBT_API int dbt_value_boundaries(const void* d, int64_t n, int64_t nprobes, void
 
 DBT_API int64_t dbt_stage_cells_scratch_words(int64_t n, int64_t nparts) {
   const int64_t nbins = nparts + 1;
-  return 4 * n + 2 * nbins + dbt::seg_scan_scratch_words(nbins) + dbt::radix_scratch_words(n);
+  return 2 * n + 2 * nbins + dbt::seg_scan_scratch_words(nbins) +
+         dbt::radix_scratch_words(n, bucket_passes(nparts));
 }
 
 // dest u32[n]; active u8[n] or null (every row active); pay_in: npay device
@@ -173,14 +176,13 @@ DBT_API int dbt_stage_cells(const void* dest, const void* active, int64_t n, int
   if (nparts < 1 || cap < 1 || npay < 0 || npay > dbt::MAX_KEY_WORDS)
     return (int)cudaErrorInvalidValue;
   if (nparts >= ((int64_t)1 << 31) || cap >= ((int64_t)1 << 31) ||
-      nparts * cap >= ((int64_t)1 << 31))
+      nparts * cap >= ((int64_t)1 << 31) || n > dbt::RS_MAX_ROWS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t nbins = nparts + 1;
+  // the rows' buckets, then the same in (bucket, row) order
   uint32_t* kbuf[2] = {static_cast<uint32_t*>(scratch), static_cast<uint32_t*>(scratch) + n};
-  int32_t* vbuf[2] = {reinterpret_cast<int32_t*>(kbuf[1] + n),
-                      reinterpret_cast<int32_t*>(kbuf[1] + 2 * n)};
-  uint32_t* hist = kbuf[1] + 3 * n;
+  uint32_t* hist = kbuf[1] + n;
   uint32_t* incl = hist + nbins;
   uint32_t* scan = incl + nbins;
   uint32_t* radix_base = scan + dbt::seg_scan_scratch_words(nbins);
@@ -204,18 +206,25 @@ DBT_API int dbt_stage_cells(const void* dest, const void* active, int64_t n, int
       hist, nparts, (uint32_t)cap, static_cast<uint32_t*>(counts), st_stats);
   DBT_CHECK_LAUNCH();
   if (n > 0) {
-    const dbt::RadixScratch rs = dbt::radix_scratch(radix_base, n);
     const int passes = bucket_passes(nparts);
-    const int32_t* vin = nullptr;  // pass 0 makes the row index
+    int32_t sched[3 * 4];
     for (int t = 0; t < passes; ++t) {
-      int32_t* vout = t == passes - 1 ? static_cast<int32_t*>(si) : vbuf[t & 1];
-      err = dbt::radix_pass<dbt::DIGIT_KEY>(kbuf[t & 1], 1, vin, nullptr, kbuf[(t + 1) & 1], vout,
-                                            nullptr, n, 8 * t, rs, st);
-      if (err) return err;
-      vin = vout;
+      sched[3 * t] = 0;
+      sched[3 * t + 1] = 8 * t;
+      sched[3 * t + 2] = 0;
     }
+    const void* words[1] = {kbuf[0]};
+    const int64_t strides[1] = {1};
+    dbt::RadixIO io;
+    io.cols = dbt::key_cols(words, strides, 1);
+    io.inact = nullptr;
+    io.keys_out = kbuf[1];
+    io.perm_out = static_cast<int32_t*>(si);
+    io.act_out = nullptr;
+    err = dbt::radix_sort(io, sched, passes, n, radix_base, st);
+    if (err) return err;
     stage_place<<<dbt::blocks_for(n, ST_THREADS), ST_THREADS, 0, st>>>(
-        kbuf[passes & 1], static_cast<const int32_t*>(si), hist, incl, n, (uint32_t)nparts,
+        kbuf[1], static_cast<const int32_t*>(si), hist, incl, n, (uint32_t)nparts,
         (uint32_t)cap, dbt::key_cols(pay_in, pay_strides, npay), cp,
         static_cast<int32_t*>(slot_of_row));
     DBT_CHECK_LAUNCH();

@@ -11,57 +11,42 @@
 // fallback both equal one sort over every key word, which is what this is.
 //
 // Bound on the H100: bytes.  The function reads 4 B per word and 1 B of
-// inact per row and writes perm (4 B) and s_act (1 B).  The design is a
-// stable LSD radix sort of the row index alone: 8-bit passes from the last
-// word's low byte up to the first word's high byte, then one pass on the
-// inact bit, 4m + 1 passes of radix.cuh.  No key moves: each pass reads its
-// digit as word[perm[i] * stride], through the order so far, so a column of
-// a row-major [N, K] matrix is sorted where it lies.  The price is one
-// random 4-byte read per row and pass; at the pipeline's sizes the key
-// columns fit the 50 MB L2 cache.  Stability across tiles (a long run of
-// equal keys spans many tiles) comes from the digit-major scan of per-tile
-// counts, as in K1.
+// inact per row and writes perm (4 B) and s_act (1 B).  The design is the
+// one-sweep LSD radix sort of radix.cuh: one histogram launch reads every
+// word and inact once, in row order, then 8-bit passes from the last word's
+// low byte up to the first word's high byte, the inactive flag folded into
+// the top digit (a 9-bit digit, no pass of its own): 4m passes, one launch
+// each (kernels/radix_plan.py).  A pass whose digit is constant (the NUL
+// bytes that pad short strings) is skipped, decided on the card.  The first
+// pass of a word to scatter reads it through the order so far,
+// word[perm[i] * stride], so a column of a row-major [N, K] matrix is sorted
+// where it lies; the word then moves with the row index through its other
+// passes, at most m - 1 random reads a row in all (the first pass to scatter
+// reads in row order).  Stability across tiles (a long run of equal keys
+// spans many tiles) comes from the decoupled look-back's per-digit prefix.
 #include "radix.cuh"
-
-DBT_API int64_t dbt_words_sort_scratch_words(int64_t n) {
-  return 2 * n + dbt::radix_scratch_words(n);
-}
 
 // words: m device pointers (host array) to u32 columns of n rows, the row
 // stride of each in `strides` (host array, in words); inact u8[n] or null
-// (every row active; s_act is then left untouched).  perm i32[n], s_act
-// u8[n]; extra_out[j][i] = extra_in[j][perm[i]].
+// (every row active; s_act is then left untouched).  sched: npasses (word,
+// shift, flag) triples on the host, the last pass flagged iff inact is
+// given.  perm i32[n], s_act u8[n]; extra_out[j][i] = extra_in[j][perm[i]].
+// scratch: dbt_radix_scratch_words(n, npasses); its first npasses words hold
+// the kinds of the passes afterwards (1 trivial, 2 scattered).
 DBT_API int dbt_words_sort(const void* const* words, const int64_t* strides, int m,
-                           const void* inact, int64_t n, void* perm, void* s_act,
-                           const void* const* extra_in, void* const* extra_out, int nextra,
-                           void* scratch, void* stream) {
-  if (m < 1) return (int)cudaErrorInvalidValue;
+                           const int32_t* sched, int npasses, const void* inact, int64_t n,
+                           void* perm, void* s_act, const void* const* extra_in,
+                           void* const* extra_out, int nextra, void* scratch, void* stream) {
+  if (m < 1 || m > dbt::MAX_KEY_WORDS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* in_act = static_cast<const uint8_t*>(inact);
-  int32_t* out = static_cast<int32_t*>(perm);
-  int32_t* bufs[2] = {static_cast<int32_t*>(scratch), static_cast<int32_t*>(scratch) + n};
-  const dbt::RadixScratch rs =
-      dbt::radix_scratch(reinterpret_cast<uint32_t*>(bufs[1] + n), n);
-
-  const int passes = 4 * m + (in_act ? 1 : 0);
-  const int32_t* vin = nullptr;  // pass 0 makes the row index
-  int t = 0;
-  for (int w = m - 1; w >= 0; --w) {
-    const uint32_t* col = static_cast<const uint32_t*>(words[w]);
-    for (int d = 0; d < 4; ++d, ++t) {
-      int32_t* vout = t == passes - 1 ? out : bufs[t & 1];
-      int err = dbt::radix_pass<dbt::DIGIT_GATHER>(col, strides[w], vin, nullptr, nullptr, vout,
-                                                   nullptr, n, 8 * d, rs, st);
-      if (err) return err;
-      vin = vout;
-    }
-  }
-  if (in_act) {
-    // most significant: the inactive bit (actives first)
-    int err = dbt::radix_pass<dbt::DIGIT_INACT>(nullptr, 1, vin, in_act, nullptr, out,
-                                                static_cast<uint8_t*>(s_act), n, 0, rs, st);
-    if (err) return err;
-  }
-  return dbt::gather_extras(out, n, extra_in, extra_out, nextra, st);
+  dbt::RadixIO io;
+  io.cols = dbt::key_cols(words, strides, m);
+  io.inact = static_cast<const uint8_t*>(inact);
+  io.keys_out = nullptr;
+  io.perm_out = static_cast<int32_t*>(perm);
+  io.act_out = inact ? static_cast<uint8_t*>(s_act) : nullptr;
+  int err = dbt::radix_sort(io, sched, npasses, n, static_cast<uint32_t*>(scratch), st);
+  if (err) return err;
+  return dbt::gather_extras(io.perm_out, n, extra_in, extra_out, nextra, st);
 }

@@ -17,6 +17,8 @@
                                    the placement route's word gather (ops/movement.py:51,68,108)
 
 (paths in the JAX package; K11 and K12's in the repository's ``tools/``).
+K1, K5 and K9's bucket passes run on one one-sweep LSD radix sort
+(``csrc/radix.cuh``), whose pass schedule ``radix_plan`` builds.
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
 fallback from one to the other.

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..batch import as_u32
-from . import _lib
+from . import _lib, radix_plan
 
 
 def view_sort(
@@ -21,7 +21,8 @@ def view_sort(
     ``s_key[i] = key[perm[i]]``, ``s_act[i] = ~inact[perm[i]]`` and every
     extra word gathered by perm.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, for
+    at most 2^30 - 1 rows (``radix_plan.MAX_ROWS``).
     """
     if key.device.type == "cpu":
         return view_sort_plain(inact, key, extra)
@@ -39,19 +40,23 @@ def view_sort(
     ex_out = tuple(torch.empty_like(w) for w in extra)
     if n == 0:
         return s_key, perm, s_act, ex_out
+    radix_plan.check_rows("view_sort", n)
+    sched = radix_plan.view_sort_schedule()
     lib = _lib.library()
     scratch = torch.empty(
-        lib.dbt_view_sort_scratch_words(n), dtype=torch.int32, device=dev
+        lib.dbt_radix_scratch_words(n, len(sched)), dtype=torch.int32, device=dev
     )
     with torch.cuda.device(dev):
         err = lib.dbt_view_sort(
             key.data_ptr(), inact.data_ptr(), n,
+            radix_plan.schedule_array(sched), len(sched),
             s_key.data_ptr(), perm.data_ptr(), s_act.data_ptr(),
             _lib.ptr_array(extra), _lib.ptr_array(ex_out), len(extra),
             scratch.data_ptr(), _lib.stream_of(key),
         )
     _lib.raise_on_error(err, "view_sort")
     _lib.LAUNCHES["radix_sort"] += 1
+    radix_plan.note_kinds(scratch, len(sched))
     return s_key, perm, s_act, ex_out
 
 

@@ -12,7 +12,7 @@ from typing import Sequence
 import torch
 
 from ..batch import as_u32
-from . import _lib
+from . import _lib, radix_plan
 from .words_sort import words_sort
 
 ROW_MAPS = ("slots", "si", "none")
@@ -101,6 +101,7 @@ def stage_to_cells(
         if active.shape != (n,):
             raise ValueError("stage_to_cells: active must be [N] like dest")
     _lib.check_columns("stage_to_cells payload", payloads, n, dev)
+    radix_plan.check_rows("stage_to_cells", n)
     m = nparts * cap
     cells = [torch.empty(m, dtype=torch.int32, device=dev) for _ in payloads]
     counts = torch.empty(nparts, dtype=torch.int32, device=dev)

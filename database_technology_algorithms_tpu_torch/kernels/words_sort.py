@@ -13,7 +13,7 @@ from typing import Sequence
 import torch
 
 from ..batch import as_u32
-from . import _lib
+from . import _lib, radix_plan
 
 
 def words_sort(
@@ -30,7 +30,8 @@ def words_sort(
     ``s_act[i] = ~inact[perm[i]]`` and every contiguous int32 `extra` word
     is gathered by perm.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, for
+    at most 2^30 - 1 rows and 40 words (``radix_plan``).
     """
     words = list(words)
     if not words:
@@ -52,15 +53,18 @@ def words_sort(
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     s_act = torch.ones(n, dtype=torch.bool, device=dev)
     ex_out = tuple(torch.empty_like(w) for w in extra)
+    sched = radix_plan.words_sort_schedule(len(words), inact is not None)
     if n == 0:
         return perm, s_act, ex_out
+    radix_plan.check_rows("words_sort", n)
     lib = _lib.library()
     scratch = torch.empty(
-        lib.dbt_words_sort_scratch_words(n), dtype=torch.int32, device=dev
+        lib.dbt_radix_scratch_words(n, len(sched)), dtype=torch.int32, device=dev
     )
     with torch.cuda.device(dev):
         err = lib.dbt_words_sort(
             _lib.ptr_array(words), _lib.stride_array(words), len(words),
+            radix_plan.schedule_array(sched), len(sched),
             None if inact is None else inact.data_ptr(), n,
             perm.data_ptr(), s_act.data_ptr(),
             _lib.ptr_array(extra), _lib.ptr_array(ex_out), len(extra),
@@ -68,6 +72,7 @@ def words_sort(
         )
     _lib.raise_on_error(err, "words_sort")
     _lib.LAUNCHES["words_sort"] += 1
+    radix_plan.note_kinds(scratch, len(sched))
     return perm, s_act, ex_out
 
 
