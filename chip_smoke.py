@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
      K7 un-permute, K8 key hash, K9 staging into cells, K10 build
      multiplicity over cell pairs, K11 tile copy, K12 row move) against its
      plain torch version on the card, bit for bit, at the main paths'
-     shapes and at edge cases;
+     shapes and at edge cases (K4 and K12, on the row-move engine of
+     ``csrc/rowmove.cuh``, also at row widths that take 4-, 8- and 16-byte
+     accesses, on views 1-3 words past a 16-byte boundary, at tile edges,
+     with every live-count form, and K4 at a 16M-row gather);
   3. the staged pipeline: ``make_pipeline_staged(1)`` on 1M + 1M generated
      rows (the bench's key range, 3*rows/10), with every launch counter set
      to 0 just before and read just after; then field 0.  Counters, join
@@ -58,7 +61,9 @@ Phases (any failure raises and the script exits non-zero):
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
      beside a stable torch.sort, and how many radix passes K1 and K5
-     scattered and skipped, as the card chose them.
+     scattered and skipped, as the card chose them; K4 also at the four
+     shapes of the ``pipeline`` command (field 2) and at the over-budget
+     route's largest gather chunk, as recorded from those paths.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -100,8 +105,11 @@ MID_ROWS = 1_500_000  # fields 0, 2, 3 under a 512K-row budget
 SKEW_ROWS = 200_000  # all keys equal under a 64K-row budget
 PKG = "database_technology_algorithms_tpu_torch"
 JAX_PKG = "database_technology_algorithms_tpu"
-# the sources that build on the one-sweep radix sort of csrc/radix.cuh
+# the sources that build on the one-sweep radix sort of csrc/radix.cuh and
+# on the row-move engine of csrc/rowmove.cuh, and their kernels' names
 RADIX_SOURCES = ("radix_sort.cu", "words_sort.cu", "stage_cells.cu")
+ROWMOVE_SOURCES = ("take_fill.cu", "row_move.cu")
+ENGINE_KERNELS = r"onesweep_[a-z]+|take_fill_kernel|row_move_kernel"
 
 
 def log(msg: str) -> None:
@@ -264,9 +272,9 @@ def phase_device_and_build() -> str:
             smem = [int(x) for x in re.findall(r"(\d+) bytes smem", chunk)] or [0]
             log(f"[ptxas] {chunk.split()[0]}: {len(regs)} kernels, max {max(regs)} "
                 f"registers, max {max(smem)} B static smem, {sum(spills)} B spilled")
-            if chunk.split()[0] in RADIX_SOURCES:
+            if chunk.split()[0] in RADIX_SOURCES + ROWMOVE_SOURCES:
                 for name, props in ptxas_kernels(chunk).items():
-                    if name.startswith("onesweep_"):
+                    if re.match(ENGINE_KERNELS, name):
                         log(f"[ptxas]   {chunk.split()[0]} {name}: {props}")
     return card
 
@@ -281,7 +289,7 @@ def ptxas_kernels(chunk: str) -> dict:
             raw = m.group(1)
             # _ZN3dbt13onesweep_passILi512ELb1EEEvNS_8PassArgsE -> onesweep_pass<512,1>
             tmpl = re.findall(r"L[ib](\d+)E", raw)
-            base = re.search(r"onesweep_[a-z]+", raw)
+            base = re.search(ENGINE_KERNELS, raw)
             name = (base.group(0) if base else raw) + (f"<{','.join(tmpl)}>" if tmpl else "")
             spill = "0 B"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -375,6 +383,7 @@ def check_kernels(dev) -> dict:
     torch.cuda.synchronize()
     log(f"[kernels] K1-K4 equal their plain versions at n in {sizes}; K1 also at the radix "
         f"tile's edges and {2 * ROWS} rows ({RADIX_EDGE_CASES}) and at {n} rows")
+    errs["take_fill"] = max(errs["take_fill"], check_take_fill_cases(dev, g))
     errs.update(check_sort_kernels(dev, g, sizes))
     errs.update(check_overbudget_kernels(dev, g, sizes))
     errs.update(check_probe_kernels(dev, g, sizes[:4] + sizes[5:]))
@@ -382,6 +391,85 @@ def check_kernels(dev) -> dict:
 
 
 RADIX_EDGE_CASES = ("equal", "one run", "equal, flag varies", "constant digits", "all inactive")
+TAKE_WIDTHS = (1, 2, 3, 4, 8, 30)  # K4's string words: 4-, 8- and 16-byte accesses
+MOVE_WIDTHS = (1, 3, 5, 36)  # K12's row widths
+GATHER_CHUNK = 16 * 1024 * 1024  # the over-budget route's largest K4 gather (cfg.mem_rows)
+
+
+def unaligned(t: torch.Tensor, words: int) -> torch.Tensor:
+    """`t` copied into a contiguous view `words` 4-byte words past the start
+    of a larger buffer, as a row slice of a batch or a chunk of an index is."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = flat[words: words + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def live_counts(dev, m: int) -> dict:
+    """The count forms K4 and K12 (load) take: none, a 0-d int32 tensor on
+    the card, a host integer; at none, some, all, past all and below zero."""
+    def on_card(c):
+        return torch.tensor(c, dtype=torch.int32, device=dev)
+
+    return {"none": None, "card m/3": on_card(m // 3), "host m/2": m // 2, "card 0": on_card(0),
+            "card m+5": on_card(m + 5), "card -1": on_card(-1)}
+
+
+def check_take_fill_cases(dev, g) -> int:
+    """K4 against its plain version at the row-move engine's edges: string
+    widths K of 1, 2, 3, 4, 8 and 30 words, the string words 1 to 3 words
+    past a 16-byte boundary and a row slice of every column (unaligned
+    views), indices all out of range, an empty source, every live-count
+    form, and one gather of GATHER_CHUNK rows (the over-budget route's
+    chunk) from 24M rows."""
+    from database_technology_algorithms_tpu_torch.kernels.take_fill import (
+        take_fill, take_fill_plain)
+
+    def columns(n, k):
+        return (torch.from_numpy(g.integers(-2**31, 2**31, size=n).astype(np.int32)).to(dev),
+                torch.from_numpy(g.integers(-2**31, 2**31, size=n).astype(np.int32)).to(dev),
+                torch.from_numpy(g.integers(-2**31, 2**31, size=(n, k)).astype(np.int32)).to(dev),
+                torch.from_numpy(g.random(n) < 0.9).to(dev))
+
+    def check(what, cols, idx, count):
+        return assert_same(f"K4 {what}", take_fill(*cols, idx, count),
+                           take_fill_plain(*cols, idx, count))
+
+    err, calls = 0, 0
+    n, m = 70_001, 50_003
+    for k in TAKE_WIDTHS:
+        cols = columns(n, k)
+        idx = torch.from_numpy(g.integers(-n - 3, n + 3, size=m).astype(np.int32)).to(dev)
+        cases = {"aligned": (cols, idx),
+                 "row slice": (tuple(c[1:] for c in cols), idx[1:]),
+                 "all fill": (cols, torch.where(idx < 0, -n - 1, n).to(torch.int32)),
+                 "empty source": (tuple(c[:0] for c in cols), idx)}
+        for words in (1, 2, 3):
+            cases[f"strw {words} words past 16 B"] = ((*cols[:2], unaligned(cols[2], words),
+                                                       cols[3]), unaligned(idx, words))
+        for what, (c, i) in cases.items():
+            for form, count in live_counts(dev, i.shape[0]).items():
+                err = max(err, check(f"n={c[0].shape[0]} m={i.shape[0]} K={k} {what}, count "
+                                     f"{form}", c, i, count))
+                calls += 1
+    # beyond the 50 MB L2 (the plan's small spans): the over-budget route's
+    # chunk, a 16M-row gather from 24M rows with K = 2, and 4M rows with K = 3
+    for big_n, big_m, k in ((OVER_ROWS, GATHER_CHUNK, 2), (4_000_000, 4_000_000, 3)):
+        cols = columns(big_n, k)
+        idx = torch.randint(-big_n // 10, big_n + big_n // 10, (big_m,), dtype=torch.int32,
+                            device=dev, generator=torch.Generator(device=dev).manual_seed(12))
+        for form, count in (("none", None),
+                            ("card", torch.tensor(big_m - 12345, dtype=torch.int32, device=dev))):
+            err = max(err, check(f"n={big_n} m={big_m} K={k}, count {form}", cols, idx, count))
+            calls += 1
+        del cols, idx
+    torch.cuda.synchronize()
+    log(f"[kernels] K4 equals its plain version in {calls} more calls: K in {TAKE_WIDTHS} at "
+        f"n={n}, m={m}, aligned, as a row slice, with the string words 1-3 words past 16 B, all "
+        f"fill and from an empty source, each with the live count {list(live_counts(dev, 1))}; "
+        f"and beyond L2 a {GATHER_CHUNK}-row gather from {OVER_ROWS} rows (K=2) and 4M rows "
+        f"(K=3)")
+    return err
 
 
 def radix_edge_inputs(g, m: int):
@@ -469,7 +557,63 @@ def check_probe_kernels(dev, g, sizes) -> dict:
         f"and tile-permuted starts; K12 in both modes at N={prims.N} in tiles of {prims.T} "
         f"(W={prims.W}) and as one tile at N in {sizes} (W 5 and {prims.W}) with slots outside "
         f"the tile")
+    errs["row_move"] = max(errs["row_move"], check_row_move_cases(dev, g))
     return errs
+
+
+def check_row_move_cases(dev, g) -> int:
+    """K12 against its plain version at the row-move engine's edges: row
+    widths W of 1, 3, 5 and 36 words, rows 2049 and 4099 in tiles of 1, 7,
+    2048 and 4096 (a last tile cut short, a tile past the rows), slots at and
+    past the tile's edges, x 1 to 3 words past a 16-byte boundary, and every
+    live-count form of the load."""
+    from database_technology_algorithms_tpu_torch.kernels.row_move import (
+        row_move, row_move_plain)
+
+    err, calls = 0, 0
+    for w in MOVE_WIDTHS:
+        for n in (2049, 4099):
+            x = torch.from_numpy(g.integers(-2**31, 2**31, size=(n, w)).astype(np.int32)).to(dev)
+            views = {"aligned": x, **{f"{k} words past 16 B": unaligned(x, k) for k in (1, 2, 3)}}
+            for tile in (1, 7, 2048, 4096):
+                load_slot = torch.from_numpy(
+                    g.integers(-2, tile + 2, size=n).astype(np.int32)).to(dev)
+                store = np.concatenate([g.permutation(min(tile, n - t0))
+                                        for t0 in range(0, n, tile)]).astype(np.int32)
+                store[g.random(n) < 0.2] = tile  # these rows land nowhere
+                store_slot = torch.from_numpy(store).to(dev)
+                for what, xv in views.items():
+                    shape = f"N={n} W={w} tile={tile} {what}"
+                    for form, count in live_counts(dev, n).items():
+                        err = max(err, assert_same(
+                            f"K12 {shape} load, count {form}",
+                            (row_move(xv, load_slot, tile, True, count),),
+                            (row_move_plain(xv, load_slot, tile, True, count),)))
+                    err = max(err, assert_same(
+                        f"K12 {shape} store", (row_move(xv, store_slot, tile, False),),
+                        (row_move_plain(xv, store_slot, tile, False),)))
+                    calls += len(live_counts(dev, n)) + 1
+    # beyond the 50 MB L2 (the plan's small spans): 4M rows of 5 words, one tile
+    n = 4_000_000
+    x = torch.randint(-2**31, 2**31, (n, 5), dtype=torch.int32, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(13))
+    slot = torch.randperm(n, device=dev, generator=torch.Generator(device=dev).manual_seed(14))
+    slot = slot.to(torch.int32)
+    for form, count in (("none", None), ("card", torch.tensor(n // 3, dtype=torch.int32,
+                                                               device=dev))):
+        err = max(err, assert_same(f"K12 N={n} W=5 one tile load, count {form}",
+                                   (row_move(x, slot, n, True, count),),
+                                   (row_move_plain(x, slot, n, True, count),)))
+    err = max(err, assert_same(f"K12 N={n} W=5 one tile store",
+                               (row_move(x, slot, n, False),), (row_move_plain(x, slot, n, False),)))
+    calls += 3
+    del x, slot
+    torch.cuda.synchronize()
+    log(f"[kernels] K12 equals its plain version in {calls} more calls: W in {MOVE_WIDTHS}, N in "
+        f"(2049, 4099), tiles of 1, 7, 2048 and 4096 with slots past the tile's edges, x aligned "
+        f"and 1-3 words past 16 B, the load with every live-count form, the store; and beyond L2 "
+        f"4M rows of 5 words as one tile")
+    return err
 
 
 def check_sort_kernels(dev, g, sizes) -> dict:
@@ -776,6 +920,60 @@ def phase_pipeline(dev, card: str) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def recorded_take_fills():
+    """The arguments of every K4 wrapper call made inside, in order, so that
+    K4 can be timed at the shapes a path gives it (``RecordBatch.take_fill``
+    looks the wrapper up in its module at each call).  The calls still
+    launch the kernel."""
+    from database_technology_algorithms_tpu_torch.kernels import take_fill as module
+
+    calls, wrapper = [], module.take_fill
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return wrapper(*args, **kw)
+
+    module.take_fill = record
+    try:
+        yield calls
+    finally:
+        module.take_fill = wrapper
+
+
+def take_fill_timing(call, card: str, what: str) -> dict:
+    """K4 at the shape of one recorded call: the kernel's device time beside
+    its plain version's, ``index_select`` of the same rows packed as one
+    [N, 3+K] matrix (a yardstick: no fill, no count) and the byte bound (the
+    index, the live source rows and every output row)."""
+    from database_technology_algorithms_tpu_torch.kernels.take_fill import (
+        take_fill, take_fill_plain)
+
+    args, kw = call
+    recid, num, strw, valid, idx = args[:5]
+    count = args[5] if len(args) > 5 else kw.get("count")
+    (n, k), m = strw.shape, idx.shape[0]
+    j = idx.long()
+    j = torch.where(j < 0, j + n, j)
+    live = (j >= 0) & (j < n)
+    if count is not None:
+        live &= torch.arange(m, device=idx.device) < count
+    nlive = int(live.sum())
+    rows_packed = torch.cat([recid[:, None], num[:, None], valid.to(torch.int32)[:, None], strw], 1)
+    picked = torch.where(live, j, 0)
+    nbytes = m * 4 + nlive * (9 + 4 * k) + m * (9 + 4 * k)
+    rec = {"shape": f"{what}: {m} output rows x (3+{k}) words from {n} rows, {nlive} live"
+                    f"{', live count on the card' if isinstance(count, torch.Tensor) else ''}",
+           "ms": device_ms(lambda: take_fill(*args, **kw)),
+           "plain_ms": device_ms(lambda: take_fill_plain(*args[:5], count)),
+           "library_ms": device_ms(lambda: torch.index_select(rows_packed, 0, picked)),
+           "bound_ms": bound_ms(nbytes)}
+    log(f"[timing] {card}: take_fill ({rec['shape']}): device time per call: kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library index_select (no fill) "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({nbytes} B)")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the ``pipeline`` command (the reference's main program)
 
@@ -905,7 +1103,14 @@ def phase_command(dev, card: str) -> dict:
             f"kernels {prof['busy_us']:.1f} us per run, busy share {share:.3f}")
         for name, us in prof["top"][:8]:
             log(f"[command profile]   field {field} {us:9.1f} us  {name[:90]}")
-    return {"launches": launches, "cols": (r_cols, s_cols), "batches": (r, s)}
+        if field == 2:  # K4's shapes in the command, timed in phase_timings
+            with recorded_take_fills() as k4_calls:
+                whole()
+            torch.cuda.synchronize()
+            log(f"[command stages] field 2: {len(k4_calls)} K4 calls recorded in the four stages "
+                f"(the command's run launched {launches[2]['take_fill']})")
+    return {"launches": launches, "cols": (r_cols, s_cols), "batches": (r, s),
+            "k4_calls": k4_calls}
 
 
 # ---------------------------------------------------------------------------
@@ -1388,6 +1593,14 @@ def phase_overbudget(dev, card: str) -> dict:
         f"busy share of that wall {prof['busy_us'] / (run2_ms * 1e3):.3f}")
     for name, us in prof["top"][:12]:
         log(f"[over budget profile]   {us / 1e3:9.3f} ms  {name[:90]}")
+    # K4 at the route's largest shape: a chunk of the chunked distinct's gather
+    with recorded_take_fills() as k4_calls:
+        distinct(r, 1, cfg, active=r.valid)
+    torch.cuda.synchronize()
+    k4_chunk = take_fill_timing(max(k4_calls, key=lambda c: c[0][4].shape[0]), card,
+                                "over budget, the largest gather chunk of distinct R")
+    k4_chunk["launches"] = launches["take_fill"]
+    del k4_calls
     join_prof = profile_device(
         lambda: hash_join_count(s_d, r_d, 1, cfg, build_count=nu_s, probe_count=nu_r), reps=2)
     log(f"[over budget] {card}: the tiled join alone: device kernels "
@@ -1529,7 +1742,7 @@ def phase_overbudget(dev, card: str) -> dict:
     log(f"[over budget] all keys equal, {SKEW_ROWS}+{SKEW_ROWS} rows, mem_rows "
         f"{small.mem_rows}, {ntiles} cells: {seen.n} attempts overflowed and were retried with "
         f"doubled capacity (at most {ntiles.bit_length()} attempts), nres {int(nres)} == numpy")
-    return {"launches": launches, "recs": recs}
+    return {"launches": launches, "recs": recs, "k4_chunk": k4_chunk}
 
 
 def phase_cli() -> None:
@@ -1617,8 +1830,8 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
     adj = torch.cat([torch.zeros(1, dtype=torch.bool, device=key.device), s_key[1:] == s_key[:-1]])
     is_start = ~adj
     r_first = ((perm < nr) & ~inact[perm.long()] & is_start).to(torch.int32)
-    cnt = int(a_out["cnt"])
-    _, (orig_front,) = compact_words(matched, (perm,))
+    front_cnt, (orig_front,) = compact_words(matched, (perm,))
+    cnt = int(front_cnt)
     gather_idx = torch.where(
         torch.arange(nr, dtype=torch.int32, device=key.device) < cnt, orig_front[:nr], n)
     rcols = (r.recid, r.num, r.strw, r.valid)
@@ -1673,8 +1886,9 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
              shape=f"{n} rows, 1 payload word (perm), incl. its K2 rank scan"),
         dict(name="take_fill", source=f"{PKG}/csrc/take_fill.cu",
              replaces=f"{JAX_PKG}/batch.py:220",
-             kernel=lambda: take_fill(*rcols, gather_idx),
-             plain=lambda: take_fill_plain(*rcols, gather_idx),
+             # as materialize_survivors calls it: the live count on the card
+             kernel=lambda: take_fill(*rcols, orig_front[:nr], front_cnt),
+             plain=lambda: take_fill_plain(*rcols, orig_front[:nr], front_cnt),
              library=lambda: torch.index_select(rows_packed, 0, clamped),
              # index read for every output row; source row read only where live
              nbytes=nr * 4 + cnt * (9 + 4 * k) + nr * (9 + 4 * k),
@@ -1736,6 +1950,12 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
             f"CUDA-event span per back-to-back call: kernel {cuda_ms(sp['kernel']):.4f} ms")
         out.append(rec)
     recs = {rec["name"]: rec for rec in out}
+    # K4 at the pipeline command's four shapes (field 2) and the over-budget
+    # route's largest chunk
+    stages = ("distinct R", "distinct S", "join_sorted_distinct", "hash_join's rows")
+    recs["take_fill"]["shapes"] = [
+        take_fill_timing(call, card, f"pipeline command field 2, {stage}")
+        for stage, call in zip(stages, command["k4_calls"])] + [over["k4_chunk"]]
     for what, fn in ((f"K1 at {n} rows", lambda: view_sort(inact, key)),
                      (f"K5 at {dn} rows", lambda: words_sort(d_words, d_inact))):
         log(f"[timing] {card}: {what}, device ms a call by kernel: "
@@ -1833,8 +2053,9 @@ def probe_records(sort: dict, probes: dict, errs: dict, card: str) -> list[dict]
         "name": "row_move", "route": "cuda",
         "source": f"{PKG}/csrc/row_move.cu", "replaces": "tools/bench_permute_prims.py:155",
         "launches": sort["launches"][("sort2d", 1)]["row_move"], "max_abs_err": errs["row_move"],
-        "ms": device_ms(lambda: row_move(words, slot, n, True)),
-        "plain_ms": device_ms(lambda: row_move_plain(words, slot, n, True)),
+        # as the route's _place calls it: the rank order and the live count
+        "ms": device_ms(lambda: row_move(words, perm, n, True, cnt)),
+        "plain_ms": device_ms(lambda: row_move_plain(words, perm, n, True, cnt)),
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
         "library_ms": device_ms(lambda: torch.index_select(words, 0, clamped)),
         "shape": f"{n} rows x {w} words, one tile, {live} live (sort2d stage B, field 1)",

@@ -161,12 +161,13 @@ class RecordBatch:
         pad = self.strw.new_zeros((self.nrows, k - cur))
         return dataclasses.replace(self, strw=torch.cat([self.strw, pad], dim=1))
 
-    def take_fill(self, idx: torch.Tensor) -> "RecordBatch":
-        """Gather rows by index; an index outside [-N, N) gives a zero row
-        with ``valid=False`` (kernels/take_fill.py)."""
+    def take_fill(self, idx: torch.Tensor, count=None) -> "RecordBatch":
+        """Gather rows by index; an index outside [-N, N), or a position at
+        or past `count` (None: none), gives a zero row with ``valid=False``
+        (kernels/take_fill.py)."""
         from .kernels.take_fill import take_fill
 
-        return RecordBatch(*take_fill(self.recid, self.num, self.strw, self.valid, idx))
+        return RecordBatch(*take_fill(self.recid, self.num, self.strw, self.valid, idx, count))
 
     def take(self, idx: torch.Tensor) -> "RecordBatch":
         """Gather rows by index, every index in [-N, N) (a permutation, a

@@ -18,7 +18,9 @@
 
 (paths in the JAX package; K11 and K12's in the repository's ``tools/``).
 K1, K5 and K9's bucket passes run on one one-sweep LSD radix sort
-(``csrc/radix.cuh``), whose pass schedule ``radix_plan`` builds.
+(``csrc/radix.cuh``), whose pass schedule ``radix_plan`` builds; K4 and
+K12 on one row-move engine (``csrc/rowmove.cuh``), whose access width and
+rows a block ``rowmove_plan`` chooses.
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
 fallback from one to the other.

@@ -115,7 +115,8 @@ _SIGNATURES = {
     "dbt_radix_scratch_words": ([_I64, _I], _I64),
     "dbt_view_sort": ([_P, _P, _I64, _PI32, _I, _P, _P, _P, _PP, _PP, _I, _P, _P], _I),
     "dbt_compact_scatter": ([_P, _P, _I64, _PP, _PP, _I, _P], _I),
-    "dbt_take_fill": ([_P, _I64, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "dbt_take_fill": ([_P, _I64, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
+                      _I),
     "dbt_words_sort": ([_PP, _PI64, _I, _PI32, _I, _P, _I64, _P, _P, _PP, _PP, _I, _P, _P], _I),
     "dbt_adj_equal": ([_PP, _PI64, _I, _P, _I64, _P, _P], _I),
     "dbt_unpermute": ([_P, _P, _I64, _I64, _I64, _P, _I, _P], _I),
@@ -127,7 +128,7 @@ _SIGNATURES = {
     "dbt_member_mult_scratch_words": ([_I64, _I64], _I64),
     "dbt_member_mult": ([_PP, _PI64, _PP, _PI64, _I, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P], _I),
     "dbt_tile_copy": ([_P, _P, _P, _I64, _I, _I, _I, _I, _P], _I),
-    "dbt_row_move": ([_P, _P, _P, _I64, _I, _I64, _I, _P], _I),
+    "dbt_row_move": ([_P, _P, _P, _I64, _I, _I64, _I, _P, _I64, _I, _I, _P], _I),
 }
 
 

@@ -112,10 +112,14 @@ def hash_join_count_impl(
     """
     field = canonical_field(field)
     ensure_device_budget(build.nrows + probe.nrows, cfg, "hash_join_count")
-    if cfg.u32_join_engine != "generic":
+    if field in (0, 1) and cfg.u32_join_engine != "generic":
+        # the JAX package dispatches to its single-word key engines here only;
+        # every other field runs the generic path under any engine
+        if cfg.u32_join_engine not in ("searchsorted", "table", "bucketed"):
+            raise ValueError(f"unknown u32_join_engine {cfg.u32_join_engine!r}")
         raise NotImplementedError(
             f"u32_join_engine={cfg.u32_join_engine!r}: the alternative join "
-            "engines are not ported yet (ROADMAP.md, Queue 1 item 12)"
+            "engines are not ported yet (ROADMAP.md, Queue 1 item 4)"
         )
     matched, mult = _fused_matched_mult(build, probe, field, cfg, build_count, probe_count)
     if field != FIELD_NUMSTR:

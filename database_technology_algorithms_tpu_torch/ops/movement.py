@@ -63,26 +63,23 @@ def packed_placement(cfg: EngineConfig, field: int, str_words: int) -> bool:
             and cfg.materialize != "sort2d" and 4 + str_words <= 8)
 
 
-def _rank_slots(dest: torch.Tensor, cnt) -> torch.Tensor:
+def _rank_slots(dest: torch.Tensor) -> torch.Tensor:
     """Per output position, the row placed there: rows in ascending u32
-    order of `dest` (K1), and ``len(dest)`` (out of range: a zero row) at
-    positions at or past `cnt` (None: none)."""
-    n = dest.shape[0]
-    inact = torch.zeros(n, dtype=torch.bool, device=dest.device)
-    perm = view_sort(inact, dest)[1]
-    if cnt is None:
-        return perm
-    return torch.where(torch.arange(n, dtype=torch.int32, device=dest.device) < cnt, perm, n)
+    order of `dest` (K1).  The movers zero the positions at or past a live
+    count themselves (their `count` argument)."""
+    inact = torch.zeros(dest.shape[0], dtype=torch.bool, device=dest.device)
+    return view_sort(inact, dest)[1]
 
 
 def _place(dest: torch.Tensor, cnt, words) -> list[torch.Tensor]:
-    """The words placed by rank of `dest`, positions >= cnt zeroed: one rank
-    sort for every word, one K12 gather of the words as [N, W]."""
+    """The words placed by rank of `dest`, positions >= cnt zeroed (None:
+    none): one rank sort for every word, one K12 gather of the words as
+    [N, W]."""
     if not words:
         return []
     n = dest.shape[0]
     stacked = torch.stack([w.to(torch.int32) for w in words], dim=1)
-    moved = row_move(stacked, _rank_slots(dest, cnt), max(n, 1), load=True)
+    moved = row_move(stacked, _rank_slots(dest), max(n, 1), load=True, count=cnt)
     return list(moved.t().contiguous())
 
 
@@ -119,7 +116,7 @@ def place_batch(dest: torch.Tensor, cnt, batch: RecordBatch) -> RecordBatch:
     at or past `cnt` zero with valid False (None: every row kept).  One rank
     sort (K1) and one record gather (K4), which carries valid as the JAX
     package's fold of valid into the key's low bit does."""
-    return batch.take_fill(_rank_slots(dest, cnt))
+    return batch.take_fill(_rank_slots(dest), count=cnt)
 
 
 def place_join_by_key(
@@ -135,15 +132,14 @@ def place_join_by_key(
     as in every caller (the JAX sort orders equal keys by the row's valid
     flag, then its index).
 
-    One K1 view sort of (~matched, key) and one K4 gather with the fill index
-    past `cnt`; each live row keeps its original valid.  With ``key_plane``
+    One K1 view sort of (~matched, key) and one K4 gather with the live count
+    `cnt`; each live row keeps its original valid.  With ``key_plane``
     "recid" or "num" that column is K1's sorted key, as the JAX package
     rebuilds it from its sort words."""
-    n = batch.nrows
     s_key, perm, _, _ = view_sort(~matched, key)
-    live = torch.arange(n, dtype=torch.int32, device=key.device) < cnt
-    out = batch.take_fill(torch.where(live, perm, n))
+    out = batch.take_fill(perm, count=cnt)
     if key_plane in ("recid", "num"):
+        live = torch.arange(batch.nrows, dtype=torch.int32, device=key.device) < cnt
         out = dataclasses.replace(out, **{key_plane: torch.where(live, s_key, 0)})
     return out
 
@@ -213,4 +209,4 @@ def compact_rows(
     n = batch.nrows
     iota = torch.arange(n, dtype=torch.int32, device=keep.device)
     count, out = compact_words(keep, (iota, *extra))
-    return batch.take_fill(torch.where(iota < count, out[0], n)), count, out[1:]
+    return batch.take_fill(out[0], count=count), count, out[1:]

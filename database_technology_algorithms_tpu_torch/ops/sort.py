@@ -153,11 +153,8 @@ def materialize_survivors(
     if use_sort_placement(cfg):
         dest, count = survivor_dest(view_perm, keep_sorted)
         return permute_rows(batch, dest[:nout], count=count, cfg=cfg), count
-    n = view_perm.shape[0]
     count, (front,) = compact_words(keep_sorted, (view_perm,))
-    live = torch.arange(nout, dtype=torch.int32, device=view_perm.device) < count
-    # n is out of range for every prefix of the table: a fill row
-    return batch.take_fill(torch.where(live, front[:nout], n)), count
+    return batch.take_fill(front[:nout], count=count), count
 
 
 def sort_batch_impl(
