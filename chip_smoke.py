@@ -16,7 +16,12 @@ Phases (any failure raises and the script exits non-zero):
      shapes and at edge cases (K4 and K12, on the row-move engine of
      ``csrc/rowmove.cuh``, also at row widths that take 4-, 8- and 16-byte
      accesses, on views 1-3 words past a 16-byte boundary, at tile edges,
-     with every live-count form, and K4 at a 16M-row gather);
+     with every live-count form, and K4 at a 16M-row gather; K2 and K3, on
+     the tiles of ``csrc/scan.cuh``, at the tile's edges with every op,
+     sign, direction and flag pattern, bool values, 1, 8 and 9 payload
+     words with row-index slots, at 16M and 36M rows, and on views 1-3
+     elements past a 16-byte boundary, with the kernels and memsets one
+     call launches as torch.profiler sees them);
   3. the staged pipeline: ``make_pipeline_staged(1)`` on 1M + 1M generated
      rows (the bench's key range, 3*rows/10), with every launch counter set
      to 0 just before and read just after; then field 0.  Counters, join
@@ -50,7 +55,8 @@ Phases (any failure raises and the script exits non-zero):
      chunked compaction), the launch counters set to 0 just before and read
      just after, against the numpy oracle; its split into steps and device
      busy time; K8, K9 and K10 held against their plain versions on that
-     run's own inputs; the spill copies' rate through pageable and through
+     run's own inputs, and K3 on every compaction of the route's steps; the
+     spill copies' rate through pageable and through
      page-locked host memory; ``distinct``, ``sort_batch``, ``hash_join_count`` and
      ``hash_join`` alone at 24M rows; fields 0, 2 and 3 at 1.5M + 1.5M rows
      under a 512K-row budget; all keys equal, where the tiled join overflows,
@@ -63,7 +69,9 @@ Phases (any failure raises and the script exits non-zero):
      beside a stable torch.sort, and how many radix passes K1 and K5
      scattered and skipped, as the card chose them; K4 also at the four
      shapes of the ``pipeline`` command (field 2) and at the over-budget
-     route's largest gather chunk, as recorded from those paths.
+     route's largest gather chunk, as recorded from those paths; K2 also on
+     int32 values and at 16M rows beside ``torch.cumsum``, K3 at the
+     over-budget route's 16M-row chunk beside ``masked_select``.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -92,6 +100,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12
 PROFILE_GUARD = 1024  # marker kernels ahead of a profiled window
 PROFILE_TAIL = 64  # and after it
+PROFILE_ATTEMPTS = 3  # traces taken before a reading is refused
 ROWS = 1_000_000
 BIG_ROWS = 8 * 1024 * 1024  # 2 * BIG_ROWS == EngineConfig.mem_rows
 NBLOCKS = ROWS // 100  # the pipeline command's --nblocks for ROWS rows a table
@@ -150,14 +159,37 @@ def profile_device(fn, reps: int = 5) -> dict:
     kernel it launched are not counted twice).
 
     A trace was seen to lose the device events at its start: one event as a
-    rule, up to about 300 now and then, never one further in.  So marker
-    kernels (an add on a complex128 scalar, which nothing else here launches)
-    fence the work: PROFILE_GUARD of them before the first call, one after
-    every call, and some more at the end.  Only what follows the first marker
-    left in the trace is read, a call at a time, so a call that lost events is
-    left out of the mean.  The trace is never taken again: the reading is
-    refused where no whole call is left, the calls left differ in their
-    number of events, or the trace does not end in a marker."""
+    rule, up to about 300 now and then; once, all of the work and the end.
+    So marker kernels (an add on a complex128 scalar, which nothing else here
+    launches) fence the work: PROFILE_GUARD of them before the first call, one
+    after every call, and some more at the end.  Only what follows the first
+    marker left in the trace is read, a call at a time, so a call that lost
+    events is left out of the mean.  A trace with no whole call left, with
+    calls that differ in their number of events, or that does not end in a
+    marker is thrown away and taken again, up to PROFILE_ATTEMPTS traces in
+    all; then the reading is refused."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        calls, lost = _profile_calls(fn, reps)
+        if calls:
+            break
+        log(f"[profile] trace {attempt} of {PROFILE_ATTEMPTS} thrown away: {lost}")
+    else:
+        raise RuntimeError(f"torch.profiler lost device events inside the work in "
+                           f"{PROFILE_ATTEMPTS} traces: {lost}")
+    if len(calls) < reps:
+        log(f"[profile] the trace lost its first events: {len(calls)} of {reps} calls are "
+            f"whole and are read")
+    by_name: dict[str, float] = {}
+    for ev in (ev for c in calls for ev in c):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time / len(calls)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"busy_us": sum(by_name.values()), "top": top,
+            "per_call": [ev.name for ev in calls[-1]]}
+
+
+def _profile_calls(fn, reps: int) -> tuple[list, str]:
+    """One fenced trace of `reps` calls of fn: (the device events of each
+    whole call, or [] and what the trace lost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,18 +218,10 @@ def profile_device(fn, reps: int = 5) -> dict:
         elif seen_marker:
             current.append(ev)
     if current or not calls or len({len(c) for c in calls}) != 1:
-        raise RuntimeError(
-            f"torch.profiler lost device events inside the work: {len(events)} events, "
-            f"{len(calls)} of {reps} calls whole, with {sorted({len(c) for c in calls})} "
-            f"events a call, {len(current)} events after the last marker")
-    if len(calls) < reps:
-        log(f"[profile] the trace lost its first events: {len(calls)} of {reps} calls are "
-            f"whole and are read")
-    by_name: dict[str, float] = {}
-    for ev in (ev for c in calls for ev in c):
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time / len(calls)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return {"busy_us": sum(by_name.values()), "top": top}
+        return [], (f"{len(events)} events, {len(calls)} of {reps} calls whole, with "
+                    f"{sorted({len(c) for c in calls})} events a call, {len(current)} events "
+                    f"after the last marker")
+    return calls, ""
 
 
 def device_parts(prof: dict, top: int = 4) -> str:
@@ -384,9 +408,131 @@ def check_kernels(dev) -> dict:
     log(f"[kernels] K1-K4 equal their plain versions at n in {sizes}; K1 also at the radix "
         f"tile's edges and {2 * ROWS} rows ({RADIX_EDGE_CASES}) and at {n} rows")
     errs["take_fill"] = max(errs["take_fill"], check_take_fill_cases(dev, g))
+    for name, err in check_scan_compact_cases(dev, g).items():
+        errs[name] = max(errs[name], err)
     errs.update(check_sort_kernels(dev, g, sizes))
     errs.update(check_overbudget_kernels(dev, g, sizes))
     errs.update(check_probe_kernels(dev, g, sizes[:4] + sizes[5:]))
+    return errs
+
+
+SCAN_FLAG_CASES = ("random", "tile first row", "tile last row", "no row", "one run", "None")
+KEEP_CASES = ("random", "all", "none", "alternating")
+BEYOND_L2_ROWS = (16 * 1024 * 1024, 36_000_000)  # the over-budget chunk; the tiled join's slots
+
+
+def scan_flags(g, n: int, case: str, tile: int, dev):
+    """Run starts of one K2 edge case (tests/test_torch_scan_schedule.py's)."""
+    rows = np.arange(n)
+    f = {"random": g.random(n) < 0.2, "tile first row": rows % tile == 0,
+         "tile last row": (rows % tile == tile - 1) | (rows == n - 1),
+         "no row": np.zeros(n, bool), "one run": rows == 0, "None": None}[case]
+    return None if f is None else torch.from_numpy(f).to(dev)
+
+
+def keep_mask(g, n: int, case: str, dev):
+    k = {"random": g.random(n) < 0.4, "all": np.ones(n, bool), "none": np.zeros(n, bool),
+         "alternating": np.arange(n) % 2 == 0}[case]
+    return torch.from_numpy(k).to(dev)
+
+
+def check_scan_compact_cases(dev, g) -> dict:
+    """K2 and K3 against their plain versions at the edges of their tiles
+    (kernels/scan_plan.py): the CPU tests' cases at the plan's tile (flags on
+    every tile's first or last row, on none, one run across every tile, no
+    flags; add, min and max, signed and unsigned, reversed; bool values;
+    keep all, none, alternating; 1, 8 and 9 payload words with row-index
+    slots); beyond the 50 MB L2 at 16M and 36M rows; views that start 1-3
+    elements past a 16-byte boundary; and the launches of one call of each
+    as torch.profiler sees them."""
+    from database_technology_algorithms_tpu_torch.kernels import scan_plan
+    from database_technology_algorithms_tpu_torch.kernels.compact import (
+        compact_words, compact_words_plain)
+    from database_technology_algorithms_tpu_torch.kernels.seg_scan import (
+        seg_scan, seg_scan_plain)
+
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(n))
+
+    errs = {"seg_scan": 0, "compact": 0}
+
+    def scan_same(what, f, v, op="add", signed=False, reverse=False):
+        errs["seg_scan"] = max(errs["seg_scan"], assert_same(
+            f"K2 {what} {op} signed={signed} reverse={reverse}",
+            (seg_scan(f, v, op, signed, reverse),), (seg_scan_plain(f, v, op, signed, reverse),)))
+
+    def compact_same(what, keep, payload):
+        got, want = compact_words(keep, payload), compact_words_plain(keep, payload)
+        if got[0].dim() != 0 or got[0].device != keep.device or got[0].dtype != torch.int32:
+            raise AssertionError(f"K3 {what}: the count is not a 0-d int32 tensor on the card")
+        errs["compact"] = max(errs["compact"], assert_same(
+            f"K3 {what}", (got[0], *got[1]), (want[0], *want[1])))
+
+    t = scan_plan.TILE
+    sizes = [0, 1, t - 1, t, t + 1, 3 * t + 5, 37 * t + 3]
+    for n in sizes:
+        v = words(n)
+        bools = torch.from_numpy(g.random(n) < 0.4).to(dev)
+        for case in SCAN_FLAG_CASES:
+            f = scan_flags(g, n, case, t, dev)
+            for op in ("add", "min", "max"):
+                for signed in (False, True):
+                    for reverse in (False, True):
+                        scan_same(f"n={n} flags {case}", f, v, op, signed, reverse)
+                        scan_same(f"n={n} flags {case} bool values", f, bools, op, signed, reverse)
+        for case in KEEP_CASES:
+            keep = keep_mask(g, n, case, dev)
+            for nwords in (1, 8, 9):
+                payload = [words(n + 1 + j)[:n] for j in range(nwords)]
+                if nwords > 1:
+                    payload[1] = 0  # the row index
+                if nwords > 8:
+                    payload[8] = 1000  # the row index from 1000
+                compact_same(f"n={n} keep {case} {nwords} words", keep, tuple(payload))
+    torch.cuda.synchronize()
+    # beyond L2
+    for n in BEYOND_L2_ROWS:
+        v = words(n)
+        f = torch.rand(n, device=dev, generator=torch.Generator(device=dev).manual_seed(3)) < 0.3
+        scan_same(f"n={n}", f, v)
+        scan_same(f"n={n}", f, v, "max", False, True)
+        scan_same(f"n={n} no flags, bool values", None, f)
+        compact_same(f"n={n} random keep, a word and the row index", f, (v, 0))
+        del v, f
+    torch.cuda.synchronize()
+    # views 1-3 elements past a 16-byte boundary: the 16-byte loads take
+    # narrower accesses there
+    n = 5 * t + 7
+    for off_f, off_v in ((1, 1), (2, 3), (3, 2), (0, 1), (1, 0)):
+        fb = torch.from_numpy(g.random(n + 16) < 0.2).to(dev)[off_f: off_f + n]
+        vw = unaligned(words(n), off_v)
+        bb = torch.from_numpy(g.random(n + 16) < 0.5).to(dev)[off_v: off_v + n]
+        for reverse in (False, True):
+            scan_same(f"n={n} views at {off_f}, {off_v}", fb, vw, "min", True, reverse)
+            scan_same(f"n={n} views at {off_f}, {off_v}, bool values", fb, bb, "add", False,
+                      reverse)
+        compact_same(f"n={n} views at {off_f}, {off_v}", fb, (vw, 5, unaligned(words(n), 3)))
+    torch.cuda.synchronize()
+    log(f"[kernels] K2 and K3 equal their plain versions at the tile's edges, n in {sizes} "
+        f"(flags {SCAN_FLAG_CASES}; add, min, max, signed and not, reversed, u32 and bool "
+        f"values; keep {KEEP_CASES} with 1, 8 and 9 words and row-index slots), at "
+        f"{BEYOND_L2_ROWS} rows, and on views 1-3 elements past a 16-byte boundary")
+    # the launches of one call, as torch.profiler sees them
+    n = 2 * ROWS
+    v = words(n)
+    f = torch.rand(n, device=dev, generator=torch.Generator(device=dev).manual_seed(4)) < 0.3
+    for name, fn, kernels in (("K2", lambda: seg_scan(f, v), 1),
+                              ("K3", lambda: compact_words(f, (v,)), 2),
+                              ("K3, 9 words", lambda: compact_words(f, (v,) * 9), 3)):
+        events = profile_device(fn, reps=3)["per_call"]
+        nkern = sum("memset" not in e.lower() for e in events)
+        nmem = len(events) - nkern
+        log(f"[launches] {name}, one call at {n} rows: {nkern} kernels and {nmem} memsets "
+            f"({', '.join(events)})")
+        if nkern != kernels or nmem > 1:
+            raise AssertionError(f"{name}: {nkern} kernels and {nmem} memsets a call, expected "
+                                 f"{kernels} and at most 1")
     return errs
 
 
@@ -939,6 +1085,58 @@ def recorded_take_fills():
         yield calls
     finally:
         module.take_fill = wrapper
+
+
+@contextlib.contextmanager
+def recorded_compactions():
+    """The arguments of every K3 wrapper call made inside, in order: the
+    modules that imported ``compact_words`` by name call a recording wrapper
+    while the block runs.  The calls still launch the kernel."""
+    from database_technology_algorithms_tpu_torch.kernels import compact as module
+
+    calls, wrapper = [], module.compact_words
+
+    def record(keep, payload):
+        calls.append((keep, payload))
+        return wrapper(keep, payload)
+
+    users = [m for name, m in sys.modules.items()
+             if name.startswith(PKG) and getattr(m, "compact_words", None) is wrapper]
+    for m in users:
+        m.compact_words = record
+    try:
+        yield calls
+    finally:
+        for m in users:
+            m.compact_words = wrapper
+
+
+def compact_timing(call, card: str, what: str) -> dict:
+    """K3 at the shape of one recorded call: the kernel's device time beside
+    its plain version's, ``masked_select`` of each word (a yardstick: kept
+    rows only; a row-index slot as an ``arange``) and the byte bound (keep
+    and every word read once, every word written once)."""
+    from database_technology_algorithms_tpu_torch.kernels.compact import (
+        compact_words, compact_words_plain)
+
+    keep, payload = call
+    n = keep.shape[0]
+    cols = [torch.arange(w, w + n, dtype=torch.int32, device=keep.device)
+            if isinstance(w, int) else w for w in payload]
+    read = sum(0 if isinstance(w, int) else 4 for w in payload)
+    nbytes = n + n * read + n * 4 * len(payload)
+    rec = {"shape": f"{what}: {n} rows, {int(keep.sum())} kept, {len(payload)} words "
+                    f"({sum(isinstance(w, int) for w in payload)} of them the row index)",
+           "ms": device_ms(lambda: compact_words(keep, payload)),
+           "plain_ms": device_ms(lambda: compact_words_plain(keep, payload)),
+           "library_ms": device_ms(lambda: [torch.masked_select(c, keep) for c in cols]),
+           "bound_ms": bound_ms(nbytes)}
+    parts = device_parts(profile_device(lambda: compact_words(keep, payload), reps=10))
+    log(f"[timing] {card}: compact ({rec['shape']}): device time per call: kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library masked_select "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({nbytes} B); by kernel: "
+        f"{parts}")
+    return rec
 
 
 def take_fill_timing(call, card: str, what: str) -> dict:
@@ -1593,10 +1791,33 @@ def phase_overbudget(dev, card: str) -> dict:
         f"busy share of that wall {prof['busy_us'] / (run2_ms * 1e3):.3f}")
     for name, us in prof["top"][:12]:
         log(f"[over budget profile]   {us / 1e3:9.3f} ms  {name[:90]}")
-    # K4 at the route's largest shape: a chunk of the chunked distinct's gather
-    with recorded_take_fills() as k4_calls:
+    # K4 at the route's largest shape: a chunk of the chunked distinct's gather;
+    # K3 on every compaction of the route's steps
+    with recorded_take_fills() as k4_calls, recorded_compactions() as k3_calls:
         distinct(r, 1, cfg, active=r.valid)
+    with recorded_compactions() as later_calls:
+        hash_join_count(s_d, r_d, 1, cfg, build_count=nu_s, probe_count=nu_r)
+        compact_rows_chunked(r_d, m_r, cfg)
+    k3_calls += later_calls
     torch.cuda.synchronize()
+    from database_technology_algorithms_tpu_torch.kernels.compact import (
+        compact_words, compact_words_plain)
+    k3_err = 0
+    for keep, payload in k3_calls:
+        got, want = compact_words(keep, payload), compact_words_plain(keep, payload)
+        k3_err = max(k3_err, assert_same(
+            f"K3 over budget, {keep.shape[0]} rows, {len(payload)} words",
+            (got[0], *got[1]), (want[0], *want[1])))
+    log(f"[kernels] K3 equals its plain version on the over-budget route's {len(k3_calls)} "
+        f"compactions (rows {sorted({int(k.shape[0]) for k, _ in k3_calls})}): chunked "
+        f"distinct R, the tiled join's slot order, the chunked compaction")
+    # the chunked compaction's 16M-row chunk: keep and the row index
+    k3_chunk = compact_timing(
+        max((c for c in k3_calls if isinstance(c[1][0], int)), key=lambda c: c[0].shape[0]),
+        card, "over budget, the largest chunk of compact_rows_chunked")
+    k3_chunk["launches"] = launches["compact"]
+    k3_chunk["max_abs_err"] = k3_err
+    del k3_calls
     k4_chunk = take_fill_timing(max(k4_calls, key=lambda c: c[0][4].shape[0]), card,
                                 "over budget, the largest gather chunk of distinct R")
     k4_chunk["launches"] = launches["take_fill"]
@@ -1742,7 +1963,7 @@ def phase_overbudget(dev, card: str) -> dict:
     log(f"[over budget] all keys equal, {SKEW_ROWS}+{SKEW_ROWS} rows, mem_rows "
         f"{small.mem_rows}, {ntiles} cells: {seen.n} attempts overflowed and were retried with "
         f"doubled capacity (at most {ntiles.bit_length()} attempts), nres {int(nres)} == numpy")
-    return {"launches": launches, "recs": recs, "k4_chunk": k4_chunk}
+    return {"launches": launches, "recs": recs, "k4_chunk": k4_chunk, "k3_chunk": k3_chunk}
 
 
 def phase_cli() -> None:
@@ -1829,7 +2050,10 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
     s_key = key[perm.long()]
     adj = torch.cat([torch.zeros(1, dtype=torch.bool, device=key.device), s_key[1:] == s_key[:-1]])
     is_start = ~adj
-    r_first = ((perm < nr) & ~inact[perm.long()] & is_start).to(torch.int32)
+    # stage A's run heads, a bool column as the main path scans it (and its
+    # int32 copy, the form K2 took before it read bools)
+    r_first_b = (perm < nr) & ~inact[perm.long()] & is_start
+    r_first = r_first_b.to(torch.int32)
     front_cnt, (orig_front,) = compact_words(matched, (perm,))
     cnt = int(front_cnt)
     gather_idx = torch.where(
@@ -1872,18 +2096,18 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
              shape=f"{n} rows (inact bool, key u32) -> s_key, perm, s_act"),
         dict(name="seg_scan", source=f"{PKG}/csrc/seg_scan.cu",
              replaces=f"{JAX_PKG}/ops/scan.py:83",
-             kernel=lambda: seg_scan(is_start, r_first, "add"),
-             plain=lambda: seg_scan_plain(is_start, r_first, "add"),
-             library=lambda: torch.cumsum(r_first, 0, dtype=torch.int32),
-             nbytes=n * (1 + 4) + n * 4,
-             shape=f"{n} rows, segmented add (stage A's run-head carry)"),
+             kernel=lambda: seg_scan(is_start, r_first_b, "add"),
+             plain=lambda: seg_scan_plain(is_start, r_first_b, "add"),
+             library=lambda: torch.cumsum(r_first_b, 0, dtype=torch.int32),
+             nbytes=n * (1 + 1) + n * 4,
+             shape=f"{n} rows, segmented add of bool values (stage A's run-head carry)"),
         dict(name="compact", source=f"{PKG}/csrc/compact.cu",
              replaces=f"{JAX_PKG}/ops/movement.py:479",
              kernel=lambda: compact_words(matched, (perm,)),
              plain=lambda: compact_words_plain(matched, (perm,)),
              library=lambda: torch.masked_select(perm, matched),
              nbytes=n * (1 + 4) + n * 4 + 4,
-             shape=f"{n} rows, 1 payload word (perm), incl. its K2 rank scan"),
+             shape=f"{n} rows, 1 payload word (perm); its counts and moves"),
         dict(name="take_fill", source=f"{PKG}/csrc/take_fill.cu",
              replaces=f"{JAX_PKG}/batch.py:220",
              # as materialize_survivors calls it: the live count on the card
@@ -1921,9 +2145,9 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
              launches=command["launches"][1]["unpermute"]),
     ]
     extra_scans = {
-        "reversed segmented max (any-S suffix)": lambda: seg_scan(
-            is_start, r_first, "max", reverse=True),
-        "plain add scan (compaction ranks)": lambda: seg_scan(None, r_first, "add"),
+        "reversed segmented max of bools (any-S suffix)": lambda: seg_scan(
+            is_start, r_first_b, "max", reverse=True),
+        "plain add scan of bools (cumsum)": lambda: seg_scan(None, r_first_b, "add"),
     }
     for what, fn in extra_scans.items():
         log(f"[timing] {card}: K2 {what} at {n} rows: device {device_ms(fn):.4f} ms")
@@ -1950,6 +2174,30 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
             f"CUDA-event span per back-to-back call: kernel {cuda_ms(sp['kernel']):.4f} ms")
         out.append(rec)
     recs = {rec["name"]: rec for rec in out}
+    # K2 on int32 values, the form earlier readings took; K2 and K3 beyond L2
+    recs["seg_scan"].update({
+        "ms_int32_values": device_ms(lambda: seg_scan(is_start, r_first, "add")),
+        "library_ms_int32_values": device_ms(lambda: torch.cumsum(r_first, 0, dtype=torch.int32)),
+        "bound_ms_int32_values": bound_ms(n * (1 + 4) + n * 4)})
+    big = GATHER_CHUNK
+    b_flags = torch.rand(big, device=key.device,
+                         generator=torch.Generator(device=key.device).manual_seed(12)) < 0.3
+    b_vals = torch.randint(-2**31, 2**31, (big,), dtype=torch.int32, device=key.device,
+                           generator=torch.Generator(device=key.device).manual_seed(13))
+    recs["seg_scan"].update({
+        "ms_16M": device_ms(lambda: seg_scan(b_flags, b_vals)),
+        "plain_ms_16M": device_ms(lambda: seg_scan_plain(b_flags, b_vals)),
+        "library_ms_16M": device_ms(lambda: torch.cumsum(b_vals, 0, dtype=torch.int32)),
+        "bound_ms_16M": bound_ms(big * (1 + 4) + big * 4)})
+    rec2 = recs["seg_scan"]
+    log(f"[timing] {card}: seg_scan at {n} rows on int32 values: kernel "
+        f"{rec2['ms_int32_values']:.4f} ms, library torch.cumsum "
+        f"{rec2['library_ms_int32_values']:.4f} ms, bound {rec2['bound_ms_int32_values']:.4f} ms; "
+        f"at {big} rows (segmented add, int32 values, beyond L2): kernel {rec2['ms_16M']:.4f} ms, "
+        f"plain {rec2['plain_ms_16M']:.4f} ms, library torch.cumsum {rec2['library_ms_16M']:.4f} "
+        f"ms, bound {rec2['bound_ms_16M']:.4f} ms ({big * 9} B)")
+    del b_flags, b_vals
+    recs["compact"]["shapes"] = [over["k3_chunk"]]
     # K4 at the pipeline command's four shapes (field 2) and the over-budget
     # route's largest chunk
     stages = ("distinct R", "distinct S", "join_sorted_distinct", "hash_join's rows")
@@ -1957,7 +2205,9 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
         take_fill_timing(call, card, f"pipeline command field 2, {stage}")
         for stage, call in zip(stages, command["k4_calls"])] + [over["k4_chunk"]]
     for what, fn in ((f"K1 at {n} rows", lambda: view_sort(inact, key)),
-                     (f"K5 at {dn} rows", lambda: words_sort(d_words, d_inact))):
+                     (f"K5 at {dn} rows", lambda: words_sort(d_words, d_inact)),
+                     (f"K2 at {n} rows", lambda: seg_scan(is_start, r_first_b, "add")),
+                     (f"K3 at {n} rows", lambda: compact_words(matched, (perm,)))):
         log(f"[timing] {card}: {what}, device ms a call by kernel: "
             f"{device_parts(profile_device(fn, reps=10), top=5)}")
     # the passes of the timed K1 and K5 calls that scattered and that were

@@ -148,8 +148,7 @@ DBT_API int dbt_value_boundaries(const void* d, int64_t n, int64_t nprobes, void
         static_cast<const uint32_t*>(d), nullptr, n, (uint32_t)nprobes, nullptr, hist, nullptr);
     DBT_CHECK_LAUNCH();
   }
-  int err = dbt::seg_scan_launch<dbt::ValOp<dbt::SCAN_ADD, false>>(nullptr, hist, incl, scan,
-                                                                    nbins, false, st);
+  int err = dbt::seg_scan_launch<dbt::SumOp>(nullptr, hist, 4, incl, scan, nbins, false, st);
   if (err) return err;
   boundaries_out<<<dbt::blocks_for(nprobes, ST_THREADS), ST_THREADS, 0, st>>>(
       hist, incl, nprobes, static_cast<uint32_t*>(out));
@@ -199,8 +198,7 @@ DBT_API int dbt_stage_cells(const void* dest, const void* active, int64_t n, int
         (uint32_t)nparts, kbuf[0], hist, st_stats);
     DBT_CHECK_LAUNCH();
   }
-  int err = dbt::seg_scan_launch<dbt::ValOp<dbt::SCAN_ADD, false>>(nullptr, hist, incl, scan,
-                                                                    nbins, false, st);
+  int err = dbt::seg_scan_launch<dbt::SumOp>(nullptr, hist, 4, incl, scan, nbins, false, st);
   if (err) return err;
   stage_counts<<<dbt::blocks_for(nparts, ST_THREADS), ST_THREADS, 0, st>>>(
       hist, nparts, (uint32_t)cap, static_cast<uint32_t*>(counts), st_stats);

@@ -20,7 +20,9 @@
 K1, K5 and K9's bucket passes run on one one-sweep LSD radix sort
 (``csrc/radix.cuh``), whose pass schedule ``radix_plan`` builds; K4 and
 K12 on one row-move engine (``csrc/rowmove.cuh``), whose access width and
-rows a block ``rowmove_plan`` chooses.
+rows a block ``rowmove_plan`` chooses; K2 and K3 (and K9's bucket scan) on
+one tile layout (``csrc/scan.cuh``), whose tile and scratch ``scan_plan``
+holds.
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
 fallback from one to the other.

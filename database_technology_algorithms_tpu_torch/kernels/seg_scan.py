@@ -1,4 +1,5 @@
-"""K2: segmented scan (``csrc/seg_scan.cu``) and its plain torch version.
+"""K2: segmented scan (``csrc/seg_scan.cu`` on the single-pass engine of
+``csrc/scan.cuh``, planned by ``scan_plan``) and its plain torch version.
 
 Replaces the JAX package's ``ops/scan.py`` blocked scans (``:28-137``).
 """
@@ -8,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..batch import U32_MASK, u32_bits
-from . import _lib
+from . import _lib, scan_plan
 
 OPS = {"add": 0, "min": 1, "max": 2}
 
@@ -20,11 +21,11 @@ def seg_scan(
     signed: bool = False,
     reverse: bool = False,
 ) -> torch.Tensor:
-    """Inclusive scan of `vals` (int32 holding u32, or i32 if `signed`) that
-    restarts at every row whose `flags` is True; `flags=None` scans without
-    segments.  `op` is "add" (wraps mod 2^32), "min" or "max".  `reverse`
-    scans from the last row to the first, as
-    ``flip(scan(flip(flags), flip(vals)))``.
+    """Inclusive scan of `vals` (int32 holding u32, or i32 if `signed`; or
+    bool, read as 0/1) that restarts at every row whose `flags` is True;
+    `flags=None` scans without segments.  `op` is "add" (wraps mod 2^32),
+    "min" or "max".  `reverse` scans from the last row to the first, as
+    ``flip(scan(flip(flags), flip(vals)))``.  Returns int32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -32,23 +33,23 @@ def seg_scan(
         return seg_scan_plain(flags, vals, op, signed, reverse)
     code = OPS[op]
     n = vals.shape[0]
-    _lib.check_cuda("seg_scan vals", vals, torch.int32)
+    _lib.check_cuda("seg_scan vals", vals, torch.bool if vals.dtype == torch.bool else torch.int32)
     if flags is not None:
         _lib.check_cuda("seg_scan flags", flags, torch.bool, vals.device)
         if flags.shape != vals.shape:
             raise ValueError(f"seg_scan: flags {tuple(flags.shape)} != vals {tuple(vals.shape)}")
-    out = torch.empty_like(vals)
+    scan_plan.check_rows("seg_scan", n)
+    out = torch.empty(vals.shape, dtype=torch.int32, device=vals.device)
     if n == 0:
         return out
+    words = scan_plan.scan_scratch_words(n)
+    scratch = torch.empty(words, dtype=torch.int32, device=vals.device)
     lib = _lib.library()
-    scratch = torch.empty(
-        lib.dbt_seg_scan_scratch_words(n), dtype=torch.int32, device=vals.device
-    )
     with torch.cuda.device(vals.device):
         err = lib.dbt_seg_scan(
-            None if flags is None else flags.data_ptr(), vals.data_ptr(),
+            None if flags is None else flags.data_ptr(), vals.data_ptr(), vals.element_size(),
             out.data_ptr(), scratch.data_ptr(), n, code, int(signed), int(reverse),
-            _lib.stream_of(vals),
+            scan_plan.TILE, words, _lib.stream_of(vals),
         )
     _lib.raise_on_error(err, "seg_scan")
     _lib.LAUNCHES["seg_scan"] += 1

@@ -78,11 +78,11 @@ def _stage_a_flags(adj, is_r, is_s, prev_side):
     r_first = is_r & ~adj
     s_first = is_s & ~(adj & prev_side)
     is_start = ~adj
-    run_has_r = seg_carry(is_start, r_first.to(torch.int32)) == 1
+    run_has_r = seg_carry(is_start, r_first) == 1
     # any active S at or after each row within its run: a reversed max scan
     # that restarts at each run's END
     end_flags = _shift_in(is_start, True, at_end=True)
-    any_s_suffix = seg_max(end_flags, is_s.to(torch.int32), reverse=True) == 1
+    any_s_suffix = seg_max(end_flags, is_s, reverse=True) == 1
     matched = r_first & any_s_suffix
     return r_first, s_first, run_has_r, matched
 
@@ -108,7 +108,7 @@ def pipeline_single_impl(
 
     # group aggregates over the active S rows: S rows of a key are contiguous
     s_end = is_s & ~(_shift_in(adj, False, at_end=True) & _shift_in(is_s, False, at_end=True))
-    c_incl = cumsum(is_s.to(torch.int32))
+    c_incl = cumsum(is_s)
     s_incl = cumsum(torch.where(is_s, v_num, 0))
     run_min = seg_min(s_first, torch.where(is_s, v_num, -1))  # -1: u32 max
     run_max = seg_max(s_first, torch.where(is_s, v_num, 0))

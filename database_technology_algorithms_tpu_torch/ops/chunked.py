@@ -289,8 +289,7 @@ def compact_rows_chunked(
     m = max(int(cfg.mem_rows), 1)
     kept = []
     for lo in range(0, batch.nrows, m):
-        rows = torch.arange(lo, min(lo + m, batch.nrows), dtype=torch.int32, device=dev)
-        n_keep, (front,) = compact_words(keep[lo: lo + m], (rows,))
+        n_keep, (front,) = compact_words(keep[lo: lo + m], (lo,))  # the row index from lo
         kept.append(front[: int(n_keep)])
     idx = _cat_indices(kept, dev)
     parts = _gather_rows_chunked(batch, idx, cfg.mem_rows)

@@ -186,7 +186,7 @@ def compaction_dest(keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """
     n = keep.shape[0]
     iota = torch.arange(n, dtype=torch.int32, device=keep.device)
-    ranks = cumsum(keep.to(torch.int32)) - 1  # kept rank at kept rows
+    ranks = cumsum(keep) - 1  # kept rank at kept rows
     count = keep.sum(dtype=torch.int32)
     return torch.where(keep, ranks, count + (iota - ranks - 1)), count
 
@@ -206,7 +206,5 @@ def compact_rows(
         dest, count = compaction_dest(keep)
         out = permute_rows(batch, dest, count=count, cfg=cfg)
         return out, count, tuple(place_words(dest, extra)) if extra else ()
-    n = batch.nrows
-    iota = torch.arange(n, dtype=torch.int32, device=keep.device)
-    count, out = compact_words(keep, (iota, *extra))
+    count, out = compact_words(keep, (0, *extra))  # slot 0: the row index
     return batch.take_fill(out[0], count=count), count, out[1:]

@@ -3,7 +3,8 @@
 Port of the JAX package's ``ops/scan.py``.  Groups are contiguous runs
 (flag True at each run start); every function here is one launch of the
 segmented-scan kernel K2 (``kernels/seg_scan.py``).  Values are int32
-tensors holding u32 words unless ``signed=True``.
+tensors holding u32 words unless ``signed=True``, or bool tensors, which
+the kernel reads as 0/1 without an int32 copy.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ def seg_carry(start_flags: torch.Tensor, vals: torch.Tensor,
     start-masked values, as in the JAX package).  ``reverse=True`` with the
     runs' END flags hands each row its run's last value:
     ``flip(seg_carry(flip(end_flags), flip(vals)))``."""
-    masked = torch.where(start_flags, vals, 0)
+    masked = start_flags & vals if vals.dtype == torch.bool else torch.where(start_flags, vals, 0)
     return seg_scan(start_flags, masked, "add", reverse=reverse)
 
 

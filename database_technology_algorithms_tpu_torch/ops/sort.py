@@ -126,7 +126,7 @@ def survivor_dest(view_perm: torch.Tensor, keep_sorted: torch.Tensor
     n = view_perm.shape[0]
     count = keep_sorted.sum(dtype=torch.int32)
     pos = torch.arange(n, dtype=torch.int32, device=view_perm.device)
-    rank = cumsum(keep_sorted.to(torch.int32)) - 1
+    rank = cumsum(keep_sorted) - 1
     dest_sorted = torch.where(keep_sorted, rank, count + (pos - rank - 1))
     return unpermute(view_perm, dest_sorted), count
 
