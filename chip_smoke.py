@@ -21,7 +21,15 @@ Phases (any failure raises and the script exits non-zero):
      sign, direction and flag pattern, bool values, 1, 8 and 9 payload
      words with row-index slots, at 16M and 36M rows, and on views 1-3
      elements past a 16-byte boundary, with the kernels and memsets one
-     call launches as torch.profiler sees them);
+     call launches as torch.profiler sees them; K9, count, scan and place
+     on ``csrc/stage_cells.cu``, with 1, 2, 16, 4096 and 4097 cells, every
+     liveness form (a mask, a live count on the host or the card, both, a
+     side 70% inactive), the three row maps, all rows in one cell, the
+     count span's edges, "si" with and without the in-range promise and
+     the count form against the mask form at 24M rows; K10 with 1, 2, 3
+     and 33 key words, the compacted output, skewed pairs and the retry's
+     doubled capacities on the global table beside pairs in the shared
+     one, and two keys with one 32-bit table hash);
   3. the staged pipeline: ``make_pipeline_staged(1)`` on 1M + 1M generated
      rows (the bench's key range, 3*rows/10), with every launch counter set
      to 0 just before and read just after; then field 0.  Counters, join
@@ -54,8 +62,10 @@ Phases (any failure raises and the script exits non-zero):
      under the default budget of 16M (chunked distinct, tiled hash join,
      chunked compaction), the launch counters set to 0 just before and read
      just after, against the numpy oracle; its split into steps and device
-     busy time; K8, K9 and K10 held against their plain versions on that
-     run's own inputs, and K3 on every compaction of the route's steps; the
+     busy time, and the tiled join's device time beside its host wall; K8,
+     K9 (with its phases' times) and K10 held against their plain versions
+     on that run's own inputs, and K3 on every compaction of the route's
+     steps; the
      spill copies' rate through pageable and through
      page-locked host memory; ``distinct``, ``sort_batch``, ``hash_join_count`` and
      ``hash_join`` alone at 24M rows; fields 0, 2 and 3 at 1.5M + 1.5M rows
@@ -116,7 +126,7 @@ PKG = "database_technology_algorithms_tpu_torch"
 JAX_PKG = "database_technology_algorithms_tpu"
 # the sources that build on the one-sweep radix sort of csrc/radix.cuh and
 # on the row-move engine of csrc/rowmove.cuh, and their kernels' names
-RADIX_SOURCES = ("radix_sort.cu", "words_sort.cu", "stage_cells.cu")
+RADIX_SOURCES = ("radix_sort.cu", "words_sort.cu")
 ROWMOVE_SOURCES = ("take_fill.cu", "row_move.cu")
 ENGINE_KERNELS = r"onesweep_[a-z]+|take_fill_kernel|row_move_kernel"
 
@@ -828,10 +838,6 @@ def check_overbudget_kernels(dev, g, sizes) -> dict:
     """K8, K9 and K10 against their plain versions on the card."""
     from database_technology_algorithms_tpu_torch.kernels.hash_words import (
         hash_words, hash_words_plain)
-    from database_technology_algorithms_tpu_torch.kernels.member_mult import (
-        member_multiplicity_cells, member_multiplicity_cells_plain)
-    from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
-        stage_to_cells, stage_to_cells_plain, value_boundaries, value_boundaries_plain)
 
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(dev)
@@ -851,88 +857,203 @@ def check_overbudget_kernels(dev, g, sizes) -> dict:
                         f"K8 n={n} m={m} seed={seed} skip={skip}",
                         (hash_words(words, seed, skip),),
                         (hash_words_plain(words, seed, skip),)))
-        # ---- K9: destinations at and above nparts, inactive rows, a roomy cap
-        # and one that overflows, 1 and 3 payload words (one strided pair)
+    torch.cuda.synchronize()
+    log(f"[kernels] K8 equals its plain version at n in {sizes}: 1, 2, 3, 9 and 33 strided "
+        f"words, words >= 2^31, zero words in and before the skipped range, seeds 0 and 1")
+    errs["stage_cells"] = check_stage_cases(dev, g, sizes)
+    errs["member_mult"] = check_table_cases(dev, g, sizes)
+    return errs
+
+
+STAGE_FORMS = ("all", "70% inactive", "count int", "count card", "mask and count")
+
+
+def stage_forms(dev, g, n: int) -> dict:
+    """K9's liveness forms: {name: (active, count)}; "70% inactive" is a
+    sink-heavy side, the count forms the tiled join's."""
+    active = torch.from_numpy(g.random(n) < 0.3).to(dev)
+    return {"all": (None, None), "70% inactive": (active, None), "count int": (None, n // 3),
+            "count card": (None, torch.tensor(n // 2, dtype=torch.int32, device=dev)),
+            "mask and count": (active, torch.tensor(2 * n // 3, dtype=torch.int32, device=dev))}
+
+
+def check_stage_cases(dev, g, sizes) -> int:
+    """K9 against its plain version: nparts of 1, 2, 16, 4096 and 4097
+    (the tiled join's 4096 and one past), destinations at and above nparts,
+    every liveness form, the three row maps, 1 and 3 payload words (one
+    strided pair), a roomy cap and one that overflows; all rows in one cell;
+    the count span's edges; "si" with and without the in-range promise; the
+    count form against the mask form; value_boundaries."""
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+    from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
+        stage_to_cells, stage_to_cells_plain, value_boundaries, value_boundaries_plain)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(dev)
+
+    def check(what, dest, act, nparts, cap, payloads, row_map, count=None, in_range=False):
+        got = stage_to_cells(dest, act, nparts, cap, payloads, row_map, count, in_range)
+        want = stage_to_cells_plain(dest, act, nparts, cap, payloads, row_map, count)
+        maps = ((got[2],), (want[2],)) if row_map != "none" else ((), ())
+        return assert_same(f"K9 {what} nparts={nparts} cap={cap} w={len(payloads)} {row_map}",
+                           (*got[0], got[1], got[3].reshape(1), *maps[0]),
+                           (*want[0], want[1], want[3].reshape(1), *maps[1]))
+
+    err, calls = 0, 0
+    span = cells_plan.SPAN
+    edges = [span - 1, span, span + 1, 2 * span + 33]
+    for n in list(sizes) + edges:
         pay = i32(g.integers(0, 2**32, size=(n, 2), dtype=np.uint64))
         lone = i32(g.integers(0, 2**32, size=n, dtype=np.uint64))
-        active = torch.from_numpy(g.random(n) < 0.9).to(dev)
-        for nparts in (2, 16, 4096):
-            dest = i32(g.integers(0, nparts + 3, size=n))
-            skew = nparts <= 16 and n > 2 * nparts
-            if skew:
-                dest[: n // 3] = 1  # one cell takes a third of the rows
+        forms = stage_forms(dev, g, n)
+        for nparts in (1, 2, 16, 4096, 4097):
+            dest = i32(g.integers(0, nparts + 3, size=n))  # some above nparts
             even = -(-n // nparts)
-            for cap in (max(2 * even, 8) + (n // 3 if skew else 0), max(even // 2, 1)):
-                for act in (active, None):
+            for cap in (max(2 * even, 8), max(even // 2, 1)):
+                for form, (act, count) in forms.items():
                     for payloads in ([lone], [pay[:, 0], lone, pay[:, 1]]):
                         for row_map in ("slots", "si", "none"):
-                            got = stage_to_cells(dest, act, nparts, cap, payloads, row_map)
-                            want = stage_to_cells_plain(dest, act, nparts, cap, payloads, row_map)
-                            maps = () if row_map == "none" else ((got[2],), (want[2],))
-                            errs["stage_cells"] = max(errs["stage_cells"], assert_same(
-                                f"K9 n={n} nparts={nparts} cap={cap} active={act is not None} "
-                                f"w={len(payloads)} {row_map}",
-                                (*got[0], got[1], got[3].reshape(1), *(maps[0] if maps else ())),
-                                (*want[0], want[1], want[3].reshape(1), *(maps[1] if maps else ()))))
+                            err = max(err, check(f"n={n} {form}", dest, act, nparts, cap,
+                                                 payloads, row_map, count))
+                            calls += 1
             for nprobes in (1, nparts + 1, 1025):
-                errs["stage_cells"] = max(errs["stage_cells"], assert_same(
+                err = max(err, assert_same(
                     f"value_boundaries n={n} nprobes={nprobes}",
                     (value_boundaries(dest, nprobes),), (value_boundaries_plain(dest, nprobes),)))
-        # ---- K10: G pairs of about 1024 rows a side (the shared-memory table),
-        # and the whole n as one pair (beyond 12288 build rows: the table in
-        # global scratch); few key values, so build keys repeat; unsorted
+        # every row in one cell: the cap overflows; and the in-range promise
+        one = i32(np.full(n, 5, np.uint32))
+        inside = i32(g.integers(0, 4096, size=n))
+        for form, (act, count) in forms.items():
+            err = max(err, check(f"n={n} one cell, {form}", one, act, 16, max(n // 4, 1),
+                                 [lone], "si", count))
+            err = max(err, check(f"n={n} in range, {form}", inside, act, 4096, max(n // 2048, 8),
+                                 [lone], "si", count, in_range=True))
+            calls += 2
+    # the count form is the mask form of arange(n) < count, beyond L2
+    n = OVER_ROWS
+    dest = torch.randint(0, 4096, (n,), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(13))
+    word = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(14))
+    live = torch.tensor(6_942_000, dtype=torch.int32, device=dev)
+    mask = torch.arange(n, device=dev) < live
+    for row_map in ("si", "slots"):
+        a = stage_to_cells(dest, None, 4096, 8792, [word], row_map, live, in_range=True)
+        b = stage_to_cells(dest, mask, 4096, 8792, [word], row_map)
+        err = max(err, assert_same(f"K9 {n} rows, count form against mask form, {row_map}",
+                                   (*a[0], a[1], a[2], a[3].reshape(1)),
+                                   (*b[0], b[1], b[2], b[3].reshape(1))))
+        err = max(err, check(f"n={n} 6.94M live", dest, None, 4096, 8792, [word], row_map, live,
+                             in_range=True))
+        calls += 3
+    del dest, word, mask
+    torch.cuda.synchronize()
+    log(f"[kernels] K9 equals its plain version in {calls} calls: n in {list(sizes) + edges} "
+        f"(the count span's edges at {span} rows), nparts in (1, 2, 16, 4096, 4097), "
+        f"destinations above nparts, the liveness forms {STAGE_FORMS}, the three row maps, 1 "
+        f"and 3 payload words, a roomy and an overflowing cap, all rows in one cell, 'si' with "
+        f"and without the in-range promise, {OVER_ROWS} rows with 6.94M live (count form equal "
+        f"to the mask form); value_boundaries on both sides of 1024 probes")
+    return err
+
+
+def check_table_cases(dev, g, sizes) -> int:
+    """K10 against its plain version: G pairs of about 1024 rows a side and
+    the whole n as one pair, 1, 2, 3 and 33 key words (field 3's width),
+    repeated and unsorted build keys, n_bkeys of 0 and of cap_b, dead query
+    rows, the compacted output; the global table (a skewed pair beside
+    pairs that fit the shared table, and the retry's doubled capacities);
+    two keys whose 32-bit hashes are equal."""
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+    from database_technology_algorithms_tpu_torch.kernels.member_mult import (
+        member_multiplicity_cells, member_multiplicity_cells_plain)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(dev)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+
+    def check(what, bmat, kmat, nbk, nkk, live):
+        m = bmat.shape[-1]
+        bw = [bmat[..., j].contiguous() for j in range(m)]
+        kw = [kmat[..., j].contiguous() for j in range(m)]
+        err = 0
+        for nk, lv in ((nkk, None), (None, live), (nkk, live)):
+            err = max(err, assert_same(
+                f"K10 {what} m={m}", (member_multiplicity_cells(bw, nbk, kw, nk, lv),),
+                (member_multiplicity_cells_plain(bw, nbk, kw, nk, lv),)))
+        first = torch.cumsum(nkk, 0, dtype=torch.int32) - nkk
+        size = int(nkk.sum()) + 7
+        got = torch.full((size,), 9, dtype=torch.int32, device=dev)
+        want = got.clone()
+        member_multiplicity_cells(bw, nbk, kw, nkk, live, got, first)
+        member_multiplicity_cells_plain(bw, nbk, kw, nkk, live, want, first)
+        return max(err, assert_same(f"K10 {what} m={m}, compacted", (got,), (want,)))
+
+    def pairs_input(pairs, cap_b, cap_k, m, pool):
+        keys = g.integers(0, 2**32, size=(pool, m), dtype=np.uint64)
+        bmat = i32(keys[g.integers(0, pool, size=(pairs, cap_b))])
+        kmat = i32(keys[g.integers(0, pool, size=(pairs, cap_k))])
+        nbk = g.integers(0, cap_b + 1, size=pairs)
+        nbk[::3] = cap_b
+        nbk[1::3] = 0
+        nkk = g.integers(0, cap_k + 1, size=pairs)
+        nkk[::2] = cap_k
+        live = torch.from_numpy(g.random((pairs, cap_k)) < 0.8).to(dev)
+        return bmat, kmat, t(nbk), t(nkk), live
+
+    err, calls = 0, 0
+    for n in sizes:
         for pairs in sorted({max(n // 1024, 1), 1}):
             cap_b = -(-n // pairs)
-            cap_k = cap_b + 8
-            for m in (1, 2, 3):
-                # both sides draw from one pool of m-word keys (words >= 2^31 too)
-                pool = g.integers(0, 2**32, size=(max(cap_b // 3, 2), m), dtype=np.uint64)
-
-                def keys(cap):
-                    return i32(pool[g.integers(0, len(pool), size=(pairs, cap))])
-
-                bmat, kmat = keys(cap_b), keys(cap_k)
-                bw = [bmat[..., j].contiguous() for j in range(m)]
-                kw = [kmat[..., j].contiguous() for j in range(m)]
-                nbk = g.integers(0, cap_b + 1, size=pairs)
-                nbk[::3] = cap_b
-                nbk[1::3] = 0
-                nkk = g.integers(0, cap_k + 1, size=pairs)
-                nkk[::2] = cap_k
-                nbk_t = torch.from_numpy(nbk.astype(np.int32)).to(dev)
-                nkk_t = torch.from_numpy(nkk.astype(np.int32)).to(dev)
-                live = torch.from_numpy(g.random((pairs, cap_k)) < 0.8).to(dev)
-                for nk, lv in ((nkk_t, None), (None, live), (nkk_t, live)):
-                    got = member_multiplicity_cells(bw, nbk_t, kw, nk, lv)
-                    want = member_multiplicity_cells_plain(bw, nbk_t, kw, nk, lv)
-                    errs["member_mult"] = max(errs["member_mult"], assert_same(
-                        f"K10 n={n} pairs={pairs} m={m}", (got,), (want,)))
-                if n >= 2049 and int(got.max()) < 2:
-                    raise AssertionError("K10 check: no build key repeats, the test is too weak")
-    # ---- K9's bucket passes on the one-sweep sort: destinations below 4096 from
-    # the radix edge keys (the low 12 bits; "constant digits" keeps the second
-    # pass constant), and every row inactive
-    for n, case, key, inact in radix_edge_inputs(g, 1):
-        dest = i32(key[:, 0] & np.uint32(0xFFF if case != "constant digits" else 0xFF))
-        active = torch.from_numpy(~inact).to(dev)
-        nparts, cap = 4096, max(2 * (n // 4096), 8)
-        for act in (active, None):
-            got = stage_to_cells(dest, act, nparts, cap, [dest], "si")
-            want = stage_to_cells_plain(dest, act, nparts, cap, [dest], "si")
-            errs["stage_cells"] = max(errs["stage_cells"], assert_same(
-                f"K9 n={n} {case} active={act is not None}",
-                (*got[0], got[1], got[2], got[3].reshape(1)),
-                (*want[0], want[1], want[2], want[3].reshape(1))))
+            for m in (1, 2, 3, 33):
+                if m == 33 and n > 70_001:
+                    continue
+                bmat, kmat, nbk, nkk, live = pairs_input(pairs, cap_b, cap_b + 8, m,
+                                                         max(cap_b // 3, 2))
+                err = max(err, check(f"n={n} pairs={pairs}", bmat, kmat, nbk, nkk, live))
+                calls += 4
+    # the global table: a skewed pair among pairs that fit the shared table,
+    # at the over-budget step's capacity (8792) and at the retry's doubled one
+    for cap_b in (8792, 2 * 8792):
+        for m in (1, 2, 3):
+            pairs = 24
+            bmat, kmat, nbk, nkk, live = pairs_input(pairs, cap_b, cap_b, m, cap_b // 2)
+            nb = g.integers(1600, 1800, size=pairs)
+            nb[::5] = cap_b  # every build row live: table_slots(cap_b) slots
+            nb[1] = 0
+            shared = cells_plan.table_cap(cap_b, m, cells_plan.TABLE_BYTES)
+            need = [cells_plan.table_slots(int(x)) for x in nb]
+            if not (max(need) > shared >= min(need)):
+                raise AssertionError(f"K10 check: pairs of {need} slots do not straddle the "
+                                     f"shared table's {shared}")
+            err = max(err, check(f"global table, cap_b={cap_b}, shared {shared}", bmat, kmat,
+                                 t(nb), nkk, live))
+            calls += 4
+    # two two-word keys with one 32-bit table hash (found on the host by the
+    # kernel's murmur3): the words decide
+    cand = g.integers(0, 2**32, size=(1 << 17, 2), dtype=np.uint64).astype(np.uint32)
+    h = cells_plan.table_hash(cand)
+    order = np.argsort(h, kind="stable")
+    dup = np.nonzero(np.diff(h[order]) == 0)[0]
+    if dup.size:
+        a, b = cand[order[dup[0]]], cand[order[dup[0] + 1]]
+        bmat = i32(np.stack([a, a, a, b])[None])
+        kmat = i32(np.stack([b, a, b, a, b])[None])
+        got = member_multiplicity_cells([bmat[..., 0].contiguous(), bmat[..., 1].contiguous()],
+                                        t([4]), [kmat[..., 0].contiguous(),
+                                                 kmat[..., 1].contiguous()])
+        if got.cpu().tolist() != [[1, 3, 1, 3, 1]]:
+            raise AssertionError(f"K10 on two keys with one hash: {got.cpu().tolist()}")
+        calls += 1
     torch.cuda.synchronize()
-    log(f"[kernels] K8-K10 equal their plain versions at n in {sizes}: K8 with 1, 2, 3, 9 and "
-        f"33 strided words, words >= 2^31, zero words in and before the skipped range, seeds 0 "
-        f"and 1; K9 with 2, 16 and 4096 cells, the three row maps, inactive rows, destinations "
-        f">= nparts, a cap that overflows, 1 and 3 payload words, and value_boundaries on both "
-        f"sides of 1024 probes; K10 on batched pairs with 1, 2 and 3 key words, repeated and "
-        f"unsorted build keys, n_bkeys of 0 and of cap, dead query rows, tables in shared "
-        f"memory and in global scratch; K9 also into 4096 cells at the radix tile's edges and "
-        f"{2 * ROWS} rows ({RADIX_EDGE_CASES})")
-    return errs
+    log(f"[kernels] K10 equals its plain version in {calls} calls: batched pairs at n in "
+        f"{sizes} with 1, 2, 3 and 33 key words, repeated and unsorted build keys, n_bkeys of 0 "
+        f"and of cap, dead query rows, the compacted output; pairs of 8792 and 17584 build rows "
+        f"whose skewed pairs take the global table beside pairs in the shared one; two keys with "
+        f"one 32-bit hash {'found and held' if dup.size else 'not found'}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1810,7 +1931,7 @@ def phase_overbudget(dev, card: str) -> dict:
             (got[0], *got[1]), (want[0], *want[1])))
     log(f"[kernels] K3 equals its plain version on the over-budget route's {len(k3_calls)} "
         f"compactions (rows {sorted({int(k.shape[0]) for k, _ in k3_calls})}): chunked "
-        f"distinct R, the tiled join's slot order, the chunked compaction")
+        f"distinct R and the chunked compaction (the tiled join compacts in K10)")
     # the chunked compaction's 16M-row chunk: keep and the row index
     k3_chunk = compact_timing(
         max((c for c in k3_calls if isinstance(c[1][0], int)), key=lambda c: c[0].shape[0]),
@@ -1822,30 +1943,32 @@ def phase_overbudget(dev, card: str) -> dict:
                                 "over budget, the largest gather chunk of distinct R")
     k4_chunk["launches"] = launches["take_fill"]
     del k4_calls
-    join_prof = profile_device(
-        lambda: hash_join_count(s_d, r_d, 1, cfg, build_count=nu_s, probe_count=nu_r), reps=2)
+    join = lambda: hash_join_count(s_d, r_d, 1, cfg, build_count=nu_s, probe_count=nu_r)
+    join_prof = profile_device(join, reps=3)
+    join_wall = wall_ms(join, reps=5)
     log(f"[over budget] {card}: the tiled join alone: device kernels "
-        f"{join_prof['busy_us'] / 1e3:.1f} ms of its {ms_j:.1f} ms wall")
+        f"{join_prof['busy_us'] / 1e3:.3f} ms a call, host wall {join_wall:.3f} ms (median of 5 "
+        f"synchronized calls; {ms_j:.1f} ms in the step split above)")
     for name, us in join_prof["top"][:8]:
         log(f"[tiled join profile]   {us / 1e3:9.3f} ms  {name[:90]}")
 
     # ---- K8-K10 at this run's shapes: the build side of the tiled join ----------
     ntiles, cap_b, cap_p, group = _tile_layout(rows, rows, cfg.mem_rows)
-    b_active = torch.arange(rows, dtype=torch.int32, device=dev) < nu_s
-    p_active = torch.arange(rows, dtype=torch.int32, device=dev) < nu_r
     words = [s_d.num]
     hb = key_hash(s_d, 1) & (ntiles - 1)
     hp = key_hash(r_d, 1) & (ntiles - 1)
     # held against the plain versions on this run's inputs: the hash of both
-    # sides, both stagings (row maps "none" and "si"), every step's cell pairs
+    # sides, both stagings (row maps "none" and "si", the live counts of the
+    # distinct steps, the in-range promise), every step's cell pairs
     at_path = {"hash_words": 0, "stage_cells": 0, "member_mult": 0}
     for side, w in (("build", [s_d.num]), ("probe", [r_d.num])):
         at_path["hash_words"] = max(at_path["hash_words"], assert_same(
             f"K8 {rows} {side} rows", (hash_words(w),), (hash_words_plain(w),)))
-    bcells, bcnt, _, ovf_b = stage_to_cells(hb, b_active, ntiles, cap_b, words, "none")
-    pcells, pcnt, si_p, ovf_p = stage_to_cells(hp, p_active, ntiles, cap_p, [r_d.num], "si")
-    want_b = stage_to_cells_plain(hb, b_active, ntiles, cap_b, words, "none")
-    want_p = stage_to_cells_plain(hp, p_active, ntiles, cap_p, [r_d.num], "si")
+    bcells, bcnt, _, ovf_b = stage_to_cells(hb, None, ntiles, cap_b, words, "none", nu_s, True)
+    pcells, pcnt, si_p, ovf_p = stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r,
+                                               True)
+    want_b = stage_to_cells_plain(hb, None, ntiles, cap_b, words, "none", nu_s)
+    want_p = stage_to_cells_plain(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r)
     at_path["stage_cells"] = max(
         assert_same(f"K9 {rows} build rows -> {ntiles} cells of {cap_b}, row map 'none'",
                     (*bcells, bcnt, ovf_b.reshape(1)), (*want_b[0], want_b[1], want_b[3].reshape(1))),
@@ -1853,22 +1976,30 @@ def phase_overbudget(dev, card: str) -> dict:
                     (*pcells, pcnt, ovf_p.reshape(1), si_p),
                     (*want_p[0], want_p[1], want_p[3].reshape(1), want_p[2])))
     del want_b, want_p, si_p
+    first = torch.cumsum(pcnt, 0, dtype=torch.int32) - pcnt
     for lo in range(0, ntiles, group):
         cells = ([w.view(ntiles, cap_b)[lo: lo + group] for w in bcells], bcnt[lo: lo + group],
                  [w.view(ntiles, cap_p)[lo: lo + group] for w in pcells], pcnt[lo: lo + group])
+        got = torch.zeros(rows, dtype=torch.int32, device=dev)
+        want = torch.zeros(rows, dtype=torch.int32, device=dev)
+        member_multiplicity_cells(*cells, None, got, first[lo: lo + group])
+        member_multiplicity_cells_plain(*cells, None, want, first[lo: lo + group])
         at_path["member_mult"] = max(at_path["member_mult"], assert_same(
-            f"K10 pairs {lo} to {lo + group} of {cap_b} + {cap_p} rows",
-            (member_multiplicity_cells(*cells),), (member_multiplicity_cells_plain(*cells),)))
-    del cells
+            f"K10 pairs {lo} to {lo + group} of {cap_b} + {cap_p} rows", (got,), (want,)))
+    del cells, got, want
     log(f"[kernels] K8-K10 equal their plain versions on the over-budget run's inputs: K8 on "
         f"{rows} build and {rows} probe rows, K9 into {ntiles} cells of {cap_b} (row map "
         f"'none') and of {cap_p} ('si'), K10 on all {ntiles // group} steps of {group} pairs")
     bw = [w.view(ntiles, cap_b)[:group] for w in bcells]
     pw = [w.view(ntiles, cap_p)[:group] for w in pcells]
     live_b, live_p = int(bcnt[:group].sum()), int(pcnt[:group].sum())
+    live_r = int(nu_r)
+    staged_p = int(pcnt.sum())
     nsteps = ntiles // group
+    out_p = torch.zeros(rows, dtype=torch.int32, device=dev)
     log(f"[over budget] tiling: {ntiles} cells of {cap_b} + {cap_p} rows, {group} pairs a "
         f"step, {nsteps} steps; first step holds {live_b} + {live_p} live rows")
+    k9_call = lambda: stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r, True)
     specs = [
         dict(name="hash_words", source=f"{PKG}/csrc/hash_words.cu",
              replaces=f"{JAX_PKG}/ops/keys.py:110",
@@ -1878,24 +2009,34 @@ def phase_overbudget(dev, card: str) -> dict:
              shape=f"{rows} rows, 1 key word (num) -> u32 hash"),
         dict(name="stage_cells", source=f"{PKG}/csrc/stage_cells.cu",
              replaces=f"{JAX_PKG}/ops/movement.py:354",
-             kernel=lambda: stage_to_cells(hp, p_active, ntiles, cap_p, [r_d.num], "si"),
-             plain=lambda: stage_to_cells_plain(hp, p_active, ntiles, cap_p, [r_d.num], "si"),
-             # dest, active and the word read; cells, counts and the row map written
-             nbytes=rows * (4 + 1 + 4) + ntiles * cap_p * 4 + ntiles * 4 + rows * 4,
-             nops=rows * 8 + ntiles * cap_p,  # bucket, rank and slot a row; a compare a slot
-             shape=f"{rows} rows ({int(nu_r)} live) -> {ntiles} cells of {cap_p}, 1 key word, "
+             kernel=k9_call,
+             plain=lambda: stage_to_cells_plain(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r),
+             # the live rows' dest and word read; every cell slot written once
+             # (the staged words and the dead fill), the counts, and si for
+             # every row (the rows past the live count at their own place)
+             nbytes=live_r * (4 + 4) + ntiles * cap_p * 4 + ntiles * 4 + rows * 4,
+             nops=live_r * 8 + ntiles * cap_p,  # bucket, rank and slot a live row; a slot each
+             shape=f"{rows} rows ({live_r} live) -> {ntiles} cells of {cap_p}, 1 key word, "
                    f"row map 'si'"),
         dict(name="member_mult", source=f"{PKG}/csrc/member_mult.cu",
              replaces=f"{JAX_PKG}/ops/hash_join.py:256",
-             kernel=lambda: member_multiplicity_cells(bw, bcnt[:group], pw, pcnt[:group]),
-             plain=lambda: member_multiplicity_cells_plain(bw, bcnt[:group], pw, pcnt[:group]),
-             # the live rows' key words and the two counts read; every slot's count written
-             nbytes=(live_b + live_p) * 4 + group * 8 + group * cap_p * 4,
+             kernel=lambda: member_multiplicity_cells(bw, bcnt[:group], pw, pcnt[:group], None,
+                                                      out_p, first[:group]),
+             plain=lambda: member_multiplicity_cells_plain(bw, bcnt[:group], pw, pcnt[:group],
+                                                           None, out_p, first[:group]),
+             # the live rows' key words, the two counts and the offsets read; a
+             # count a live query row written (the compacted output)
+             nbytes=(live_b + live_p) * 4 + group * 12 + live_p * 4,
              # a table hash (20) and about two probes of a compare each a live row
-             nops=(live_b + live_p) * 24 + group * cap_p,
+             nops=(live_b + live_p) * 24,
              shape=f"{group} pairs of {cap_b} + {cap_p} rows ({live_b} + {live_p} live), "
-                   f"1 key word; one of the run's {nsteps} steps"),
+                   f"1 key word, compacted output; one of the run's {nsteps} steps"),
     ]
+    # K9's phases, one call: the count, the matrix's scan, the finish, the
+    # place and the dead fill, as torch.profiler sees them
+    k9_parts = profile_device(k9_call, reps=10)
+    log(f"[timing] {card}: K9 phases at {rows} rows ({live_r} live, {staged_p} staged) -> "
+        f"{ntiles} cells of {cap_p}, a call: " + device_parts(k9_parts, top=8))
     recs = []
     for sp in specs:
         reps = 2 if sp["name"] == "member_mult" else 3
@@ -1916,7 +2057,7 @@ def phase_overbudget(dev, card: str) -> dict:
             f"call: kernel {cuda_ms(sp['kernel'], reps=10):.4f} ms; its largest parts: "
             + device_parts(prof))
         recs.append(rec)
-    del bcells, pcells, bw, pw, hb, hp, r_d, s_d, m_r
+    del bcells, pcells, bw, pw, hb, hp, r_d, s_d, m_r, out_p, first
     spill_copy_rates(dev, card, min(cfg.mem_rows, rows))
 
     # ---- the operators alone at the same size -----------------------------------

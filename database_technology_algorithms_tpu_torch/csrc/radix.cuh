@@ -1,6 +1,6 @@
-// The one-sweep LSD radix sort shared by the view sort K1 (radix_sort.cu),
-// the multi-word sort K5 (words_sort.cu) and K9's bucket passes
-// (stage_cells.cu), after Onesweep (Adinets and Merrill, 2022).
+// The one-sweep LSD radix sort shared by the view sort K1 (radix_sort.cu)
+// and the multi-word sort K5 (words_sort.cu), after Onesweep (Adinets and
+// Merrill, 2022).
 //
 // It replaces a pass of five launches (a histogram, the three-phase scan of
 // scan.cuh over 256 x tiles counts, a scatter that walked its tile 256 rows

@@ -17,12 +17,12 @@
                                    the placement route's word gather (ops/movement.py:51,68,108)
 
 (paths in the JAX package; K11 and K12's in the repository's ``tools/``).
-K1, K5 and K9's bucket passes run on one one-sweep LSD radix sort
-(``csrc/radix.cuh``), whose pass schedule ``radix_plan`` builds; K4 and
-K12 on one row-move engine (``csrc/rowmove.cuh``), whose access width and
-rows a block ``rowmove_plan`` chooses; K2 and K3 (and K9's bucket scan) on
+K1 and K5 run on one one-sweep LSD radix sort (``csrc/radix.cuh``), whose
+pass schedule ``radix_plan`` builds; K4 and K12 on one row-move engine
+(``csrc/rowmove.cuh``), whose access width and rows a block
+``rowmove_plan`` chooses; K2 and K3 (and the scan of K9's count matrix) on
 one tile layout (``csrc/scan.cuh``), whose tile and scratch ``scan_plan``
-holds.
+holds; K9's span and place warps and K10's tables follow ``cells_plan``.
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
 fallback from one to the other.

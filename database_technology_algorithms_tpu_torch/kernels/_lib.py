@@ -121,12 +121,13 @@ _SIGNATURES = {
     "dbt_adj_equal": ([_PP, _PI64, _I, _P, _I64, _P, _P], _I),
     "dbt_unpermute": ([_P, _P, _I64, _I64, _I64, _P, _I, _P], _I),
     "dbt_hash_words": ([_PP, _PI64, _I, _I64, _U32, _I, _P, _P], _I),
-    "dbt_value_boundaries_scratch_words": ([_I64], _I64),
-    "dbt_value_boundaries": ([_P, _I64, _I64, _P, _P, _P], _I),
-    "dbt_stage_cells_scratch_words": ([_I64, _I64], _I64),
-    "dbt_stage_cells": ([_P, _P, _I64, _I64, _I64, _PP, _PI64, _PP, _I, _P, _P, _P, _P, _P, _P], _I),
-    "dbt_member_mult_scratch_words": ([_I64, _I64], _I64),
-    "dbt_member_mult": ([_PP, _PI64, _PP, _PI64, _I, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P], _I),
+    "dbt_value_boundaries_scratch_words": ([_I64, _I64, _I64], _I64),
+    "dbt_value_boundaries": ([_P, _I64, _I64, _P, _P, _I64, _I64, _P], _I),
+    "dbt_stage_cells_scratch_words": ([_I64, _I64, _I64], _I64),
+    "dbt_stage_cells": ([_P, _P, _P, _I64, _I64, _I64, _PP, _PI64, _PP, _I, _P, _P, _P, _P, _P,
+                         _I64, _I64, _I, _P], _I),
+    "dbt_member_mult": ([_PP, _PI64, _PP, _PI64, _I, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                         _I64, _I64, _I, _P], _I),
     "dbt_tile_copy": ([_P, _P, _P, _I64, _I, _I, _I, _I, _P], _I),
     "dbt_row_move": ([_P, _P, _P, _I64, _I, _I64, _I, _P, _I64, _I, _I, _P], _I),
 }

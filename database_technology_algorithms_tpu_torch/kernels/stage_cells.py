@@ -12,7 +12,7 @@ from typing import Sequence
 import torch
 
 from ..batch import as_u32
-from . import _lib, radix_plan
+from . import _lib, cells_plan, rowmove_plan
 from .words_sort import words_sort
 
 ROW_MAPS = ("slots", "si", "none")
@@ -24,7 +24,7 @@ def value_boundaries(d: torch.Tensor, nprobes: int) -> torch.Tensor:
     the differences of ``value_boundaries(d, nparts + 1)``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    histogram and scan.
+    count and scan (``cells_plan``), for at most 58111 probes.
     """
     if d.device.type == "cpu":
         return value_boundaries_plain(d, nprobes)
@@ -34,14 +34,15 @@ def value_boundaries(d: torch.Tensor, nprobes: int) -> torch.Tensor:
     out = torch.empty(nprobes, dtype=torch.int32, device=d.device)
     if nprobes == 0:
         return out
+    n = d.shape[0]
+    cells_plan.check_boundaries("value_boundaries", n, nprobes, cells_plan.SPAN)
+    words = cells_plan.boundary_scratch_words(n, nprobes, cells_plan.SPAN)
+    scratch = torch.empty(words, dtype=torch.int32, device=d.device)
     lib = _lib.library()
-    scratch = torch.empty(
-        lib.dbt_value_boundaries_scratch_words(nprobes), dtype=torch.int32, device=d.device
-    )
     with torch.cuda.device(d.device):
         err = lib.dbt_value_boundaries(
-            d.data_ptr(), d.shape[0], nprobes, out.data_ptr(), scratch.data_ptr(),
-            _lib.stream_of(d),
+            d.data_ptr(), n, nprobes, out.data_ptr(), scratch.data_ptr(), words,
+            cells_plan.SPAN, _lib.stream_of(d),
         )
     _lib.raise_on_error(err, "value_boundaries")
     _lib.LAUNCHES["stage_cells"] += 1
@@ -63,17 +64,23 @@ def stage_to_cells(
     cap: int,
     payloads: Sequence[torch.Tensor],
     row_map: str = "slots",
+    count=None,
+    in_range: bool = False,
 ) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """Stage rows into padded [nparts, cap] cells by destination id.
 
     Every active row with ``dest[i] < nparts`` (`dest` int32 holding u32)
     lands in cell ``dest[i]`` at its rank among that cell's rows, in row
-    order, live rows packed to the front.  Returns ``(cells, counts,
-    row_map_out, overflow)``: one int32[nparts * cap] array per payload word
-    (int32[N] columns, possibly strided), dead slots zero; the per-cell live
-    counts clamped to cap (int32[nparts]); and the number of active rows
-    beyond their cell's capacity, which are not staged (0-d int32).
-    `row_map` selects the third output:
+    order, live rows packed to the front.  A row is active where `active`
+    (bool[N], None: every row) holds and, given `count` (an int or a 0-d
+    integer tensor on the device), where ``i < count``: the JAX package's
+    ``active`` of ``arange(N) < count``, whose rows past it the kernel does
+    not read.  Returns ``(cells, counts, row_map_out, overflow)``: one
+    int32[nparts * cap] array per payload word (int32[N] columns, possibly
+    strided), dead slots zero; the per-cell live counts clamped to cap
+    (int32[nparts]); and the number of active rows beyond their cell's
+    capacity, which are not staged (0-d int32).  `row_map` selects the third
+    output:
 
       "slots"  the flat slot of every row (``nparts * cap`` for rows that
                were inactive, out of range or beyond capacity);
@@ -81,6 +88,13 @@ def stage_to_cells(
                (destination, row), inactive rows sorting as destination
                `nparts`; it is slot order while nothing overflowed;
       "none"   None.
+
+    Active rows with a destination above `nparts` sort after the inactive
+    ones in "si"; the card puts them in row order with the inactive rows and
+    the wrapper reads their number on the host to order them (K5).
+    `in_range` is the caller's promise that no active destination exceeds
+    `nparts` (the tiled join masks its hashes): that read is then skipped,
+    and nothing of the call waits for the host.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -90,7 +104,7 @@ def stage_to_cells(
         raise ValueError("stage_to_cells: nparts and cap must be positive")
     payloads = list(payloads)
     if dest.device.type == "cpu":
-        return stage_to_cells_plain(dest, active, nparts, cap, payloads, row_map)
+        return stage_to_cells_plain(dest, active, nparts, cap, payloads, row_map, count)
     dev = dest.device
     n = dest.shape[0]
     _lib.check_cuda("stage_to_cells dest", dest, torch.int32)
@@ -101,32 +115,35 @@ def stage_to_cells(
         if active.shape != (n,):
             raise ValueError("stage_to_cells: active must be [N] like dest")
     _lib.check_columns("stage_to_cells payload", payloads, n, dev)
-    radix_plan.check_rows("stage_to_cells", n)
+    warps = cells_plan.check_stage("stage_to_cells", n, nparts, cap, cells_plan.SPAN)
+    cnt, cnt_host = rowmove_plan.count_arg(count, n, dev)
+    if count is not None and cnt is None:  # a host count: the same on the card
+        cnt = torch.full((), cnt_host, dtype=torch.int32, device=dev)
     m = nparts * cap
     cells = [torch.empty(m, dtype=torch.int32, device=dev) for _ in payloads]
     counts = torch.empty(nparts, dtype=torch.int32, device=dev)
     stats = torch.empty(3, dtype=torch.int32, device=dev)
-    si = torch.empty(n, dtype=torch.int32, device=dev)
+    si = torch.empty(n, dtype=torch.int32, device=dev) if row_map == "si" else None
     slots = torch.empty(n, dtype=torch.int32, device=dev) if row_map == "slots" else None
+    words = cells_plan.stage_scratch_words(n, nparts, cells_plan.SPAN)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     lib = _lib.library()
-    scratch = torch.empty(
-        lib.dbt_stage_cells_scratch_words(n, nparts), dtype=torch.int32, device=dev
-    )
     with torch.cuda.device(dev):
         err = lib.dbt_stage_cells(
-            dest.data_ptr(), None if active is None else active.data_ptr(), n, nparts, cap,
+            dest.data_ptr(), None if active is None else active.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), n, nparts, cap,
             _lib.ptr_array(payloads), _lib.stride_array(payloads), _lib.ptr_array(cells),
-            len(payloads), counts.data_ptr(), stats.data_ptr(), si.data_ptr(),
-            None if slots is None else slots.data_ptr(), scratch.data_ptr(),
-            _lib.stream_of(dest),
+            len(payloads), counts.data_ptr(), stats.data_ptr(),
+            None if si is None else si.data_ptr(), None if slots is None else slots.data_ptr(),
+            scratch.data_ptr(), words, cells_plan.SPAN, warps, _lib.stream_of(dest),
         )
     _lib.raise_on_error(err, "stage_to_cells")
     _lib.LAUNCHES["stage_cells"] += 1
     overflow = stats[0]
     if row_map == "slots":
         return cells, counts, slots, overflow
-    if row_map == "none":
-        return cells, counts, None, overflow
+    if row_map == "none" or in_range:
+        return cells, counts, si, overflow
     beyond, nsink = stats[1:].tolist()
     if beyond:
         # active rows with a destination above nparts sort after the inactive
@@ -134,7 +151,11 @@ def stage_to_cells(
         # order, so it is ordered once more by its rows' own word (K5)
         sink = si[n - nsink:]
         rows = sink.long()
-        word = dest[rows] if active is None else torch.where(active[rows], dest[rows], nparts)
+        word = dest[rows]
+        if active is not None:
+            word = torch.where(active[rows], word, nparts)
+        if cnt is not None:
+            word = torch.where(rows < cnt, word, nparts)
         order, _, _ = words_sort([word])
         sink.copy_(sink[order.long()])
     return cells, counts, si, overflow
@@ -147,12 +168,16 @@ def stage_to_cells_plain(
     cap: int,
     payloads: Sequence[torch.Tensor],
     row_map: str = "slots",
+    count=None,
 ) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """The same staging from one stable torch.sort of the destinations."""
     n = dest.shape[0]
     dev = dest.device
     m = nparts * cap
     d = as_u32(dest)
+    if count is not None:
+        live = rowmove_plan.live_positions(n, count, dev)
+        active = live if active is None else active & live
     if active is not None:
         d = torch.where(active, d, nparts)
     sd, si = torch.sort(d, stable=True)

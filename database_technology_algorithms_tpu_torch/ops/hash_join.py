@@ -15,8 +15,9 @@ order.  No record moves until the matched probe rows are compacted.
 
 Beyond ``cfg.mem_rows`` the public forms route through the device-tiled
 join: both sides are hashed (K8) and staged into cells (K9), the cell pairs
-are joined a budget-sized group at a time (K10), and the counts return to
-probe order through one compaction (K3) and one un-permute (K7).
+are joined a budget-sized group at a time (K10, whose counts land compacted
+in slot order), and the counts return to probe order through one
+un-permute (K7).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from ..kernels.member_mult import member_multiplicity_cells
 from ..kernels.unpermute import unpermute
 from ..utils.checks import ensure_device_budget
 from .keys import key_hash, key_words
-from .movement import compact_rows, compact_words, stage_to_cells
+from .movement import compact_rows, stage_to_cells
 from .scan import cumsum, seg_carry
 from .sort import packed_u32_view_sort, sort_keys, sorted_adjacent_equal
 
@@ -188,21 +189,17 @@ def _tiled_matched_mult(
 
     Both sides are hash-partitioned into ``ntiles`` cells (K8, K9; only key
     words ride the cells) and ``group`` cell pairs are joined per step (K10),
-    so each step's working set stays within ``cfg.mem_rows`` rows.  The
-    counts come back from slot order to probe order through the compaction
-    of the occupied slots (K3) and the staging permutation (K7).  Cell
+    so each step's working set stays within ``cfg.mem_rows`` rows.  K10
+    writes the occupied slots' counts compacted, and the staging permutation
+    (K7) returns them to probe order.  Cell
     overflow is returned, not handled: ``hash_join_count`` retries with
     doubled capacity, and the result of an attempt that overflowed is
     discarded."""
     nb, npr = build.nrows, probe.nrows
     dev = build.recid.device
     ntiles, cap_b, cap_p, group = _tile_layout(nb, npr, cfg.mem_rows, cap_mult)
-    b_active = p_active = None
-    if build_count is not None:
-        b_active = torch.arange(nb, dtype=torch.int32, device=dev) < build_count
-    if probe_count is not None:
-        p_active = torch.arange(npr, dtype=torch.int32, device=dev) < probe_count
-    # ntiles is a power of two: the mask is the modulo of the unsigned hash
+    # ntiles is a power of two: the mask is the modulo of the unsigned hash,
+    # so no destination exceeds the cells (K9's in_range)
     hb = key_hash(build, field) & (ntiles - 1)
     hp = key_hash(probe, field) & (ntiles - 1)
     bkw = key_words(build, field)
@@ -213,28 +210,26 @@ def _tiled_matched_mult(
     nw = max(len(bkw), len(pkw))
     bkw = bkw + [torch.zeros(nb, dtype=torch.int32, device=dev)] * (nw - len(bkw))
     pkw = pkw + [torch.zeros(npr, dtype=torch.int32, device=dev)] * (nw - len(pkw))
-    bcells, bcnt, _, ovf_b = stage_to_cells(hb, b_active, ntiles, cap_b, bkw, row_map="none")
-    pcells, pcnt, si_p, ovf_p = stage_to_cells(hp, p_active, ntiles, cap_p, pkw, row_map="si")
+    bcells, bcnt, _, ovf_b = stage_to_cells(hb, None, ntiles, cap_b, bkw, row_map="none",
+                                            count=build_count, in_range=True)
+    pcells, pcnt, si_p, ovf_p = stage_to_cells(hp, None, ntiles, cap_p, pkw, row_map="si",
+                                               count=probe_count, in_range=True)
 
     bcells = [w.view(ntiles, cap_b) for w in bcells]
     pcells = [w.view(ntiles, cap_p) for w in pcells]
-    steps = []
+    # the occupied slots' counts, compacted: pair g's live probe rows from the
+    # exclusive sum of the counts, which is slot order; the staging
+    # permutation si_p is the probe rows in that order while nothing
+    # overflowed, so one un-permute finishes.  Probe rows that were not
+    # staged carry 0.
+    first = cumsum(pcnt) - pcnt
+    mult_slots = torch.zeros(npr, dtype=torch.int32, device=dev)
     for lo in range(0, ntiles, group):
         hi = lo + group
-        steps.append(member_multiplicity_cells(
-            [w[lo:hi] for w in bcells], bcnt[lo:hi], [w[lo:hi] for w in pcells], pcnt[lo:hi]))
-    mp = ntiles * cap_p
-    mult_cells = torch.cat(steps).reshape(mp)
-    # slot order back to probe rows: compact the occupied slots' counts; the
-    # staging permutation si_p is the probe rows in slot order while nothing
-    # overflowed, so one un-permute finishes.  Probe rows that were inactive
-    # carry 0.
-    occupied = (torch.arange(cap_p, dtype=torch.int32, device=dev)[None, :]
-                < pcnt[:, None]).reshape(mp)
-    _, (mult_slots,) = compact_words(occupied, (mult_cells,))
-    n_staged = pcnt.sum(dtype=torch.int32)
-    pos = torch.arange(npr, dtype=torch.int32, device=dev)
-    mult_rows = unpermute(si_p, torch.where(pos < n_staged, mult_slots[:npr], 0))
+        member_multiplicity_cells(
+            [w[lo:hi] for w in bcells], bcnt[lo:hi], [w[lo:hi] for w in pcells], pcnt[lo:hi],
+            out=mult_slots, out_pos=first[lo:hi])
+    mult_rows = unpermute(si_p, mult_slots)
     return mult_rows > 0, mult_rows, ovf_b + ovf_p
 
 

@@ -4,7 +4,8 @@ runs as ``python -m database_technology_algorithms_tpu_torch.tools.<name>``,
 on the card, or with ``--cpu`` through the plain versions for correctness
 only.  ``radix_phases`` times the phases of the one-sweep radix pass (K1, K5)
 tile by tile, ``rowmove_sweep`` the row-move engine (K4, K12) by the rows
-a block owns, and ``scan_sweep`` K2's and K3's tiles, on the card only."""
+a block owns, ``scan_sweep`` K2's and K3's tiles, and ``cells_sweep`` K9's
+span and place warps and K10's shared table, on the card only."""
 
 from __future__ import annotations
 
