@@ -29,7 +29,15 @@ Phases (any failure raises and the script exits non-zero):
      the count form against the mask form at 24M rows; K10 with 1, 2, 3
      and 33 key words, the compacted output, skewed pairs and the retry's
      doubled capacities on the global table beside pairs in the shared
-     one, and two keys with one 32-bit table hash);
+     one, and two keys with one 32-bit table hash; K6 at a warp's and a
+     block's edges with 1-40 key words in every layout (contiguous,
+     strided, 4 bytes past a matrix's start, field 3's num beside strw),
+     keys with few values, all equal and all distinct, through the keys'
+     sort order, a random perm and in place, up to 2M rows with 9 and 40
+     words; K7's scatter at a block's edges, every window, int32 and bool,
+     on aligned and shifted views; K7's
+     gather with 1-4097 cells, every live-count form and overflowing cells,
+     also against the scatter through K9's "si" on the same staging);
   3. the staged pipeline: ``make_pipeline_staged(1)`` on 1M + 1M generated
      rows (the bench's key range, 3*rows/10), with every launch counter set
      to 0 just before and read just after; then field 0.  Counters, join
@@ -62,10 +70,12 @@ Phases (any failure raises and the script exits non-zero):
      under the default budget of 16M (chunked distinct, tiled hash join,
      chunked compaction), the launch counters set to 0 just before and read
      just after, against the numpy oracle; its split into steps and device
-     busy time, and the tiled join's device time beside its host wall; K8,
-     K9 (with its phases' times) and K10 held against their plain versions
-     on that run's own inputs, and K3 on every compaction of the route's
-     steps; the
+     busy time, and the tiled join's device time beside its host wall (it
+     must call K9 with the "slots" row map and K7's gather, and launch no
+     scatter); K8, K9 (with its phases' times, "slots" and "si"), K10 and
+     K7's gather held against their plain versions on that run's own
+     inputs, the gather also against the scatter through "si", and K3 on
+     every compaction of the route's steps; the
      spill copies' rate through pageable and through
      page-locked host memory; ``distinct``, ``sort_batch``, ``hash_join_count`` and
      ``hash_join`` alone at 24M rows; fields 0, 2 and 3 at 1.5M + 1.5M rows
@@ -81,7 +91,11 @@ Phases (any failure raises and the script exits non-zero):
      shapes of the ``pipeline`` command (field 2) and at the over-budget
      route's largest gather chunk, as recorded from those paths; K2 also on
      int32 values and at 16M rows beside ``torch.cumsum``, K3 at the
-     over-budget route's 16M-row chunk beside ``masked_select``.
+     over-budget route's 16M-row chunk beside ``masked_select``; K6 at the
+     over-budget route's largest call and within the ``pipeline`` command's
+     profile (fields 0-3), K7's scatter in its bool form on the placement
+     route beside ``scatter_``, its gather at the over-budget shape beside
+     ``index_select``; K11 and ``copy_`` in turns in one profiled window.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -91,6 +105,7 @@ prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import re
@@ -118,7 +133,7 @@ ROOT = Path(__file__).resolve().parent
 STAGED_KERNELS = ("radix_sort", "seg_scan", "compact", "take_fill")
 # what one over-budget run of the staged pipeline must launch
 OVERBUDGET_KERNELS = ("hash_words", "stage_cells", "member_mult", "compact", "take_fill",
-                      "unpermute")
+                      "unpermute_gather")
 OVER_ROWS = 24_000_000  # a table; 3x EngineConfig.mem_rows for the pair
 MID_ROWS = 1_500_000  # fields 0, 2, 3 under a 512K-row budget
 SKEW_ROWS = 200_000  # all keys equal under a 64K-row budget
@@ -421,6 +436,9 @@ def check_kernels(dev) -> dict:
     for name, err in check_scan_compact_cases(dev, g).items():
         errs[name] = max(errs[name], err)
     errs.update(check_sort_kernels(dev, g, sizes))
+    errs["adj_equal"] = max(errs["adj_equal"], check_adj_cases(dev, g))
+    errs["unpermute"] = max(errs["unpermute"], check_unpermute_cases(dev, g))
+    errs["unpermute_gather"] = check_gather_cases(dev, g)
     errs.update(check_overbudget_kernels(dev, g, sizes))
     errs.update(check_probe_kernels(dev, g, sizes[:4] + sizes[5:]))
     return errs
@@ -834,6 +852,178 @@ def check_sort_kernels(dev, g, sizes) -> dict:
     return errs
 
 
+ADJ_WORDS = (1, 2, 3, 4, 5, 9, 33, 40)  # K6's key widths: one stage, several, the most
+ADJ_LAYOUTS = ("contiguous", "strided", "odd column", "num + strw")
+ADJ_KEYS = ("few values", "all equal", "all distinct")
+# (key words, layout) of the multi-stage keys also checked at the main path's
+# 2M rows: field 3's num beside strw, and the most words in one matrix
+ADJ_LARGE_MULTI = ((9, "num + strw"), (40, "strided"))
+
+
+def adj_edge_sizes() -> list[int]:
+    """K6's and K7's rows at their layouts' edges: a K6 warp's and block's
+    rows at the plan's R, a K7 block's (one row a thread), one past and one
+    short of each, and the sizes of the other checks."""
+    from database_technology_algorithms_tpu_torch.kernels import perm_plan
+
+    r6 = perm_plan.ADJ_ROWS
+    block6, block7 = perm_plan.THREADS * r6, perm_plan.THREADS
+    edges = {0, 1, 31, 32, 33, 32 * r6 - 1, 32 * r6, 32 * r6 + 1, block6 - 1, block6,
+             block6 + 1, block7 - 1, block7, block7 + 1, 2049, 70_001, 2 * ROWS}
+    return sorted(edges)
+
+
+def adj_key_words(g, n: int, m: int, layout: str, keys: str, dev) -> list[torch.Tensor]:
+    """m key words of n rows laid out as `layout`: separate contiguous
+    columns, columns of one row-major [n, m] matrix, columns 1..m of an
+    [n, m + 1] matrix (4 bytes past its start), or a separate num column
+    beside m - 1 columns of a matrix (field 3's key)."""
+    if keys == "all equal":
+        mat = np.zeros((n, m + 1), np.uint32)
+    else:
+        # few values a word, so ties reach the last word; a third >= 2^31
+        mat = (g.integers(0, 3, size=(n, m + 1)).astype(np.uint32) << 30) | g.integers(
+            0, 2, size=(n, m + 1)).astype(np.uint32)
+        if keys == "all distinct":
+            mat[:, -1] = np.arange(n, dtype=np.uint32)
+            mat[:, 0] = np.arange(n, dtype=np.uint32)
+    t = torch.from_numpy(mat.view(np.int32)).to(dev)
+    if layout == "contiguous":
+        return [t[:, j + 1].contiguous() for j in range(m)]
+    if layout == "strided":
+        t = t[:, 1:].contiguous()
+        return [t[:, j] for j in range(m)]
+    if layout == "odd column":
+        return [t[:, j + 1] for j in range(m)]
+    strw = t[:, 2:].contiguous()
+    return [t[:, 1].contiguous()] + [strw[:, j] for j in range(m - 1)]
+
+
+def check_adj_cases(dev, g) -> int:
+    """K6 against its plain version at its layout's edges: rows at a warp's
+    and a block's edges, 1-40 key words (one chunk of 4 and several), each
+    layout of ADJ_LAYOUTS (contiguous, strided, 4 bytes past a matrix's
+    start, field 3's num beside strw), keys with few values, all equal and
+    all distinct, through the keys' sort order, a random perm and in place."""
+    from database_technology_algorithms_tpu_torch.kernels.adj_equal import (
+        adj_equal, adj_equal_plain)
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import words_sort
+
+    err, calls = 0, 0
+    for n in adj_edge_sizes():
+        rand = torch.from_numpy(g.permutation(n).astype(np.int32)).to(dev)
+        for m in ADJ_WORDS:
+            for keys in ADJ_KEYS:
+                for layout in ADJ_LAYOUTS if keys == "few values" else ("strided",):
+                    # above 70001 rows, keys of several stages in two layouts
+                    if m > 4 and n > 70_001 and (m, layout) not in ADJ_LARGE_MULTI:
+                        continue
+                    words = adj_key_words(g, n, m, layout, keys, dev)
+                    for form, perm in (("sorted", words_sort(words)[0]), ("random", rand),
+                                       ("in place", None)):
+                        err = max(err, assert_same(
+                            f"K6 n={n} m={m} {layout} {keys} {form}",
+                            (adj_equal(words, perm),), (adj_equal_plain(words, perm),)))
+                        calls += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] K6 equals its plain version in {calls} more calls: n in {adj_edge_sizes()}, "
+        f"m in {ADJ_WORDS} (m > 4 up to 70001 rows, and {ADJ_LARGE_MULTI} at every n), "
+        f"layouts {ADJ_LAYOUTS}, keys {ADJ_KEYS}, "
+        f"through the keys' sort order, a random perm and in place")
+    return err
+
+
+def check_unpermute_cases(dev, g) -> int:
+    """K7's scatter at its layout's edges (rows around a block's), every
+    (lo, m) window of check_sort_kernels, int32 and bool values, aligned
+    and one element past 16 bytes."""
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import (
+        unpermute, unpermute_plain)
+
+    sizes = sorted(set(adj_edge_sizes()) | {7, 8, 9, 15, 16, 17})
+    err, calls = 0, 0
+    for n in sizes:
+        perm = torch.from_numpy(g.permutation(n).astype(np.int32)).to(dev)
+        vals = torch.from_numpy(g.integers(-2**31, 2**31, size=n + 1).astype(np.int32)).to(dev)
+        flags = torch.from_numpy(g.random(n + 1) < 0.5).to(dev)
+        views = {"aligned": (perm, vals[:n], flags[:n]),
+                 "1 past 16 B": (unaligned(perm, 1), vals[1:], flags[1:])}
+        for what, (p, v, f) in views.items():
+            for lo, m_out in ((0, n), (n // 2, n - n // 2), (n // 3, n // 3), (n, 0)):
+                for vv in (v, f):
+                    err = max(err, assert_same(
+                        f"K7 n={n} {what} lo={lo} m={m_out} {vv.dtype}",
+                        (unpermute(p, vv, lo, m_out),), (unpermute_plain(p, vv, lo, m_out),)))
+                    calls += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] K7's scatter equals its plain version in {calls} more calls: n in {sizes} "
+        f"(a block's rows, and one past and short of them), windows (0, n), (n/2, n - n/2), "
+        f"(n/3, n/3), (n, 0), int32 and bool, aligned and 1 element past 16 B")
+    return err
+
+
+GATHER_COUNTS = ("none", "int", "card", "zero", "past n")
+
+
+def gather_edges(dev) -> set:
+    """A K7 gather block's rows and the rows of its grid's first walk (the
+    plan's waves of the card's blocks), with one past and one short of
+    each."""
+    from database_technology_algorithms_tpu_torch.kernels import perm_plan
+
+    block = perm_plan.THREADS * perm_plan.GATHER_ROWS
+    wave = perm_plan.blocks(1 << 30, perm_plan.GATHER_ROWS, perm_plan.GATHER_WAVES, dev) * block
+    return {block - 1, block, block + 1, wave - 1, wave, wave + 1}
+
+
+def check_gather_cases(dev, g) -> int:
+    """K7's gather against its plain version and against the scatter
+    through K9's "si" on the same staging (their result while nothing
+    overflowed): 1-4097 cells, every live-count form, roomy cells and
+    cells that overflow (slots at nparts * cap give 0)."""
+    from database_technology_algorithms_tpu_torch.kernels.stage_cells import stage_to_cells
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import (
+        unpermute, unpermute_gather, unpermute_gather_plain)
+
+    sizes = sorted({1, 31, 2049, 70_001, 2 * ROWS} | gather_edges(dev))
+    err, calls, vs_scatter = 0, 0, 0
+    for n in sizes:
+        for nparts in (1, 2, 16, 4096, 4097):
+            even = -(-n // nparts)
+            dest = torch.from_numpy(g.integers(0, nparts, size=n).astype(np.int32)).to(dev)
+            word = torch.from_numpy(g.integers(-2**31, 2**31, size=n).astype(np.int32)).to(dev)
+            for cap in (max(2 * even, 8), max(even // 2, 1)):
+                counts = {"none": None, "int": n // 3,
+                          "card": torch.tensor(n // 2, dtype=torch.int32, device=dev),
+                          "zero": 0, "past n": torch.tensor(n + 5, dtype=torch.int32,
+                                                            device=dev)}
+                for form, count in counts.items():
+                    _, cnt, slots, ovf = stage_to_cells(dest, None, nparts, cap, [word],
+                                                        "slots", count, True)
+                    first = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+                    vals = torch.from_numpy(g.integers(0, 5, size=n).astype(np.int32)).to(dev)
+                    got = unpermute_gather(slots, vals, first, cap, count)
+                    err = max(err, assert_same(
+                        f"K7 gather n={n} nparts={nparts} cap={cap} count {form}",
+                        (got,), (unpermute_gather_plain(slots, vals, first, cap, count),)))
+                    calls += 1
+                    if int(ovf) == 0:
+                        _, _, si, _ = stage_to_cells(dest, None, nparts, cap, [word], "si",
+                                                     count, True)
+                        staged = torch.arange(n, device=dev) < cnt.sum()
+                        err = max(err, assert_same(
+                            f"K7 gather against the scatter through si n={n} nparts={nparts} "
+                            f"cap={cap} count {form}", (got,),
+                            (unpermute(si, torch.where(staged, vals, 0)),)))
+                        vs_scatter += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] K7's gather equals its plain version in {calls} calls and the scatter "
+        f"through K9's 'si' in {vs_scatter} of them (the rest overflowed): n in {sizes}, "
+        f"nparts in (1, 2, 16, 4096, 4097), a roomy cap and one that "
+        f"overflows, counts {GATHER_COUNTS}")
+    return err
+
+
 def check_overbudget_kernels(dev, g, sizes) -> dict:
     """K8, K9 and K10 against their plain versions on the card."""
     from database_technology_algorithms_tpu_torch.kernels.hash_words import (
@@ -1209,6 +1399,30 @@ def recorded_take_fills():
 
 
 @contextlib.contextmanager
+def recorded_calls(module_name: str, name: str):
+    """The arguments of every call of the wrapper `name` of
+    ``kernels/<module_name>.py`` made inside, in order, as (args, kwargs):
+    the port's modules that imported it by name call a recording wrapper
+    while the block runs.  The calls still launch the kernel."""
+    module = importlib.import_module(f"{PKG}.kernels.{module_name}")
+    calls, wrapper = [], getattr(module, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return wrapper(*args, **kw)
+
+    users = [m for mod, m in sys.modules.items()
+             if mod.startswith(PKG) and getattr(m, name, None) is wrapper]
+    for m in users:
+        setattr(m, name, record)
+    try:
+        yield calls
+    finally:
+        for m in users:
+            setattr(m, name, wrapper)
+
+
+@contextlib.contextmanager
 def recorded_compactions():
     """The arguments of every K3 wrapper call made inside, in order: the
     modules that imported ``compact_words`` by name call a recording wrapper
@@ -1289,6 +1503,67 @@ def take_fill_timing(call, card: str, what: str) -> dict:
            "bound_ms": bound_ms(nbytes)}
     log(f"[timing] {card}: take_fill ({rec['shape']}): device time per call: kernel "
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library index_select (no fill) "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({nbytes} B)")
+    return rec
+
+
+def adj_timings(calls, card: str, what: str) -> list[dict]:
+    """K6 at the shapes of recorded calls: the largest call through perm and
+    the largest in place, each beside its plain version and its byte bound
+    (perm where given, every key word and the flags)."""
+    from database_technology_algorithms_tpu_torch.kernels import perm_plan
+    from database_technology_algorithms_tpu_torch.kernels.adj_equal import (
+        adj_equal, adj_equal_plain)
+
+    def perm_of(call):
+        args, kw = call
+        return args[1] if len(args) > 1 else kw.get("perm")
+
+    out = []
+    for form, through in (("through perm", True), ("in place", False)):
+        mine = [c for c in calls if (perm_of(c) is not None) == through]
+        if not mine:
+            continue
+        call = max(mine, key=lambda c: c[0][0][0].shape[0])
+        words, perm = list(call[0][0]), perm_of(call)
+        n, m = words[0].shape[0], len(words)
+        nbytes = (0 if perm is None else n * 4) + n * 4 * m + n
+        widths, stages = perm_plan.key_plan(words)
+        rec = {"shape": f"{what}: {n} rows, {m} key words {form} (read as {widths} in stages "
+                        f"{stages}), the largest of {len(calls)} calls",
+               "ms": device_ms(lambda: adj_equal(words, perm)),
+               "plain_ms": device_ms(lambda: adj_equal_plain(words, perm)),
+               "library_ms": None, "bound_ms": bound_ms(nbytes)}
+        log(f"[timing] {card}: adj_equal ({rec['shape']}): device time per call: kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library none, bound "
+            f"{rec['bound_ms']:.4f} ms ({nbytes} B)")
+        out.append(rec)
+    return out
+
+
+def scatter_timing(call, card: str, what: str) -> dict:
+    """K7's scatter at the shape of one recorded call, beside its plain
+    version, ``scatter_`` of all rows (a yardstick: no window) and its byte
+    bound (perm and the values read, the window written)."""
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import (
+        unpermute, unpermute_plain)
+
+    args, kw = call
+    perm, vals = args[:2]
+    lo = args[2] if len(args) > 2 else kw.get("lo", 0)
+    m = args[3] if len(args) > 3 else kw.get("m")
+    n = perm.shape[0]
+    m = n - lo if m is None else m
+    elem = vals.element_size()
+    perm_long = perm.long()
+    nbytes = n * (4 + elem) + m * elem
+    rec = {"shape": f"{what}: {n} sorted rows -> {m} {vals.dtype} answers (lo = {lo})",
+           "ms": device_ms(lambda: unpermute(perm, vals, lo, m)),
+           "plain_ms": device_ms(lambda: unpermute_plain(perm, vals, lo, m)),
+           "library_ms": device_ms(lambda: torch.empty_like(vals).scatter_(0, perm_long, vals)),
+           "bound_ms": bound_ms(nbytes)}
+    log(f"[timing] {card}: unpermute ({rec['shape']}): device time per call: kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library scatter_ of all rows "
         f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({nbytes} B)")
     return rec
 
@@ -1387,6 +1662,7 @@ def phase_command(dev, card: str) -> dict:
 
     # ---- the command's stages, on device-resident tables ----------------------
     r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
+    k67 = {}  # K6's and K7's device time in a profiled run of the four stages
     for field in (1, 0, 2, 3):
         def dedup_r():
             return distinct(r, field)
@@ -1422,6 +1698,10 @@ def phase_command(dev, card: str) -> dict:
             f"kernels {prof['busy_us']:.1f} us per run, busy share {share:.3f}")
         for name, us in prof["top"][:8]:
             log(f"[command profile]   field {field} {us:9.1f} us  {name[:90]}")
+        k67[field] = {k: sum(us for name, us in prof["top"] if k in name)
+                      for k in ("adj_equal", "unpermute")}
+        log(f"[command profile]   field {field}: K6 {k67[field]['adj_equal']:.1f} us, K7 "
+            f"{k67[field]['unpermute']:.1f} us of the {prof['busy_us']:.1f} us a run")
         if field == 2:  # K4's shapes in the command, timed in phase_timings
             with recorded_take_fills() as k4_calls:
                 whole()
@@ -1429,7 +1709,7 @@ def phase_command(dev, card: str) -> dict:
             log(f"[command stages] field 2: {len(k4_calls)} K4 calls recorded in the four stages "
                 f"(the command's run launched {launches[2]['take_fill']})")
     return {"launches": launches, "cols": (r_cols, s_cols), "batches": (r, s),
-            "k4_calls": k4_calls}
+            "k4_calls": k4_calls, "k67_us": k67}
 
 
 # ---------------------------------------------------------------------------
@@ -1562,7 +1842,15 @@ def phase_sort_route(dev, card: str, pipe: dict) -> dict:
     for name, us in prof["top"][:10]:
         log(f"[sort route profile]   field 1 sort {us:9.1f} us  {name[:90]}")
     a2d = runs[("sort2d", 1)].stage_a(r, s)
-    return {"launches": launches, "times": times, "inputs_2d": (r, a2d)}
+    # K7's bool form as the "sort" route calls it (packed_keep_backsort)
+    with recorded_calls("unpermute", "unpermute") as k7_calls:
+        runs[("sort", 1)](r, s)
+    torch.cuda.synchronize()
+    k7_bool = [c for c in k7_calls if c[0][1].dtype == torch.bool]
+    if not k7_bool:
+        raise AssertionError("the 'sort' route, field 1, launched K7 on no bool values")
+    return {"launches": launches, "times": times, "inputs_2d": (r, a2d),
+            "k7_bool": max(k7_bool, key=lambda c: c[0][0].shape[0])}
 
 
 def check_operators_on_routes(dev, r, s, cfgs) -> None:
@@ -1653,6 +1941,17 @@ def phase_probes(dev, card: str, g) -> dict:
             f"{nbytes / ms / 1e6:.1f} GB/s, {copies} bulk copies -> {ms * 1e6 / copies:.2f} "
             f"ns/copy; bound {bound_ms(nbytes):.4f} ms ({nbytes} B); library copy_ {lib:.4f} ms; "
             f"CUDA-event span per back-to-back call {cuda_ms(lambda: copiers[G](x, st)):.4f} ms")
+    # K11 at G = 32 and copy_ in turns within one profiled window, so that
+    # the two readings share the card's state
+    alt = profile_device(lambda: (copiers[32](x, st), copy_out.copy_(x)), reps=20)
+    res["k11_alternating"] = {
+        "ms": sum(us for n, us in alt["top"] if "tile_copy" in n) / 1e3,
+        "library_ms": sum(us for n, us in alt["top"]
+                          if "tile_copy" not in n and "HtoD" not in n) / 1e3}
+    log(f"[probes] {card}: K11 at G=32 and copy_ in turns, one profiled window of 20 pairs: "
+        f"kernel {res['k11_alternating']['ms']:.4f} ms, copy_ "
+        f"{res['k11_alternating']['library_ms']:.4f} ms a call; by kernel: "
+        f"{device_parts(alt, top=3)}")
     nbytes = prims.N * 4 + 2 * prims.N * prims.W * 4
     into = torch.empty_like(rows)
     libs = {True: lambda: torch.index_select(rows, 0, gidx),
@@ -1868,6 +2167,8 @@ def phase_overbudget(dev, card: str) -> dict:
         member_multiplicity_cells, member_multiplicity_cells_plain)
     from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
         stage_to_cells, stage_to_cells_plain)
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import (
+        unpermute, unpermute_gather, unpermute_gather_plain)
     from database_technology_algorithms_tpu_torch.models.pipeline import make_pipeline_staged
     from database_technology_algorithms_tpu_torch.ops.chunked import compact_rows_chunked
     from database_technology_algorithms_tpu_torch.ops.distinct import distinct
@@ -1887,7 +2188,8 @@ def phase_overbudget(dev, card: str) -> dict:
 
     # ---- the main path of this route: counts from exactly one run ---------------
     reset_launches()
-    out, run_ms = timed(lambda: run(r, s))
+    with recorded_calls("adj_equal", "adj_equal") as k6_calls:
+        out, run_ms = timed(lambda: run(r, s))
     launches = dict(LAUNCHES)
     log(f"[main path] make_pipeline_staged(1) {rows}+{rows} over budget: launches {launches}")
     missing = [k for k in OVERBUDGET_KERNELS if launches[k] == 0]
@@ -1944,6 +2246,16 @@ def phase_overbudget(dev, card: str) -> dict:
     k4_chunk["launches"] = launches["take_fill"]
     del k4_calls
     join = lambda: hash_join_count(s_d, r_d, 1, cfg, build_count=nu_s, probe_count=nu_r)
+    reset_launches()
+    with recorded_calls("stage_cells", "stage_to_cells") as k9_calls:
+        join()
+    torch.cuda.synchronize()
+    row_maps = [c[0][5] if len(c[0]) > 5 else c[1].get("row_map", "slots") for c in k9_calls]
+    if LAUNCHES["unpermute"] or not LAUNCHES["unpermute_gather"] or row_maps != ["none", "slots"]:
+        raise AssertionError(f"the tiled join launched {dict(LAUNCHES)} with K9 row maps "
+                             f"{row_maps}: expected K7's gather, no scatter, 'none' and 'slots'")
+    log(f"[over budget] the tiled join alone: K9 with row maps {row_maps}, K7's gather "
+        f"{LAUNCHES['unpermute_gather']} launch, the scatter {LAUNCHES['unpermute']}")
     join_prof = profile_device(join, reps=3)
     join_wall = wall_ms(join, reps=5)
     log(f"[over budget] {card}: the tiled join alone: device kernels "
@@ -1960,23 +2272,24 @@ def phase_overbudget(dev, card: str) -> dict:
     # held against the plain versions on this run's inputs: the hash of both
     # sides, both stagings (row maps "none" and "si", the live counts of the
     # distinct steps, the in-range promise), every step's cell pairs
-    at_path = {"hash_words": 0, "stage_cells": 0, "member_mult": 0}
+    at_path = {"hash_words": 0, "stage_cells": 0, "member_mult": 0, "unpermute_gather": 0}
     for side, w in (("build", [s_d.num]), ("probe", [r_d.num])):
         at_path["hash_words"] = max(at_path["hash_words"], assert_same(
             f"K8 {rows} {side} rows", (hash_words(w),), (hash_words_plain(w),)))
     bcells, bcnt, _, ovf_b = stage_to_cells(hb, None, ntiles, cap_b, words, "none", nu_s, True)
-    pcells, pcnt, si_p, ovf_p = stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r,
-                                               True)
+    pcells, pcnt, slots_p, ovf_p = stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "slots",
+                                                  nu_r, True)
     want_b = stage_to_cells_plain(hb, None, ntiles, cap_b, words, "none", nu_s)
-    want_p = stage_to_cells_plain(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r)
+    want_p = stage_to_cells_plain(hp, None, ntiles, cap_p, [r_d.num], "slots", nu_r)
     at_path["stage_cells"] = max(
         assert_same(f"K9 {rows} build rows -> {ntiles} cells of {cap_b}, row map 'none'",
                     (*bcells, bcnt, ovf_b.reshape(1)), (*want_b[0], want_b[1], want_b[3].reshape(1))),
-        assert_same(f"K9 {rows} probe rows -> {ntiles} cells of {cap_p}, row map 'si'",
-                    (*pcells, pcnt, ovf_p.reshape(1), si_p),
+        assert_same(f"K9 {rows} probe rows -> {ntiles} cells of {cap_p}, row map 'slots'",
+                    (*pcells, pcnt, ovf_p.reshape(1), slots_p),
                     (*want_p[0], want_p[1], want_p[3].reshape(1), want_p[2])))
-    del want_b, want_p, si_p
+    del want_b, want_p
     first = torch.cumsum(pcnt, 0, dtype=torch.int32) - pcnt
+    mult_p = torch.zeros(rows, dtype=torch.int32, device=dev)
     for lo in range(0, ntiles, group):
         cells = ([w.view(ntiles, cap_b)[lo: lo + group] for w in bcells], bcnt[lo: lo + group],
                  [w.view(ntiles, cap_p)[lo: lo + group] for w in pcells], pcnt[lo: lo + group])
@@ -1986,10 +2299,24 @@ def phase_overbudget(dev, card: str) -> dict:
         member_multiplicity_cells_plain(*cells, None, want, first[lo: lo + group])
         at_path["member_mult"] = max(at_path["member_mult"], assert_same(
             f"K10 pairs {lo} to {lo + group} of {cap_b} + {cap_p} rows", (got,), (want,)))
+        member_multiplicity_cells(*cells, None, mult_p, first[lo: lo + group])
     del cells, got, want
-    log(f"[kernels] K8-K10 equal their plain versions on the over-budget run's inputs: K8 on "
-        f"{rows} build and {rows} probe rows, K9 into {ntiles} cells of {cap_b} (row map "
-        f"'none') and of {cap_p} ('si'), K10 on all {ntiles // group} steps of {group} pairs")
+    # K7's gather on this run's counts, against its plain version and against
+    # the scatter through "si" that it replaced (the same staging)
+    _, _, si_p, _ = stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r, True)
+    mult_rows = unpermute_gather(slots_p, mult_p, first, cap_p, nu_r)
+    at_path["unpermute_gather"] = max(
+        assert_same(f"K7 gather of {rows} probe rows from {ntiles} cells of {cap_p}",
+                    (mult_rows,), (unpermute_gather_plain(slots_p, mult_p, first, cap_p, nu_r),)),
+        assert_same(f"K7 gather of {rows} probe rows against the scatter through si",
+                    (mult_rows,), (unpermute(si_p, mult_p),)))
+    if not torch.equal(mult_rows > 0, m_r):
+        raise AssertionError("the over-budget run's gathered counts differ from its join's")
+    log(f"[kernels] K8-K10 and K7's gather equal their plain versions on the over-budget run's "
+        f"inputs: K8 on {rows} build and {rows} probe rows, K9 into {ntiles} cells of {cap_b} (row "
+        f"map 'none') and of {cap_p} ('slots'), K10 on all {ntiles // group} steps of {group} "
+        f"pairs, K7's gather of their counts (also equal to the scatter through 'si' and to the "
+        f"join's match mask)")
     bw = [w.view(ntiles, cap_b)[:group] for w in bcells]
     pw = [w.view(ntiles, cap_p)[:group] for w in pcells]
     live_b, live_p = int(bcnt[:group].sum()), int(pcnt[:group].sum())
@@ -1999,7 +2326,13 @@ def phase_overbudget(dev, card: str) -> dict:
     out_p = torch.zeros(rows, dtype=torch.int32, device=dev)
     log(f"[over budget] tiling: {ntiles} cells of {cap_b} + {cap_p} rows, {group} pairs a "
         f"step, {nsteps} steps; first step holds {live_b} + {live_p} live rows")
-    k9_call = lambda: stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r, True)
+    k9_call = lambda: stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "slots", nu_r, True)
+    k9_si = lambda: stage_to_cells(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r, True)
+    s_live = slots_p[:live_r].long()
+    places = torch.where(s_live < ntiles * cap_p,
+                         first.long()[(s_live // cap_p).clamp(max=ntiles - 1)] + s_live % cap_p,
+                         0)
+    del s_live
     specs = [
         dict(name="hash_words", source=f"{PKG}/csrc/hash_words.cu",
              replaces=f"{JAX_PKG}/ops/keys.py:110",
@@ -2010,14 +2343,15 @@ def phase_overbudget(dev, card: str) -> dict:
         dict(name="stage_cells", source=f"{PKG}/csrc/stage_cells.cu",
              replaces=f"{JAX_PKG}/ops/movement.py:354",
              kernel=k9_call,
-             plain=lambda: stage_to_cells_plain(hp, None, ntiles, cap_p, [r_d.num], "si", nu_r),
+             plain=lambda: stage_to_cells_plain(hp, None, ntiles, cap_p, [r_d.num], "slots",
+                                                nu_r),
              # the live rows' dest and word read; every cell slot written once
-             # (the staged words and the dead fill), the counts, and si for
-             # every row (the rows past the live count at their own place)
+             # (the staged words and the dead fill), the counts, and the slot
+             # of every row (the rows past the live count: nparts * cap)
              nbytes=live_r * (4 + 4) + ntiles * cap_p * 4 + ntiles * 4 + rows * 4,
              nops=live_r * 8 + ntiles * cap_p,  # bucket, rank and slot a live row; a slot each
              shape=f"{rows} rows ({live_r} live) -> {ntiles} cells of {cap_p}, 1 key word, "
-                   f"row map 'si'"),
+                   f"row map 'slots'"),
         dict(name="member_mult", source=f"{PKG}/csrc/member_mult.cu",
              replaces=f"{JAX_PKG}/ops/hash_join.py:256",
              kernel=lambda: member_multiplicity_cells(bw, bcnt[:group], pw, pcnt[:group], None,
@@ -2031,12 +2365,26 @@ def phase_overbudget(dev, card: str) -> dict:
              nops=(live_b + live_p) * 24,
              shape=f"{group} pairs of {cap_b} + {cap_p} rows ({live_b} + {live_p} live), "
                    f"1 key word, compacted output; one of the run's {nsteps} steps"),
+        dict(name="unpermute_gather", source=f"{PKG}/csrc/unpermute.cu",
+             replaces=f"{JAX_PKG}/ops/hash_join.py:486",
+             kernel=lambda: unpermute_gather(slots_p, mult_p, first, cap_p, nu_r),
+             plain=lambda: unpermute_gather_plain(slots_p, mult_p, first, cap_p, nu_r),
+             library=lambda: torch.index_select(mult_p, 0, places),
+             # the live rows' slots and counts and the cells' first places
+             # read; every probe row's count written
+             nbytes=live_r * (4 + 4) + ntiles * 4 + rows * 4,
+             nops=live_r * 6,  # a compare, a multiply-high, a shift, a multiply-add, two bounds
+             shape=f"{rows} probe rows ({live_r} live) from {ntiles} cells of {cap_p}, K7's "
+                   f"gather form; library: index_select of the live rows' precomputed places"),
     ]
     # K9's phases, one call: the count, the matrix's scan, the finish, the
     # place and the dead fill, as torch.profiler sees them
     k9_parts = profile_device(k9_call, reps=10)
     log(f"[timing] {card}: K9 phases at {rows} rows ({live_r} live, {staged_p} staged) -> "
-        f"{ntiles} cells of {cap_p}, a call: " + device_parts(k9_parts, top=8))
+        f"{ntiles} cells of {cap_p}, row map 'slots', a call: " + device_parts(k9_parts, top=8))
+    k9_si_parts = profile_device(k9_si, reps=10)
+    log(f"[timing] {card}: K9 in the 'si' form the tiled join no longer calls, a call: "
+        f"{k9_si_parts['busy_us'] / 1e3:.4f} ms; " + device_parts(k9_si_parts, top=8))
     recs = []
     for sp in specs:
         reps = 2 if sp["name"] == "member_mult" else 3
@@ -2046,18 +2394,27 @@ def phase_overbudget(dev, card: str) -> dict:
             "replaces": sp["replaces"], "launches": launches[sp["name"]],
             "max_abs_err": at_path[sp["name"]], "ms": None,
             "plain_ms": profile_device(sp["plain"], reps=reps)["busy_us"] / 1e3,
-            "bound_ms": least_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": least_ms, "bound_by": bound_by,
+            "library_ms": device_ms(sp["library"]) if sp.get("library") else None,
         }
+        if sp["name"] == "stage_cells":
+            rec["ms_si"] = k9_si_parts["busy_us"] / 1e3
         prof = profile_device(sp["kernel"], reps=10)
         rec["ms"] = prof["busy_us"] / 1e3
+        lib = ("none (no single PyTorch call computes it)" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f} ms")
         log(f"[timing] {card}: {sp['name']} ({sp['shape']}): device time per call: kernel "
-            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library none (no single "
-            f"PyTorch call computes it), bound {rec['bound_ms']:.4f} ms by {bound_by} "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{rec['bound_ms']:.4f} ms by {bound_by} "
             f"({sp['nbytes']} B, {sp['nops']} operations); CUDA-event span per back-to-back "
             f"call: kernel {cuda_ms(sp['kernel'], reps=10):.4f} ms; its largest parts: "
             + device_parts(prof))
         recs.append(rec)
-    del bcells, pcells, bw, pw, hb, hp, r_d, s_d, m_r, out_p, first
+    k6_chunk = adj_timings(k6_calls, card, "over budget")
+    for rec in k6_chunk:
+        rec["launches"] = launches["adj_equal"]
+    del bcells, pcells, bw, pw, hb, hp, r_d, s_d, m_r, out_p, first, slots_p, si_p, mult_p
+    del places, mult_rows, k6_calls
     spill_copy_rates(dev, card, min(cfg.mem_rows, rows))
 
     # ---- the operators alone at the same size -----------------------------------
@@ -2104,7 +2461,8 @@ def phase_overbudget(dev, card: str) -> dict:
     log(f"[over budget] all keys equal, {SKEW_ROWS}+{SKEW_ROWS} rows, mem_rows "
         f"{small.mem_rows}, {ntiles} cells: {seen.n} attempts overflowed and were retried with "
         f"doubled capacity (at most {ntiles.bit_length()} attempts), nres {int(nres)} == numpy")
-    return {"launches": launches, "recs": recs, "k4_chunk": k4_chunk, "k3_chunk": k3_chunk}
+    return {"launches": launches, "recs": recs, "k4_chunk": k4_chunk, "k3_chunk": k3_chunk,
+            "k6_chunk": k6_chunk}
 
 
 def phase_cli() -> None:
@@ -2339,6 +2697,14 @@ def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dic
         f"ms, bound {rec2['bound_ms_16M']:.4f} ms ({big * 9} B)")
     del b_flags, b_vals
     recs["compact"]["shapes"] = [over["k3_chunk"]]
+    # K6 at the over-budget route's largest calls and within the command's
+    # profile; K7's scatter in its bool form on the placement route
+    recs["adj_equal"]["shapes"] = over["k6_chunk"]
+    recs["unpermute"]["shapes"] = [scatter_timing(
+        sort["k7_bool"], card, "the 'sort' route, field 1, stage B's packed_keep_backsort")]
+    for name in ("adj_equal", "unpermute"):
+        recs[name]["command_profile_us"] = {
+            f"field {f}": us[name] for f, us in command["k67_us"].items()}
     # K4 at the pipeline command's four shapes (field 2) and the over-budget
     # route's largest chunk
     stages = ("distinct R", "distinct S", "join_sorted_distinct", "hash_join's rows")
@@ -2430,6 +2796,8 @@ def probe_records(sort: dict, probes: dict, errs: dict, card: str) -> list[dict]
         "bound_ms": k11[32]["bound_ms"], "bound_by": "bytes", "library_ms": k11[32]["library_ms"],
         "shape": f"n={dma.N} rows x {dma.W} words, T={dma.T}, G=32 (ms_by_G: every G)",
         "ms_by_G": {str(G): r["ms"] for G, r in k11.items()},
+        "ms_alternating": probes["k11_alternating"]["ms"],
+        "library_ms_alternating": probes["k11_alternating"]["library_ms"],
     }
     del pin
     dest, cnt = a2d["dest"], a2d["cnt"]

@@ -7,6 +7,8 @@
     K5 words_sort.words_sort    <- ops/sort.py:99,63 sort_keys, _lsd_exact_string_perm
     K6 adj_equal.adj_equal      <- ops/keys.py:68 rows_equal_on_field over (perm[:-1], perm[1:])
     K7 unpermute.unpermute      <- ops/hash_join.py:242-253, ops/movement.py:235 back-sorts
+       unpermute.unpermute_gather
+                                <- ops/hash_join.py:470-489 the tiled join's return to probe order
     K8 hash_words.hash_words    <- ops/keys.py:110 hash_words
     K9 stage_cells.stage_to_cells, value_boundaries
                                 <- ops/movement.py:354,319 stage_to_cells, value_boundaries
@@ -22,7 +24,9 @@ pass schedule ``radix_plan`` builds; K4 and K12 on one row-move engine
 (``csrc/rowmove.cuh``), whose access width and rows a block
 ``rowmove_plan`` chooses; K2 and K3 (and the scan of K9's count matrix) on
 one tile layout (``csrc/scan.cuh``), whose tile and scratch ``scan_plan``
-holds; K9's span and place warps and K10's tables follow ``cells_plan``.
+holds; K9's span and place warps and K10's tables follow ``cells_plan``;
+K6's rows a lane and key stages and the rows a thread and grid of K7's
+gather follow ``perm_plan``.
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
 fallback from one to the other.

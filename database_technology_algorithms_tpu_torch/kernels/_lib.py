@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 
 LAUNCHES = {
     "radix_sort": 0, "seg_scan": 0, "compact": 0, "take_fill": 0,
-    "words_sort": 0, "adj_equal": 0, "unpermute": 0,
+    "words_sort": 0, "adj_equal": 0, "unpermute": 0, "unpermute_gather": 0,
     "hash_words": 0, "stage_cells": 0, "member_mult": 0,
     "tile_copy": 0, "row_move": 0,
 }
@@ -109,6 +109,7 @@ _PI32 = ctypes.POINTER(ctypes.c_int32)
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
 _PU32 = ctypes.POINTER(ctypes.c_uint32)
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     "dbt_error_string": ([_I], ctypes.c_char_p),
     "dbt_seg_scan": ([_P, _P, _I, _P, _P, _I64, _I, _I, _I, _I64, _I64, _P], _I),
@@ -118,8 +119,10 @@ _SIGNATURES = {
     "dbt_take_fill": ([_P, _I64, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
                       _I),
     "dbt_words_sort": ([_PP, _PI64, _I, _PI32, _I, _P, _I64, _P, _P, _PP, _PP, _I, _P, _P], _I),
-    "dbt_adj_equal": ([_PP, _PI64, _I, _P, _I64, _P, _P], _I),
+    "dbt_adj_equal": ([_PP, _PI64, _PI32, _PI32, _I, _I, _P, _I64, _P, _I, _P], _I),
     "dbt_unpermute": ([_P, _P, _I64, _I64, _I64, _P, _I, _P], _I),
+    "dbt_unpermute_gather": ([_P, _P, _I64, _I64, _P, _I64, _I64, _U64, _I, _P, _I64, _P, _I,
+                              _I, _I, _P], _I),
     "dbt_hash_words": ([_PP, _PI64, _I, _I64, _U32, _I, _P, _P], _I),
     "dbt_value_boundaries_scratch_words": ([_I64, _I64, _I64], _I64),
     "dbt_value_boundaries": ([_P, _I64, _I64, _P, _P, _I64, _I64, _P], _I),
@@ -183,6 +186,11 @@ def check_columns(name: str, words, n: int, device) -> None:
 def stride_array(words) -> ctypes.Array:
     """Host array of the row strides (in words) of 1-D columns."""
     return (ctypes.c_int64 * len(words))(*[w.stride(0) for w in words])
+
+
+def int_array(values) -> ctypes.Array:
+    """Host array of C ints for an entry point's per-word plan."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def raise_on_error(err: int, kernel: str) -> None:

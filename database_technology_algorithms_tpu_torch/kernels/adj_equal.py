@@ -11,9 +11,7 @@ from typing import Sequence
 
 import torch
 
-from . import _lib
-
-MAX_KEY_WORDS = 40  # csrc/adj_equal.cu
+from . import _lib, perm_plan
 
 
 def adj_equal(words: Sequence[torch.Tensor], perm: torch.Tensor | None = None) -> torch.Tensor:
@@ -22,7 +20,10 @@ def adj_equal(words: Sequence[torch.Tensor], perm: torch.Tensor | None = None) -
     strided; `perm` is int32[N] (sorted position -> row), or None to compare
     the rows in place.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel with
+    the plan of ``perm_plan``: R rows a lane, the key compared in the
+    stages of ``perm_plan.key_stages``, read as the vectors
+    ``perm_plan.word_widths`` cuts them into (``perm_plan.key_plan``).
     """
     words = list(words)
     if not words:
@@ -33,8 +34,7 @@ def adj_equal(words: Sequence[torch.Tensor], perm: torch.Tensor | None = None) -
     n = words[0].shape[0]
     if dev.type != "cuda":
         raise ValueError(f"adj_equal: expected CUDA tensors, got {dev}")
-    if len(words) > MAX_KEY_WORDS:
-        raise ValueError(f"adj_equal: {len(words)} key words, at most {MAX_KEY_WORDS}")
+    perm_plan.check_adj("adj_equal", n, len(words))
     _lib.check_columns("adj_equal", words, n, dev)
     if perm is not None:
         _lib.check_cuda("adj_equal perm", perm, torch.int32, dev)
@@ -43,11 +43,13 @@ def adj_equal(words: Sequence[torch.Tensor], perm: torch.Tensor | None = None) -
     adj = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return adj
+    patterns, stages = perm_plan.key_plan(words)
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_adj_equal(
-            _lib.ptr_array(words), _lib.stride_array(words), len(words),
-            None if perm is None else perm.data_ptr(), n, adj.data_ptr(),
+            _lib.ptr_array(words), _lib.stride_array(words), _lib.int_array(patterns),
+            _lib.int_array(stages), len(stages) - 1, len(words),
+            None if perm is None else perm.data_ptr(), n, adj.data_ptr(), perm_plan.ADJ_ROWS,
             _lib.stream_of(adj),
         )
     _lib.raise_on_error(err, "adj_equal")

@@ -16,8 +16,8 @@ order.  No record moves until the matched probe rows are compacted.
 Beyond ``cfg.mem_rows`` the public forms route through the device-tiled
 join: both sides are hashed (K8) and staged into cells (K9), the cell pairs
 are joined a budget-sized group at a time (K10, whose counts land compacted
-in slot order), and the counts return to probe order through one
-un-permute (K7).
+in slot order), and the counts return to probe order through one gather by
+each probe row's slot (K7's gather form).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 from ..batch import FIELD_NUMSTR, RecordBatch, canonical_field
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..kernels.member_mult import member_multiplicity_cells
-from ..kernels.unpermute import unpermute
+from ..kernels.unpermute import unpermute, unpermute_gather
 from ..utils.checks import ensure_device_budget
 from .keys import key_hash, key_words
 from .movement import compact_rows, stage_to_cells
@@ -190,8 +190,8 @@ def _tiled_matched_mult(
     Both sides are hash-partitioned into ``ntiles`` cells (K8, K9; only key
     words ride the cells) and ``group`` cell pairs are joined per step (K10),
     so each step's working set stays within ``cfg.mem_rows`` rows.  K10
-    writes the occupied slots' counts compacted, and the staging permutation
-    (K7) returns them to probe order.  Cell
+    writes the occupied slots' counts compacted, and K9's row map of each
+    probe row's slot returns them to probe order by one gather (K7).  Cell
     overflow is returned, not handled: ``hash_join_count`` retries with
     doubled capacity, and the result of an attempt that overflowed is
     discarded."""
@@ -212,24 +212,24 @@ def _tiled_matched_mult(
     pkw = pkw + [torch.zeros(npr, dtype=torch.int32, device=dev)] * (nw - len(pkw))
     bcells, bcnt, _, ovf_b = stage_to_cells(hb, None, ntiles, cap_b, bkw, row_map="none",
                                             count=build_count, in_range=True)
-    pcells, pcnt, si_p, ovf_p = stage_to_cells(hp, None, ntiles, cap_p, pkw, row_map="si",
-                                               count=probe_count, in_range=True)
+    pcells, pcnt, slot_p, ovf_p = stage_to_cells(hp, None, ntiles, cap_p, pkw,
+                                                 row_map="slots", count=probe_count,
+                                                 in_range=True)
 
     bcells = [w.view(ntiles, cap_b) for w in bcells]
     pcells = [w.view(ntiles, cap_p) for w in pcells]
     # the occupied slots' counts, compacted: pair g's live probe rows from the
-    # exclusive sum of the counts, which is slot order; the staging
-    # permutation si_p is the probe rows in that order while nothing
-    # overflowed, so one un-permute finishes.  Probe rows that were not
-    # staged carry 0.
+    # exclusive sum of the counts; K10 writes every one of them, so nothing
+    # else of mult_slots is read.  Probe row i's count is at first[c] + r for
+    # its slot c * cap_p + r; rows that were not staged carry 0.
     first = cumsum(pcnt) - pcnt
-    mult_slots = torch.zeros(npr, dtype=torch.int32, device=dev)
+    mult_slots = torch.empty(npr, dtype=torch.int32, device=dev)
     for lo in range(0, ntiles, group):
         hi = lo + group
         member_multiplicity_cells(
             [w[lo:hi] for w in bcells], bcnt[lo:hi], [w[lo:hi] for w in pcells], pcnt[lo:hi],
             out=mult_slots, out_pos=first[lo:hi])
-    mult_rows = unpermute(si_p, mult_slots)
+    mult_rows = unpermute_gather(slot_p, mult_slots, first, cap_p, probe_count)
     return mult_rows > 0, mult_rows, ovf_b + ovf_p
 
 

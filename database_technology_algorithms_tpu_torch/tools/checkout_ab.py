@@ -1,0 +1,205 @@
+"""Named sets of calls timed on the card for one or more checkouts of the
+repository in turn (say a parent commit unpacked under ``build/`` and this
+tree: parent, change, change, parent).
+
+Each checkout runs in a process of its own, with its own package, its own
+``chip_smoke.py`` and its own kernel build, and calls public functions whose
+arguments are the same in every checkout.  The sets:
+
+- ``tiled_join``: 24M + 24M rows from ``chip_smoke.gen_pair`` (the bench's
+  key range), both sides through ``distinct``, then
+  ``hash_join_count(s_d, r_d, 1, build_count=nu_s, probe_count=nu_r)``,
+  the tiled join of ``make_pipeline_staged(1)`` over the default 16M-row
+  budget: the device time of one call (torch.profiler, mean of 5 calls),
+  the median host wall of 7 synchronized calls, K9's and K10's share of
+  the device time, and nres.
+- ``perm``: K6 and K7's scatter on the ``pipeline`` command's R || S (two
+  tables of 1M rows from the generator, seeds 42 and 43, ``--nblocks
+  10000``): ``adj_equal(words, perm)`` through the keys' sort order (K5's
+  perm) with field 2's key (the ``strw`` words) and field 3's (``num``
+  beside them), and in place on sorted rows (fields 1, 2 and 3);
+  ``unpermute(perm, vals, lo, m)`` from the 2M sorted rows to the 1M probe
+  rows' int32 answers and bool flags.  Each call's device time
+  (torch.profiler, mean of 10 calls, ``chip_smoke.device_ms``) and a
+  checksum of its result.
+- ``command``: the ``pipeline`` command's four stages (``distinct`` of
+  each table, ``join_sorted_distinct``, ``hash_join``) on the same tables,
+  device-resident, by field 0-3: the device time of K6's and K7's kernels
+  and of all kernels in a profiled run (mean of 5 runs), and the counters.
+
+Printed a line a checkout; the results (checksums, counters, nres) must be
+equal across checkouts, or the tool fails.
+
+    python -m database_technology_algorithms_tpu_torch.tools.checkout_ab SET[,SET] ROOT [ROOT ...]
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# kernels of the staging (K9, on either design) and of the build multiplicity
+K9_NAMES = ("cells_", "stage_", "onesweep")
+K10_NAMES = ("member_mult",)
+
+
+def tiled_join(cs, dev) -> tuple[dict, dict]:
+    import torch
+
+    from database_technology_algorithms_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from database_technology_algorithms_tpu_torch.ops.distinct import distinct
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join_count
+
+    r_cols, s_cols = cs.gen_pair(cs.OVER_ROWS)
+    r, s = cs.to_batch(r_cols, dev), cs.to_batch(s_cols, dev)
+    r_d, nu_r = distinct(r, 1, cfg, active=r.valid)
+    s_d, nu_s = distinct(s, 1, cfg, active=s.valid)
+    del r, s
+
+    def join():
+        return hash_join_count(s_d, r_d, 1, cfg, build_count=nu_s, probe_count=nu_r)
+
+    _, _, nres = join()
+    prof = cs.profile_device(join, reps=5)
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        join()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    share = {"K9": 0.0, "K10": 0.0}
+    for name, us in prof["top"]:
+        if any(k in name for k in K9_NAMES):
+            share["K9"] += us / 1e3
+        elif any(k in name for k in K10_NAMES):
+            share["K10"] += us / 1e3
+    return ({"rows": cs.OVER_ROWS, "device_ms": prof["busy_us"] / 1e3,
+             "wall_ms": statistics.median(walls), "walls_ms": walls, "kernels_ms": share},
+            {"nres": int(nres)})
+
+
+def command_tables(cs, dev):
+    from database_technology_algorithms_tpu_torch.batch import RecordBatch
+    from database_technology_algorithms_tpu_torch.io.generator import generate_columns
+
+    tables = [generate_columns(cs.NBLOCKS, seed=seed) for seed in (42, 43)]
+    return [RecordBatch.from_numpy(c["recid"], c["num"], c["strs"], c["valid"], device=dev)
+            for c in tables]
+
+
+def perm(cs, dev) -> tuple[dict, dict]:
+    import torch
+
+    from database_technology_algorithms_tpu_torch.batch import RecordBatch
+    from database_technology_algorithms_tpu_torch.kernels.adj_equal import adj_equal
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import unpermute
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import words_sort
+    from database_technology_algorithms_tpu_torch.ops.keys import key_words
+
+    both = RecordBatch.concat(command_tables(cs, dev))
+    n = both.nrows
+    keys = {f"field {f}": key_words(both, f) for f in (2, 3)}
+    perms = {f: words_sort(w)[0] for f, w in keys.items()}
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    flags = vals % 3 == 0
+    lo = n // 2
+    calls = {f"K6 {f} through perm": (lambda w=w, p=perms[f]: adj_equal(w, p))
+             for f, w in keys.items()}
+    sorted_words = {"field 1": [torch.sort(both.num).values]}
+    for f in ("field 2", "field 3"):
+        order = perms[f].long()
+        strw = both.strw[order]
+        lead = [both.num[order].contiguous()] if f == "field 3" else []
+        sorted_words[f] = lead + [strw[:, j] for j in range(strw.shape[1])]
+    for f, w in sorted_words.items():
+        calls[f"K6 {f} in place, sorted"] = lambda w=w: adj_equal(w)
+    calls["K7 int32"] = lambda: unpermute(perms["field 2"], vals, lo, n - lo)
+    calls["K7 bool"] = lambda: unpermute(perms["field 2"], flags, lo, n - lo)
+    ms, sums = {}, {}
+    for name, fn in calls.items():
+        sums[name] = int(fn().to(torch.int64).sum())
+        ms[name] = cs.device_ms(fn)
+    return {"rows": n, "ms": ms}, sums
+
+
+def command(cs, dev) -> tuple[dict, dict]:
+    from database_technology_algorithms_tpu_torch.ops.distinct import distinct
+    from database_technology_algorithms_tpu_torch.ops.filter import truncate
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join
+    from database_technology_algorithms_tpu_torch.ops.merge_join import join_sorted_distinct
+
+    r, s = command_tables(cs, dev)
+    res, counters = {}, {}
+    for field in (0, 1, 2, 3):
+        def whole(field=field):
+            a, na = distinct(r, field)
+            b, nb = distinct(s, field)
+            _, pairs = join_sorted_distinct(a, na, b, nb, field)
+            _, hpairs = hash_join(truncate(a, na), truncate(b, nb), field)
+            return na, nb, pairs, hpairs
+
+        counters[f"field {field}"] = [int(x) for x in whole()]
+        prof = cs.profile_device(whole, reps=5)
+        res[f"field {field}"] = {
+            "K6_us": sum(us for name, us in prof["top"] if "adj_equal" in name),
+            "K7_us": sum(us for name, us in prof["top"] if "unpermute" in name),
+            "busy_us": prof["busy_us"]}
+    return res, counters
+
+
+SETS = {"tiled_join": tiled_join, "perm": perm, "command": command}
+
+
+def one(sets: list[str], root: str) -> dict:
+    """Run `sets` on the checkout at `root` (in a fresh process whose
+    working directory is `root`)."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+
+    import chip_smoke as cs
+    from database_technology_algorithms_tpu_torch.kernels import build, library
+
+    build()
+    library()
+    dev = torch.device("cuda")
+    out = {"root": root, "sets": {}, "results": {}}
+    for name in sets:
+        out["sets"][name], out["results"][name] = SETS[name](cs, dev)
+    return out
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 3 and argv[0] == "--one":
+        print(json.dumps(one(argv[1].split(","), argv[2])), flush=True)
+        return 0
+    if len(argv) < 2 or not set(argv[0].split(",")) <= set(SETS):
+        print(__doc__)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"[checkout_ab] {smi}", flush=True)
+    results = None
+    for root in argv[1:]:
+        # this file, run as a script, imports the checkout's own package
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", argv[0],
+                              root], capture_output=True, text=True, cwd=Path(root).resolve())
+        lines = out.stdout.strip().splitlines()
+        if out.returncode or not lines:
+            print(out.stdout[-2000:], out.stderr[-4000:])
+            return 1
+        got = json.loads(lines[-1])
+        if results is not None and got["results"] != results:
+            print(f"[checkout_ab] {root}: results differ from the first checkout's: "
+                  f"{got['results']} {results}")
+            return 1
+        results = got["results"]
+        print(f"[checkout_ab] {lines[-1]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))
