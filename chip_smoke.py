@@ -82,7 +82,22 @@ Phases (any failure raises and the script exits non-zero):
      under a 512K-row budget; all keys equal, where the tiled join overflows,
      retries and still equals numpy;
   8. the ``mergejoin``, ``elimdup`` and ``hashjoin`` commands on 100-block
-     files written by the port's codec, output files read back;
+     files written by the port's codec, output files read back; then the
+     external route (``external.py``) through the CLI: ``mergejoin`` and
+     ``hashjoin`` of two 9M-row files written by ``generate_pair_files``,
+     whose 18M rows pass the 16M-row default budget (the automatic route),
+     ``mergesort`` at its default ``--mem-blocks 10000`` and ``elimdup
+     --mem-blocks 40000`` at field 1, and all four commands at fields 0, 2
+     and 3 on 1M-row files under ``--mem-blocks 1000``; each output file and
+     its JSON counters against numpy, ``peak_range_rows <= mem_rows``, an
+     empty spill directory and the kernels the run launched, with its host
+     wall (a run with no profiler and nothing wrapped) and passes; the
+     9M-row commands and the 1M-row joins again under torch.profiler for
+     the device busy time and where the wall goes; on the automatic route
+     the largest ``sort_batch``, ``distinct_sorted`` and ``hash_join_count``
+     call run again on the run's own device batches, every kernel they
+     launch held against its plain version; the native block-file library
+     built from ``native/dbtio.cpp`` and its read of R against numpy's;
   9. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
@@ -108,6 +123,7 @@ import contextlib
 import importlib
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1898,6 +1914,7 @@ def check_operators_on_routes(dev, r, s, cfgs) -> None:
 def phase_probes(dev, card: str, g) -> dict:
     """The probes' own readings: K11 for each G, K12's P4 and P5."""
     from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+    from database_technology_algorithms_tpu_torch.kernels.row_move import row_move_plain
     from database_technology_algorithms_tpu_torch.kernels.tile_copy import bulk_copies
     from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as dma
     from database_technology_algorithms_tpu_torch.tools import bench_permute_prims as prims
@@ -1960,14 +1977,16 @@ def phase_probes(dev, card: str, g) -> dict:
         prof = profile_device(lambda: movers[load](rows, slot), reps=10)
         ms = kernel_ms(prof, "row_move")
         lib = device_ms(libs[load])
+        plain = device_ms(lambda: row_move_plain(rows, slot, prims.T, load))
         res["k12"][name] = {"ms": ms, "ns_per_row": ms * 1e6 / prims.N,
                             "bound_ms": bound_ms(nbytes), "library_ms": lib,
-                            "wrapper_ms": prof["busy_us"] / 1e3}
+                            "wrapper_ms": prof["busy_us"] / 1e3, "plain_ms": plain}
         log(f"[probes] {card}: K12 {name} N={prims.N} W={prims.W} T={prims.T}: kernel "
             f"{ms:.4f} ms ({prof['busy_us'] / 1e3:.4f} ms the whole wrapper call"
             f"{', its zero fill included' if not load else ''}), "
             f"{ms * 1e6 / prims.N:.3f} ns/row; bound {bound_ms(nbytes):.4f} ms ({nbytes} B); "
-            f"library {'index_select' if load else 'index_copy_'} with global rows {lib:.4f} ms")
+            f"library {'index_select' if load else 'index_copy_'} with global rows {lib:.4f} ms; "
+            f"plain version {plain:.4f} ms")
     # the probe modules' own entry points, as a user runs them
     if dma.main([]) != 0 or prims.main(["P4", "P5"]) != 0:
         raise AssertionError("a probe module's main failed")
@@ -2518,6 +2537,395 @@ def phase_cli() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: the external route (external.py) through the CLI, on files
+
+EXT_NBLOCKS = 90_000  # 9M rows a file: R + S pass the default 16M-row budget
+EXT_SMALL_NBLOCKS = 10_000  # 1M rows a file: fields 0, 2, 3 under --mem-blocks 1000
+EXT_SMALL_MEM = 1000
+EXT_CMDS = ("mergesort", "elimdup", "mergejoin", "hashjoin")
+
+
+def external_kernels(cmd: str, field: int) -> list[str]:
+    """The kernels a command of the external route must launch: every sort
+    is ``sort_batch`` (K5 and K6, then K4); a distinct form adds K3; the
+    semi-join's in-budget ``hash_join_count`` adds K2 and K7, and K1 at
+    fields 0 and 1 (``packed_u32_sorts``).  Field 3's hash join keeps the
+    build's duplicates, so it runs no distinct."""
+    need = {"words_sort", "adj_equal", "take_fill"}
+    if cmd in ("elimdup", "mergejoin") or (cmd == "hashjoin" and field != 3):
+        need.add("compact")
+    if cmd in ("mergejoin", "hashjoin"):
+        need |= {"seg_scan", "unpermute"} | ({"radix_sort"} if field in (0, 1) else set())
+    return sorted(need)
+
+
+def external_oracle(cmd: str, r: dict, s: dict, field: int, mem_rows: int) -> tuple[dict, dict]:
+    """numpy: (the JSON counters, the output file's rows as R or S row
+    indices) of one command.  Keys compare as ``key_ids`` order them; a sort
+    is stable, so among equal keys the first input row comes first."""
+    kr, ks = key_ids([r, s], field)
+    n = len(kr)
+    segs = -(-n // mem_rows)
+    if cmd == "mergesort":
+        return ({"rows": n, "nsorted_segs": segs, "npasses": 2 if segs > 1 else 1},
+                {"r": np.argsort(kr, kind="stable")})
+    if cmd == "elimdup":
+        first = np.unique(kr, return_index=True)[1]
+        return {"rows": n, "nunique": len(first), "nsorted_segs": segs,
+                "npasses": 2 if segs > 1 else 1}, {"r": first}
+    if cmd == "mergejoin":
+        want = oracle(r, s, field)
+        return ({"nres": want["merge_nres"], "nunique_r": want["nunique_r"],
+                 "nunique_s": want["nunique_s"]}, {"r": want["rows"]})
+    mult = np.bincount(kr, minlength=int(max(kr.max(), ks.max())) + 1)[ks]
+    order = np.argsort(ks, kind="stable")
+    reps = mult[order] if field == 3 else (mult[order] > 0).astype(np.int64)
+    return {"nres": int(reps.sum()), "output_order": "probe_key"}, {"s": np.repeat(order, reps)}
+
+
+# the path's kernel wrappers, by launch counter: (module, wrapper, plain version)
+EXT_KERNEL_PAIRS = {
+    "radix_sort": ("radix_sort", "view_sort", "view_sort_plain"),
+    "seg_scan": ("seg_scan", "seg_scan", "seg_scan_plain"),
+    "compact": ("compact", "compact_words", "compact_words_plain"),
+    "take_fill": ("take_fill", "take_fill", "take_fill_plain"),
+    "words_sort": ("words_sort", "words_sort", "words_sort_plain"),
+    "adj_equal": ("adj_equal", "adj_equal", "adj_equal_plain"),
+    "unpermute": ("unpermute", "unpermute", "unpermute_plain"),
+}
+# the operators external.py calls on the card; the largest call of each is kept
+EXT_OPERATORS = ("sort_batch", "distinct_sorted", "hash_join_count")
+
+
+def op_rows(args) -> int:
+    """Rows of the batches among an operator call's arguments."""
+    return sum(a.nrows for a in args if hasattr(a, "nrows"))
+
+
+class ExternalClock:
+    """Where a run of the external route spends its host wall: the time of
+    each external sort's pass 1 (from its start to its first read of a
+    spilled segment), block decoding, spill writes and uploads (host
+    columns to a device batch, packing included), by wrapping those
+    functions for the span of a ``with``.  It also keeps the arguments of
+    the largest call of each operator in ``EXT_OPERATORS`` (references to
+    the run's own device batches: no copy, no launch) in ``captured``."""
+
+    def __enter__(self):
+        from database_technology_algorithms_tpu_torch import external as ext
+        from database_technology_algorithms_tpu_torch.io import blockfile as bf
+
+        self.acc = {"pass1": 0.0, "decode": 0.0, "spill writes": 0.0, "uploads": 0.0}
+        self.captured = {}
+        self.open_start = None
+        self.patches = []
+        clock = self
+
+        def patch(owner, name, wrap):
+            real = getattr(owner, name)
+            self.patches.append((owner, name, real))
+            setattr(owner, name, wrap(real))
+
+        def summed(key):
+            def wrap(real):
+                def run(*a, **k):
+                    t0 = time.perf_counter()
+                    try:
+                        return real(*a, **k)
+                    finally:
+                        clock.acc[key] += time.perf_counter() - t0
+                return run
+            return wrap
+
+        def sort_starts(real):
+            def run(*a, **k):
+                clock.open_start = time.perf_counter()  # pass 1 runs without a yield
+                yield from real(*a, **k)
+            return run
+
+        def pass1_ends(real):
+            def run(*a, **k):
+                if clock.open_start is not None:
+                    clock.acc["pass1"] += time.perf_counter() - clock.open_start
+                    clock.open_start = None
+                return real(*a, **k)
+            return run
+
+        def keep_largest(op):
+            def wrap(real):
+                def run(*a, **k):
+                    held = clock.captured.get(op)
+                    if held is None or op_rows(a) > op_rows(held[0]):
+                        clock.captured[op] = (a, k)
+                    return real(*a, **k)
+                return run
+            return wrap
+
+        patch(ext, "external_sort", sort_starts)
+        patch(ext.SegmentStore, "open_segment", pass1_ends)
+        patch(ext.SegmentStore, "read_segment", pass1_ends)
+        patch(ext.SegmentStore, "write_segment", summed("spill writes"))
+        patch(ext, "_to_batch", summed("uploads"))
+        patch(bf, "decode_blocks_span", summed("decode"))
+        for op in EXT_OPERATORS:
+            patch(ext, op, keep_largest(op))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self.patches):
+            setattr(owner, name, real)
+
+
+def flat_tensors(x) -> list:
+    """The tensors of a kernel's result, in order (ints as 0-d tensors)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in flat_tensors(v)]
+    return [torch.tensor(int(x))] if isinstance(x, int) else []
+
+
+def check_captured_kernels(captured: dict, what: str) -> dict:
+    """Run each captured operator call again on its own inputs, the run's
+    device batches, with every kernel wrapper of ``EXT_KERNEL_PAIRS``
+    held against its plain version on each call's arguments, bit for bit.
+    Returns {kernel: (calls, largest rows, max abs err)}."""
+    from database_technology_algorithms_tpu_torch import external as ext
+
+    seen = {}
+
+    def compare(name, wrapper, plain):
+        def run(*a, **k):
+            got = wrapper(*a, **k)
+            if name == "unpermute":
+                lo = a[2] if len(a) > 2 else k.get("lo", 0)
+                m = a[3] if len(a) > 3 else k.get("m")
+                want = plain(a[0], a[1], lo, a[0].shape[0] - lo if m is None else m)
+            else:
+                want = plain(*a, **k)
+            err = assert_same(f"[external] {what}: {name}", flat_tensors(got), flat_tensors(want))
+            rows = max((t.shape[0] for t in flat_tensors(a) if t.dim()), default=0)
+            calls, most, worst = seen.get(name, (0, 0, 0))
+            seen[name] = (calls + 1, max(most, rows), max(worst, err))
+            return got
+        return run
+
+    patches = []
+    for name, (mod_name, wname, pname) in EXT_KERNEL_PAIRS.items():
+        module = importlib.import_module(f"{PKG}.kernels.{mod_name}")
+        wrapper, plain = getattr(module, wname), getattr(module, pname)
+        checked = compare(name, wrapper, plain)
+        for m in [m for mod, m in sys.modules.items()
+                  if mod.startswith(PKG) and getattr(m, wname, None) is wrapper]:
+            patches.append((m, wname, wrapper))
+            setattr(m, wname, checked)
+    try:
+        for op, (args, kw) in captured.items():
+            getattr(ext, op)(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        for m, wname, wrapper in patches:
+            setattr(m, wname, wrapper)
+    return seen
+
+
+def clean_cli(argv: list[str]) -> dict:
+    """One CLI command with nothing wrapped and no profiler, the launch
+    counters set to 0 just before and read just after: its exit code, JSON
+    line, host wall (to the card's last result) and launches."""
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, line = run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"rc": rc, "line": line, "wall": wall, "launches": dict(LAUNCHES)}
+
+
+def traced_cli(argv: list[str]) -> dict:
+    """One CLI command under torch.profiler and the ExternalClock: its exit
+    code, JSON line, host wall under both, the clock's parts and captured
+    operator calls, and the device's busy time (kernels, and the copies
+    each way) with its largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with ExternalClock() as clock, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc, line = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = {"kernels": 0.0, "HtoD": 0.0, "DtoH": 0.0}
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        kind = next((k for k in ("HtoD", "DtoH") if k in ev.name), "kernels")
+        dev_us[kind] += ev.device_time
+        if kind == "kernels":
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"rc": rc, "line": line, "wall": wall, "clock": clock.acc,
+            "captured": clock.captured, "dev_us": dev_us, "top": top}
+
+
+def phase_external(dev, card: str) -> dict:
+    """The external route on the card through the CLI (``external.py``): the
+    automatic route of 9M + 9M-row files beyond the default 16M-row budget
+    (``mergejoin``, ``hashjoin``), ``mergesort`` at its default
+    ``--mem-blocks 10000`` and ``elimdup --mem-blocks 40000`` at field 1, then
+    all four commands at fields 0, 2 and 3 on 1M-row files under
+    ``--mem-blocks 1000``.  Each command runs once clean (no profiler, no
+    wrapper: the host wall and the launch counters) and is checked against
+    numpy, with its counters, a clean spill directory and the native reader.
+    The 9M-row runs and the 1M-row joins run again under torch.profiler and
+    the ExternalClock (the busy share and the wall's parts); on the
+    automatic route that repeat also keeps the largest ``sort_batch`` (pass
+    1), ``distinct_sorted`` and ``hash_join_count`` (a semi-join pair) call,
+    and every kernel those calls launch is held against its plain version
+    on the run's own inputs.  Returns {kernel: its largest error there}."""
+    import tempfile
+
+    from database_technology_algorithms_tpu_torch.config import DEFAULT_CONFIG
+    from database_technology_algorithms_tpu_torch.io import native
+    from database_technology_algorithms_tpu_torch.io.blockfile import read_blockfile_numpy
+    from database_technology_algorithms_tpu_torch.io.generator import generate_pair_files
+
+    t_phase = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("the native block-file library (native/dbtio.cpp) did not build")
+    (ROOT / "build").mkdir(exist_ok=True)
+    errs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_external_") as tmp:
+        tmp = Path(tmp)
+        log(f"[external] free disk beside the checkout: "
+            f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+        plans = [(EXT_NBLOCKS, [("mergejoin", 1, None), ("hashjoin", 1, None),
+                                ("mergesort", 1, None), ("elimdup", 1, 40000)])]
+        plans.append((EXT_SMALL_NBLOCKS, [(cmd, f, EXT_SMALL_MEM) for f in (0, 2, 3)
+                                          for cmd in EXT_CMDS]))
+        for nblocks, runs in plans:
+            f1, f2 = str(tmp / f"r{nblocks}.bin"), str(tmp / f"s{nblocks}.bin")
+            t0 = time.perf_counter()
+            generate_pair_files(f1, f2, nblocks, seed=11)
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r = native.read_blockfile_native(f1)
+            nat_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r_np = read_blockfile_numpy(f1)
+            np_s = time.perf_counter() - t0
+            for k in r_np:
+                if not np.array_equal(r[k], r_np[k]) or r[k].dtype != r_np[k].dtype:
+                    raise AssertionError(f"native read of R differs from numpy's in {k}")
+            del r_np
+            s = native.read_blockfile_native(f2)
+            n = len(r["recid"])
+            log(f"[external] R and S, {n} rows each ({os.path.getsize(f1)} B a file), written "
+                f"by generate_pair_files in {gen_s:.2f} s; R read back natively in {nat_s:.3f} s "
+                f"({n / nat_s:,.0f} rows/s), by numpy in {np_s:.3f} s ({n / np_s:,.0f} rows/s): "
+                f"equal columns")
+            for cmd, field, mem_blocks in runs:
+                work = tmp / f"work_{cmd}_{field}"
+                work.mkdir()
+                fo = str(tmp / "out.bin")
+                files = [f1] if cmd in ("mergesort", "elimdup") else [f1, f2]
+                argv = [cmd, *files, fo, "--field", str(field), "--workdir", str(work)]
+                if mem_blocks:
+                    argv += ["--mem-blocks", str(mem_blocks)]
+                mem_rows = ((mem_blocks or (10000 if cmd == "mergesort" else 0)) * 100
+                            or DEFAULT_CONFIG.mem_rows)
+                auto = mem_blocks is None and cmd != "mergesort"
+                what = (f"{cmd} field {field}, {n}" + (f" + {n}" if len(files) == 2 else "")
+                        + " rows, " + ("automatic route" if auto else
+                                       f"--mem-blocks {mem_blocks or 10000}"))
+                res = clean_cli(argv)
+                line = res["line"]
+                if res["rc"] != 0:
+                    raise AssertionError(f"[external] {what}: exit code {res['rc']}")
+                want, rows = external_oracle(cmd, r, s, field, mem_rows)
+                got = {k: line[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"[external] {what}: {got}, numpy says {want}")
+                if cmd != "mergesort":
+                    if not line.get("external") or line["mem_rows"] != mem_rows:
+                        raise AssertionError(f"[external] {what}: not the external route: {line}")
+                    if line["peak_range_rows"] > mem_rows:
+                        raise AssertionError(f"[external] {what}: peak_range_rows "
+                                             f"{line['peak_range_rows']} > mem_rows {mem_rows}")
+                back = native.read_blockfile_native(fo)
+                (side, idx), = rows.items()
+                src = r if side == "r" else s
+                for k in ("recid", "num", "strs", "valid"):
+                    if not np.array_equal(back[k], src[k][idx]):
+                        raise AssertionError(f"[external] {what}: the output file's {k} "
+                                             f"differs from numpy's")
+                del back
+                left = [str(p) for p in work.rglob("*") if p.is_file()]
+                if left:
+                    raise AssertionError(f"[external] {what}: the spill directory kept {left}")
+                missing = [k for k in external_kernels(cmd, field) if res["launches"][k] == 0]
+                if missing:
+                    raise AssertionError(f"[external] {what}: never launched {missing}")
+                rows_in = n * len(files)
+                log(f"[external] {card}: {what}: {json.dumps(line)} == numpy (file and "
+                    f"counters); host wall {res['wall']:.2f} s, {rows_in / res['wall']:,.0f} "
+                    f"rows/s (no profiler, nothing wrapped); nsorted_segs "
+                    f"{line['nsorted_segs']}, npasses {line.get('npasses', '-')}, bytes_host "
+                    f"{line.get('bytes_host', '-')}")
+                log(f"[external]   launches {res['launches']}")
+                os.unlink(fo)
+                if nblocks == EXT_NBLOCKS or cmd in ("mergejoin", "hashjoin"):
+                    prof = traced_cli(argv)
+                    same = {k: v for k, v in prof["line"].items() if k != "wall_s"}
+                    if prof["rc"] != 0 or same != {k: v for k, v in line.items() if k != "wall_s"}:
+                        raise AssertionError(f"[external] {what}: the profiled repeat gave "
+                                             f"{prof['rc']}, {prof['line']}")
+                    os.unlink(fo)
+                    busy = sum(prof["dev_us"].values()) / 1e6
+                    clock = prof["clock"]
+                    log(f"[external]   profiled repeat: host wall {prof['wall']:.2f} s under "
+                        f"torch.profiler and the clock's wrappers; pass 1 {clock['pass1']:.2f} s, "
+                        f"pass 2 and the join {prof['wall'] - clock['pass1']:.2f} s; decode "
+                        f"{clock['decode']:.2f} s, spill writes {clock['spill writes']:.2f} s, "
+                        f"uploads {clock['uploads']:.2f} s; device busy {busy:.3f} s (kernels "
+                        f"{prof['dev_us']['kernels'] / 1e6:.3f}, copies to the card "
+                        f"{prof['dev_us']['HtoD'] / 1e6:.3f}, back "
+                        f"{prof['dev_us']['DtoH'] / 1e6:.3f}), share {busy / prof['wall']:.3f} of "
+                        f"the profiled wall, {busy / res['wall']:.3f} of the clean one")
+                    log(f"[external]   largest kernels, ms: " + device_parts(prof))
+                    cat = sum(us for k, us in prof["top"] if "CatArrayBatchedCopy" in k)
+                    if cmd in ("mergejoin", "hashjoin"):
+                        log(f"[external]   torch.cat kernels (RecordBatch.concat of the "
+                            f"semi-join's two sides, ops/hash_join.py _fused_matched_mult): "
+                            f"{cat / 1e3:.2f} ms")
+                    if auto:
+                        shapes = {op: op_rows(a) for op, (a, _) in prof["captured"].items()}
+                        seen = check_captured_kernels(prof["captured"], what)
+                        ran = {k for k, v in res["launches"].items() if v}
+                        if ran - set(seen):
+                            raise AssertionError(
+                                f"[external] {what}: the run launched {sorted(ran - set(seen))}, "
+                                f"which the captured calls {shapes} never reached")
+                        for k, (_, _, err) in seen.items():
+                            errs[k] = max(errs.get(k, 0), err)
+                        log(f"[kernels] {what}: the largest call of each operator, by rows "
+                            f"{shapes}, run again on the run's own device batches: every "
+                            f"kernel equals its plain version (calls, largest rows, max abs "
+                            f"err): {seen}")
+                    del prof
+            del r, s
+            os.unlink(f1)
+            os.unlink(f2)
+    log(f"[external] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel timings at the main path's shapes
 
 
@@ -2861,6 +3269,9 @@ def main() -> int:
     done("over budget")
     phase_cli()
     done("cli")
+    for name, err in phase_external(dev, card).items():
+        errs[name] = max(errs[name], err)
+    done("external")
     kernels = phase_timings(pipe, command, over, sort, probes, errs, card)
     done("timings")
     log("[phases] seconds: " + ", ".join(

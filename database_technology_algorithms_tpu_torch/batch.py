@@ -254,7 +254,7 @@ class RecordBatch:
 
     def to_numpy(self) -> dict:
         """Host columns with the byte-view string column (`strs` u8[N,128])."""
-        narrow = unpack_str_words(torch_to_u32(self.strw).reshape(self.nrows, -1))
+        narrow = unpack_str_words(torch_to_u32(self.strw).reshape(self.nrows, self.str_words))
         strs = np.zeros((self.nrows, STR_PAD), dtype=np.uint8)
         strs[:, : narrow.shape[1]] = narrow
         return {

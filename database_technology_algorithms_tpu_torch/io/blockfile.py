@@ -68,8 +68,14 @@ def read_blockfile_numpy(path: str) -> dict:
 
 
 def read_blockfile(path: str, device=None) -> RecordBatch:
-    """Read a block file into a batch on `device` (default: the card)."""
-    cols = read_blockfile_numpy(path)
+    """Read a block file into a batch on `device` (default: the card),
+    through the native library where it builds (``io/native.py``), else
+    through the numpy codec; both give the same columns."""
+    from .native import read_blockfile_native
+
+    cols = read_blockfile_native(path)
+    if cols is None:
+        cols = read_blockfile_numpy(path)
     return RecordBatch.from_numpy(
         cols["recid"], cols["num"], cols["strs"], cols["valid"],
         normalize=False, device=device,
@@ -123,3 +129,58 @@ def write_blockfile(path: str, batch_or_cols, full_header: bool = True) -> int:
     blocks = _encode_blocks(cols, 0, full_header)
     blocks.tofile(path)
     return len(blocks)
+
+
+class BlockFileWriter:
+    """Streaming block-file writer: append column chunks in bounded memory.
+
+    The external drivers' output sink.  It holds at most one partial block
+    between appends (the reference's single buffered output block,
+    ``DatabaseProject.cpp:433-443``), and its block ids run on across
+    appends, so the file equals ``write_blockfile`` of the concatenated
+    chunks, byte for byte.
+    """
+
+    def __init__(self, path: str, full_header: bool = True):
+        self.f = open(path, "wb")
+        self.full_header = full_header
+        self.blockid = 0
+        self.nrows = 0
+        self._tail: dict | None = None  # rows of the pending partial block
+
+    def append(self, cols: dict) -> None:
+        n = len(cols["recid"])
+        if n == 0:
+            return
+        self.nrows += n
+        if self._tail is not None:
+            cols = {
+                k: np.concatenate([self._tail[k], np.asarray(cols[k])])
+                for k in self._tail
+            }
+            self._tail = None
+        total = len(cols["recid"])
+        full = (total // MAX_RECORDS_PER_BLOCK) * MAX_RECORDS_PER_BLOCK
+        if full:
+            head = {k: np.asarray(v)[:full] for k, v in cols.items()}
+            blocks = _encode_blocks(head, self.blockid, self.full_header)
+            blocks.tofile(self.f)
+            self.blockid += len(blocks)
+        if total > full:
+            self._tail = {k: np.asarray(v)[full:] for k, v in cols.items()}
+
+    def close(self) -> int:
+        """Flush the final partial block; returns the blocks written."""
+        if self._tail is not None:
+            blocks = _encode_blocks(self._tail, self.blockid, self.full_header)
+            blocks.tofile(self.f)
+            self.blockid += len(blocks)
+            self._tail = None
+        self.f.close()
+        return self.blockid
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -29,6 +29,7 @@ import torch
 
 from ..batch import FIELD_NUMSTR, RecordBatch, canonical_field
 from ..config import DEFAULT_CONFIG, EngineConfig
+from ..kernels import cells_plan
 from ..kernels.member_mult import member_multiplicity_cells
 from ..kernels.unpermute import unpermute, unpermute_gather
 from ..utils.checks import ensure_device_budget
@@ -251,11 +252,33 @@ def _tiled_count_impl(
     return matched, mult, mult.sum(dtype=torch.int32), ovf
 
 
+def _k9_refusal(nb: int, npr: int, ntiles: int, cap_b: int, cap_p: int) -> str | None:
+    """Why K9 on the card cannot stage the tiled join's two sides into
+    `ntiles` cells (``cells_plan.check_stage``: at most
+    ``cells_plan.MAX_STAGE_BINS - 1`` cells, 32-bit slots and count matrix),
+    or None.  The plain version on the CPU takes any layout."""
+    try:
+        for n, cap in ((nb, cap_b), (npr, cap_p)):
+            cells_plan.check_stage("stage_to_cells", n, ntiles, cap)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def _ensure_cells_fit(build: RecordBatch, probe: RecordBatch, field, cfg: EngineConfig,
                       cap_mult: int) -> None:
-    """Raise before a tiled attempt whose cells cannot be addressed or held."""
+    """Raise before a tiled attempt whose cells cannot be addressed or held,
+    or (on the card) staged by K9."""
     ntiles, cap_b, cap_p, _ = _tile_layout(build.nrows, probe.nrows, cfg.mem_rows, cap_mult)
     dev = build.recid.device
+    if dev.type == "cuda":
+        refusal = _k9_refusal(build.nrows, probe.nrows, ntiles, cap_b, cap_p)
+        if refusal is not None:
+            raise RuntimeError(
+                f"tiled hash join: {build.nrows} + {probe.nrows} rows under mem_rows="
+                f"{cfg.mem_rows} take {ntiles} cells of {cap_b} + {cap_p} rows at cap_mult="
+                f"{cap_mult}, which K9 cannot stage on the card (kernels/cells_plan.py): "
+                f"{refusal}")
     nw = max(len(key_words(build, field)), len(key_words(probe, field)))
     # the key words of both sides' cells, and the probe side's counts
     need = 4 * ntiles * (nw * (cap_b + cap_p) + cap_p)

@@ -26,8 +26,8 @@ def ensure_device_budget(nrows: int, cfg, op: str) -> None:
             f"hash_join_count, hash_join or make_pipeline_staged, which route "
             f"device-resident inputs of any size through chunked and tiled passes "
             f"(ops/chunked.py, the tiled join of ops/hash_join.py); block files "
-            f"beyond the budget need the external operators, which are not ported "
-            f"yet (ROADMAP.md, Queue 1 item 9)"
+            f"beyond the budget go through the external drivers of external.py, "
+            f"and the CLI's file commands route them there themselves"
         )
 
 

@@ -17,7 +17,6 @@ from database_technology_algorithms_tpu_torch.io.blockfile import (
     read_blockfile_numpy, write_blockfile)
 from database_technology_algorithms_tpu_torch.io.generator import (
     generate_columns, generate_pair_files)
-from database_technology_algorithms_tpu_torch.utils.checks import MemoryBudgetError
 
 NBLOCKS = 20
 FIELDS = ["0", "1", "2", "3"]
@@ -40,13 +39,12 @@ def run_port(capsys, argv) -> tuple[int, dict]:
     return rc, last_json(capsys)
 
 
-@pytest.fixture
-def pair_files(tmp_path):
+def write_pair(tmp_path, nblocks: int) -> tuple[str, str]:
     """Two tables with repeated keys in every field: num in a small range,
     strings from a small alphabet, file2 a reshuffle of part of file1."""
     g = np.random.default_rng(17)
-    n = NBLOCKS * 100
-    r = generate_columns(NBLOCKS, seed=3, key_range=n // 4)
+    n = nblocks * 100
+    r = generate_columns(nblocks, seed=3, key_range=n // 4)
     r["strs"][:, 2:5] = 0  # two-letter strings: many repeats
     rows = g.integers(0, n, size=n)
     s = {k: v[rows] for k, v in r.items()}
@@ -56,6 +54,11 @@ def pair_files(tmp_path):
     write_blockfile(f1, r)
     write_blockfile(f2, s)
     return f1, f2
+
+
+@pytest.fixture
+def pair_files(tmp_path):
+    return write_pair(tmp_path, NBLOCKS)
 
 
 @pytest.mark.parametrize("field", FIELDS)
@@ -133,38 +136,94 @@ def test_mergejoin_command_matches_jax_on_string_fields(field, pair_files, tmp_p
     assert open(tout, "rb").read() == open(jout, "rb").read()
 
 
-def test_unported_flags_and_commands_raise(pair_files, tmp_path):
+EXTERNAL_KEYS = {
+    "mergesort": {"nsorted_segs", "npasses", "rows", "bytes_host"},
+    "elimdup": {"nunique", "rows", "external", "mem_rows", "nsorted_segs", "npasses",
+                "peak_range_rows"},
+    "mergejoin": {"nres", "nunique_r", "nunique_s", "external", "mem_rows", "peak_range_rows",
+                  "nsorted_segs"},
+    "hashjoin": {"nres", "external", "mem_rows", "peak_range_rows", "nsorted_segs",
+                 "output_order"},
+}
+
+
+def external_both(cmd: str, files: list, flags: list, tmp_path, monkeypatch, capsys) -> dict:
+    """One command of the external route in both CLIs, each with its own
+    work directory: equal JSON lines (but ``wall_s``), byte-identical output
+    files, and spill directories left without a file.  Returns the line."""
+    lines, outs = {}, {}
+    for name, run in (("jax", lambda a: run_jax(monkeypatch, capsys, a)),
+                      ("port", lambda a: run_port(capsys, a))):
+        work = tmp_path / f"work_{name}"
+        work.mkdir(parents=True)
+        outs[name] = work / "out.bin"
+        rc, lines[name] = run([cmd, *files, str(outs[name]), *flags, "--workdir", str(work)])
+        assert rc == 0
+        assert [p for p in work.rglob("*") if p.is_file()] == [outs[name]]
+    assert lines["port"] == lines["jax"] and set(lines["port"]) == EXTERNAL_KEYS[cmd]
+    assert outs["port"].read_bytes() == outs["jax"].read_bytes()
+    return lines["port"]
+
+
+def test_unported_flags_and_commands_raise(pair_files, tmp_path, monkeypatch, capsys):
+    """Only ``--dist`` is still refused, by a message that names the JAX
+    package's ``parallel/``; ``mergesort`` and ``--mem-blocks`` run the
+    external route and equal the JAX CLI."""
     f1, f2 = pair_files
     out = str(tmp_path / "o.bin")
     cpu = ["--device", "cpu"]
-    for argv in (
-        ["pipeline", "--nblocks", "1", "--dist", "4", *cpu],
-        ["mergesort", f1, out, *cpu],
-        ["elimdup", f1, out, "--mem-blocks", "10", *cpu],
-        ["hashjoin", f1, f2, out, "--mem-blocks", "10", *cpu],
-        ["mergejoin", f1, f2, out, "--mem-blocks", "10", *cpu],
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_main(argv)
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        t_main(["pipeline", "--nblocks", "1", "--dist", "4", *cpu])
+    for cmd, files in (("mergesort", [f1]), ("elimdup", [f1]), ("hashjoin", [f1, f2]),
+                       ("mergejoin", [f1, f2])):
+        line = external_both(cmd, files, ["--mem-blocks", "10"], tmp_path / cmd, monkeypatch,
+                             capsys)
+        assert line["nsorted_segs"] >= 2
     with pytest.raises(SystemExit):  # --platform belongs to the JAX CLI
         t_main(["pipeline", "--nblocks", "1", "--platform", "cpu"])
     with pytest.raises(ValueError):
         t_main(["elimdup", f1, out, "--field", "4", *cpu])
 
 
-def test_commands_refuse_inputs_beyond_the_device_budget(tmp_path, monkeypatch):
+def test_commands_refuse_inputs_beyond_the_device_budget(tmp_path, monkeypatch, capsys):
+    """Block files beyond the default budget route through the external
+    drivers by themselves (``mem_rows`` the budget), in both CLIs alike;
+    a file within it takes the in-budget route."""
+    from database_technology_algorithms_tpu import config as jconfig
     from database_technology_algorithms_tpu_torch import config
 
     f1, f2 = str(tmp_path / "a.bin"), str(tmp_path / "b.bin")
     generate_pair_files(f1, f2, 2)
     monkeypatch.setattr(config, "DEFAULT_CONFIG", config.EngineConfig(mem_rows=300))
+    monkeypatch.setattr(jconfig, "DEFAULT_CONFIG", jconfig.EngineConfig(mem_rows=300))
     out = str(tmp_path / "o.bin")
-    assert t_main(["elimdup", f1, out, "--device", "cpu"]) == 0  # 200 rows fit
-    for argv in (["hashjoin", f1, f2, out], ["mergejoin", f1, f2, out]):
-        # 400 rows do not: block files beyond the budget belong to the external
-        # operators, and the message names where they stand in the ROADMAP
-        with pytest.raises(MemoryBudgetError, match="external operators.*ROADMAP"):
-            t_main([*argv, "--device", "cpu"])
+    _, line = run_port(capsys, ["elimdup", f1, out])  # 200 rows fit
+    assert "external" not in line
+    for cmd in ("hashjoin", "mergejoin"):  # 400 rows do not
+        line = external_both(cmd, [f1, f2], [], tmp_path / cmd, monkeypatch, capsys)
+        assert line["external"] is True and line["mem_rows"] == 300
+        assert 0 < line["peak_range_rows"] <= 300
+    assert line["nres"] > 0
+
+
+@pytest.mark.parametrize("field", FIELDS)
+@pytest.mark.parametrize("cmd", ["mergesort", "elimdup", "mergejoin", "hashjoin"])
+def test_external_commands_match_jax(cmd, field, tmp_path, monkeypatch, capsys):
+    """``mergesort``, and the other file commands under ``--mem-blocks``, at
+    each key field on 600-row files under a 400-row budget (several
+    segments a side)."""
+    f1, f2 = write_pair(tmp_path, 6)
+    files = [f1] if cmd in ("mergesort", "elimdup") else [f1, f2]
+    line = external_both(cmd, files, ["--mem-blocks", "4", "--field", field], tmp_path,
+                         monkeypatch, capsys)
+    back = read_blockfile_numpy(str(tmp_path / "work_port" / "out.bin"))
+    assert line["nsorted_segs"] >= 2
+    if cmd == "mergesort":
+        assert line["rows"] == len(back["recid"]) == 600 and line["npasses"] == 2
+    elif cmd == "hashjoin":
+        assert line["output_order"] == "probe_key" and line["nres"] == len(back["recid"]) > 0
+    else:
+        assert 0 < len(back["recid"]) == line["nunique" if cmd == "elimdup" else "nres"]
 
 
 def test_pipeline_command_routes_generated_tables_beyond_the_budget(monkeypatch, capsys):

@@ -46,7 +46,7 @@ def test_port_sources_found():
             "adj_equal.py", "unpermute.py", "distinct.py", "merge_join.py", "hash_join.py",
             "hash_words.py", "stage_cells.py", "member_mult.py", "chunked.py",
             "__main__.py", "tile_copy.py", "row_move.py", "bench_pallas_dma.py",
-            "bench_permute_prims.py"} <= names
+            "bench_permute_prims.py", "external.py", "metrics.py", "native.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -75,6 +75,7 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_need_a_device_without_cuda(no_cuda, tmp_path):
+    from database_technology_algorithms_tpu_torch import external
     from database_technology_algorithms_tpu_torch.__main__ import main
     from database_technology_algorithms_tpu_torch.batch import RecordBatch
     from database_technology_algorithms_tpu_torch.io.blockfile import (
@@ -94,6 +95,13 @@ def test_entry_points_need_a_device_without_cuda(no_cuda, tmp_path):
         lambda: main(["mergejoin", path, path, str(tmp_path / "o.bin")]),
         lambda: main(["hashjoin", path, path, str(tmp_path / "o.bin")]),
         lambda: main(["elimdup", path, str(tmp_path / "o.bin")]),
+        lambda: main(["mergesort", path, str(tmp_path / "o.bin")]),
+        lambda: main(["elimdup", path, str(tmp_path / "o.bin"), "--mem-blocks", "1"]),
+        lambda: list(external.external_sort([cols], 1, str(tmp_path / "s"), mem_rows=100)),
+        lambda: list(external.external_merge_join([cols], [cols], 1, str(tmp_path / "m"),
+                                                  mem_rows=200)),
+        lambda: list(external.external_hash_join([cols], [cols], 1, str(tmp_path / "h"),
+                                                 mem_rows=200)),
         lambda: main(["pipeline", "--nblocks", "1", "--skip-files"]),
         lambda: main(["--nblocks", "1", "--skip-files"]),
     ]

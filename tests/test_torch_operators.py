@@ -403,7 +403,7 @@ def test_unported_engines_and_routes_raise():
         lambda: thash.hash_join_count_impl(tb, tb, 1, small),
         lambda: thash.hash_join_impl(tb, tb, 1, small),
     ):
-        with pytest.raises(MemoryBudgetError, match="ROADMAP"):
+        with pytest.raises(MemoryBudgetError, match="external drivers of external.py"):
             call()
     assert int(tdistinct.distinct(tb, 1, TConfig(mem_rows=49))[1]) == int(
         tdistinct.distinct(tb, 1)[1])

@@ -386,6 +386,28 @@ def test_hash_join_retry_stops_where_cells_cannot_be_addressed(field, monkeypatc
     assert len(caplog.records) == 2  # cap_mult 1 and 2 ran and overflowed
 
 
+def test_cells_beyond_k9_are_refused_on_the_card_only():
+    """K9 stages at most cells_plan.MAX_STAGE_BINS - 1 cells on the card: the
+    predicate names that limit for the layouts past it (65536 cells near
+    2^29 + 2^29 rows at the default budget, or under a tiny one), passes the
+    over-budget run's 4096, and the CPU path takes any count, as JAX does."""
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+
+    assert thash._k9_refusal(24 << 20, 24 << 20, *thash._tile_layout(24 << 20, 24 << 20,
+                                                                    16 << 20)[:3]) is None
+    big = thash._tile_layout(1 << 29, 1 << 29, 16 << 20)
+    assert big[0] == 65536
+    assert "2^31 - 1 entries" in thash._k9_refusal(1 << 29, 1 << 29, *big[:3])
+    assert thash._k9_refusal(100, 100, cells_plan.MAX_STAGE_BINS - 1, 64, 64) is None
+    assert f"at most {cells_plan.MAX_STAGE_BINS - 1} cells" in thash._k9_refusal(
+        100, 100, cells_plan.MAX_STAGE_BINS, 64, 64)
+    assert "2^31 - 1 slots" in thash._k9_refusal(100, 100, 4096, 1 << 20, 64)
+    (_, tb), (_, tp) = both_batches(all_equal_cols(20000, 1)), both_batches(all_equal_cols(20000, 2))
+    cfg = TConfig(mem_rows=2)
+    assert thash._tile_layout(tb.nrows, tp.nrows, cfg.mem_rows)[0] == 65536
+    thash._ensure_cells_fit(tb, tp, 1, cfg, 1)  # the plain version takes 65536 cells
+
+
 # ---------------------------------------------------------------------------
 # the chunked sort and distinct
 

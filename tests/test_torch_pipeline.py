@@ -163,7 +163,7 @@ def test_unported_routes_raise():
     # fused single program still refuse
     over = tpipe.make_pipeline_staged(1, TConfig(mem_rows=19))
     assert int(over(r, r)["merge_nres"]) == 10
-    with pytest.raises(MemoryBudgetError, match="ROADMAP"):
+    with pytest.raises(MemoryBudgetError, match="external drivers of external.py"):
         over.stage_a(r, r)
     with pytest.raises(MemoryBudgetError):
         tpipe.pipeline_single_impl(r, r, 1, TConfig(mem_rows=19))
