@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
   2. hold each kernel (K1 view sort, K2 segmented scan, K3 compaction,
      K4 record gather, K5 multi-word sort, K6 adjacent-key equality,
      K7 un-permute, K8 key hash, K9 staging into cells, K10 build
-     multiplicity over cell pairs, K11 tile copy, K12 row move) against its
+     multiplicity over cell pairs, K11 tile copy, K12 row move; K13 run
+     aggregate and K14 expansion sources in phase 9) against its
      plain torch version on the card, bit for bit, at the main paths'
      shapes and at edge cases (K4 and K12, on the row-move engine of
      ``csrc/rowmove.cuh``, also at row widths that take 4-, 8- and 16-byte
@@ -98,7 +99,22 @@ Phases (any failure raises and the script exits non-zero):
      call run again on the run's own device batches, every kernel they
      launch held against its plain version; the native block-file library
      built from ``native/dbtio.cpp`` and its read of R against numpy's;
-  9. timings: each kernel's device time (torch.profiler) beside its plain
+  9. selection filter and group-by aggregate (BASELINE's second
+     configuration) at the default budget's edge: two tables of 16,777,200
+     rows (uniform keys at the bench's key range, and Zipf 1.2 keys), every
+     seventh row's valid flag cleared; ``filter_batch`` (valid and a num
+     range keeping about half the live rows), ``group_aggregate`` at field 1
+     and the two-phase form (4 slices' local aggregates, then
+     ``combine_group_aggregate_impl``), each against numpy (the kept rows;
+     the groups' counts, u32 sums, mins, maxes and first rows) and the
+     two-phase form against the single pass; fields 0, 2 and 3 at 1M rows;
+     ``materialize_field3_device`` on a field-3 join whose multiplicities
+     reach tens, at cap = total and total // 2, against the host
+     ``materialize_field3``; the launch counters set to 0 before each run
+     and read after it, its host wall and device time; K13 and K14 against
+     their plain versions at their edges and on the runs' own inputs, timed
+     beside their yardsticks;
+ 10. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
      beside a stable torch.sort, and how many radix passes K1 and K5
@@ -2929,6 +2945,468 @@ def phase_external(dev, card: str) -> dict:
 # phase 6: kernel timings at the main path's shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 9: selection filter and group-by aggregate (K13), field-3 expansion (K14)
+
+AGG_NBLOCKS = 167_772  # 16,777,200 rows a table, just under EngineConfig.mem_rows
+AGG_SMALL_NBLOCKS = NBLOCKS  # fields 0, 2 and 3 at 1M rows
+AGG_SLICES = 4  # the two-phase form: local aggregates of 4 slices, then the combine
+ZIPF_A = 1.2  # the skewed table: a few keys hold most rows
+F3_BUILD_KEYS, F3_PROBE_KEYS = 2000, 40_000  # field 3: num ranges; 1-letter strings
+AGG_NAMES = ("count", "sum", "min", "max")
+AGG_IDENTITY = (0, 0, -1, 0)  # past n_groups: 0, 0, U32_MAX as int32 bits, 0
+FILTER_KERNELS = ("compact", "take_fill")
+F3_KERNELS = ("seg_scan", "expand_sources", "take_fill")
+
+
+def agg_kernels(field: int) -> tuple:
+    """What one group_aggregate at `field` must launch (gather route)."""
+    sort = ("radix_sort",) if field in (0, 1) else ("words_sort", "adj_equal")
+    return sort + ("seg_scan", "run_aggregate", "compact", "take_fill")
+
+
+def agg_table(nblocks: int, seed: int, zipf_a=None) -> dict:
+    """A generated table at the bench's key range with every seventh row's
+    valid flag cleared; its 5-letter strings kept at 8 bytes, the stored
+    width."""
+    from database_technology_algorithms_tpu_torch.io.generator import generate_columns
+
+    rows = nblocks * 100
+    cols = generate_columns(nblocks, seed=seed, key_range=max(3 * rows // 10, 1), zipf_a=zipf_a)
+    cols["strs"] = np.ascontiguousarray(cols["strs"][:, :8])
+    cols["valid"][::7] = False
+    return cols
+
+
+def u32_host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+def agg_result_tensors(res) -> list:
+    """The four aggregate columns and n_groups of a run_aggregate result."""
+    aggs, ng = res
+    return [aggs[k] for k in AGG_NAMES] + [ng.reshape(1)]
+
+
+def check_launched(launches: dict, kernels, what: str) -> None:
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: never launched {missing} ({launches})")
+
+
+def check_filtered(out, n_kept, cols: dict, kept: np.ndarray, what: str) -> None:
+    """The filter's count and kept rows against the numpy mask, in row order."""
+    from database_technology_algorithms_tpu_torch.batch import as_u32
+
+    n = int(n_kept)
+    if n != len(kept):
+        raise AssertionError(f"{what}: {n} rows kept, numpy keeps {len(kept)}")
+    for name in ("recid", "num"):
+        if not np.array_equal(u32_host(getattr(out, name)[:n]), cols[name][kept]):
+            raise AssertionError(f"{what}: kept {name} differ from numpy's")
+    words = cols["strs"][kept].view(">u4").astype(np.uint64).sum() % (1 << 32)
+    if int(as_u32(out.strw[:n]).sum()) % (1 << 32) != int(words):
+        raise AssertionError(f"{what}: kept strings differ from numpy's")
+    if not bool(out.valid[:n].all()) or bool(out.valid[n:].any()) or bool(out.recid[n:].any()):
+        raise AssertionError(f"{what}: kept rows not valid, or rows past the count not zero")
+
+
+def agg_oracle(cols: dict, rows: np.ndarray, field: int) -> dict:
+    """numpy: the groups of `rows` (indices into cols) by key, in key order:
+    count, u32 sum (u64 sums mod 2^32), unsigned min and max of num, and the
+    first row of each group."""
+    sub = {k: v[rows] for k, v in cols.items()}
+    ids = key_ids([sub], field)[0]
+    keys, first, counts = np.unique(ids, return_index=True, return_counts=True)
+    order = np.argsort(ids, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    num = sub["num"][order].astype(np.uint64)
+    if len(keys) == 0:
+        sums = mins = maxs = np.zeros(0, np.uint64)
+    else:
+        sums = np.add.reduceat(num, starts) % (1 << 32)
+        mins, maxs = np.minimum.reduceat(num, starts), np.maximum.reduceat(num, starts)
+    return {"n_groups": len(keys), "count": counts.astype(np.uint32),
+            "sum": sums.astype(np.uint32), "min": mins.astype(np.uint32),
+            "max": maxs.astype(np.uint32), "rep_recid": sub["recid"][first]}
+
+
+def check_aggregate(res, want: dict, what: str) -> None:
+    reps, aggs, ng = res
+    ng = int(ng)
+    if ng != want["n_groups"]:
+        raise AssertionError(f"{what}: {ng} groups, numpy has {want['n_groups']}")
+    for k, fill in zip(AGG_NAMES, AGG_IDENTITY):
+        if not np.array_equal(u32_host(aggs[k][:ng]), want[k]):
+            raise AssertionError(f"{what}: {k} differs from numpy's")
+        if bool((aggs[k][ng:] != fill).any()):
+            raise AssertionError(f"{what}: {k} past n_groups is not {fill}")
+    if not np.array_equal(u32_host(reps.recid[:ng]), want["rep_recid"]):
+        raise AssertionError(f"{what}: representative rows differ from numpy's first rows")
+    if not bool(reps.valid[:ng].all()) or bool(reps.valid[ng:].any()):
+        raise AssertionError(f"{what}: representatives' valid flags are wrong")
+
+
+def two_phase(batch, n_kept, field: int):
+    """The local/global split of the distributed plan on one card, without
+    the exchange: group_aggregate on AGG_SLICES slices of the live rows, each
+    slice's live reps and partials concatenated in slice order, then
+    combine_group_aggregate_impl."""
+    from database_technology_algorithms_tpu_torch.batch import RecordBatch
+    from database_technology_algorithms_tpu_torch.ops.aggregate import (
+        combine_group_aggregate_impl, group_aggregate)
+
+    bounds = np.linspace(0, int(n_kept), AGG_SLICES + 1).astype(int)
+    reps, parts = [], [[] for _ in AGG_NAMES]
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        r, aggs, ng = group_aggregate(batch.slice(int(a), int(b - a)), field)
+        ng = int(ng)
+        reps.append(r.slice(0, ng))
+        for j, k in enumerate(AGG_NAMES):
+            parts[j].append(aggs[k][:ng])
+    return combine_group_aggregate_impl(RecordBatch.concat(reps), field,
+                                        tuple(torch.cat(p) for p in parts))
+
+
+def same_aggregate(got, want, what: str) -> None:
+    """Two (reps, aggs, n_groups) results agree on the live groups."""
+    ng = int(want[2])
+    if int(got[2]) != ng:
+        raise AssertionError(f"{what}: {int(got[2])} groups, the single pass has {ng}")
+    for k in AGG_NAMES:
+        if not torch.equal(got[1][k][:ng], want[1][k][:ng]):
+            raise AssertionError(f"{what}: {k} differs from the single pass")
+    for c in ("recid", "num", "strw", "valid"):
+        if not torch.equal(getattr(got[0], c)[:ng], getattr(want[0], c)[:ng]):
+            raise AssertionError(f"{what}: representatives' {c} differ from the single pass")
+
+
+def run_measured(name: str, fn, kernels, card: str, reps: int = 5) -> tuple:
+    """One run with the launch counters set to 0 just before and read just
+    after (the main path's count), then its host wall (median of `reps`
+    synchronized runs) and device time (torch.profiler)."""
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check_launched(launches, kernels, name)
+    wall = wall_ms(fn, reps=reps)
+    prof = profile_device(fn, reps=3)
+    log(f"[aggregate] {card}: {name}: host wall {wall:.4f} ms (median of {reps} synchronized "
+        f"runs), device {prof['busy_us'] / 1e3:.4f} ms a run ({device_parts(prof)}); launches "
+        + ", ".join(f"{k} {launches[k]}" for k in kernels))
+    return out, {"wall_ms": wall, "device_ms": prof["busy_us"] / 1e3,
+                 "launches": {k: launches[k] for k in kernels}}
+
+
+def k13_library(active_s, adj, vals):
+    """A yardstick for K13, never called by the port: group ids by a
+    cumsum, then bincount and three scatter_reduce_ on int64 copies (the
+    unsigned order), inactive rows into a dump slot."""
+    from database_technology_algorithms_tpu_torch.batch import as_u32
+
+    n = active_s.shape[0]
+    gid = torch.cumsum(active_s & ~adj, 0) - 1
+    idx = torch.where(active_s, gid, n)
+    v = as_u32(vals[-1])
+    count = torch.bincount(idx, minlength=n + 1)
+    total = torch.zeros(n + 1, dtype=torch.int64, device=v.device).scatter_reduce_(0, idx, v, "sum")
+    lo = torch.full((n + 1,), 0xFFFFFFFF, dtype=torch.int64, device=v.device).scatter_reduce_(
+        0, idx, v, "amin")
+    hi = torch.zeros(n + 1, dtype=torch.int64, device=v.device).scatter_reduce_(0, idx, v, "amax")
+    return count, total, lo, hi
+
+
+def k13_edges(g, dev) -> list:
+    """(what, active_s, adj, vals) at K13's span edges
+    (tests/test_torch_aggregate.py's cases, at the kernel's own span)."""
+    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import SPAN_ROWS
+
+    span, block = SPAN_ROWS, 8 * SPAN_ROWS
+    cases = []
+    for n, kind in ((0, "random"), (1, "random"), (31, "random"), (32, "random"),
+                    (33, "random"), (span - 1, "random"), (span, "random"), (span + 1, "random"),
+                    (block - 1, "random"), (block + 1, "random"), (3 * span + 17, "sparse"),
+                    (4 * span, "group over spans"), (4 * span, "starts on a span's last row"),
+                    (5 * span, "every row a group"), (5 * span + 3, "one group"),
+                    (4 * span, "all inactive"), (70_001, "random"), (ROWS, "random"),
+                    (ROWS, "sparse")):
+        starts = np.zeros(n, bool)
+        if kind == "random":
+            starts = g.random(n) < 0.2
+        elif kind == "sparse":
+            starts = g.random(n) < 0.01
+        elif kind == "group over spans":
+            starts = g.random(n) < 0.3
+            starts[span // 2 + 1: span // 2 + 2 * span + 41] = False
+        elif kind == "starts on a span's last row":
+            starts[::span // 4] = True
+            starts[span - 1::span] = True
+            starts[span::span] = False
+        elif kind == "every row a group":
+            starts[:] = True
+        if n:
+            starts[0] = True
+        active = np.ones(n, bool)
+        if kind in ("random", "sparse") and n > 2:
+            active[n - min(span // 2 + 5, n // 2):] = False  # the inactive tail
+        if kind == "all inactive":
+            active[:] = False
+        adj = ~starts
+        tail = ~active
+        adj[tail] = g.random(int(tail.sum())) < 0.5
+        for m in (1, 4):
+            vals = g.integers(0, 2**32, size=(m, n), dtype=np.uint64).astype(np.uint32)
+            vals[0, ::3] |= np.uint32(1 << 31)
+            cases.append((f"n={n} {kind} {m} measure{'s' * (m > 1)}",
+                          torch.from_numpy(active).to(dev), torch.from_numpy(adj).to(dev),
+                          tuple(torch.from_numpy(v.view(np.int32)).to(dev) for v in vals)))
+    return cases
+
+
+def k14_edges(g, dev) -> list:
+    """(what, c, total, cap) at K14's edges."""
+    cases = []
+    for nprobe, kind in ((0, "none"), (1, "random"), (7, "random"), (1000, "zero at both ends"),
+                         (1000, "no output"), (1000, "one row holds all"),
+                         (1000, "first row holds all"), (1000, "last row holds all"),
+                         (100_000, "random"), (ROWS, "random")):
+        mult = g.integers(0, 4, size=nprobe).astype(np.int32)
+        if kind == "zero at both ends":
+            mult[:nprobe // 5] = 0
+            mult[-nprobe // 5:] = 0
+        elif kind == "no output":
+            mult[:] = 0
+        elif kind.endswith("holds all"):
+            mult[:] = 0
+            mult[{"one": nprobe // 3, "first": 0, "last": -1}[kind.split()[0]]] = 3 * nprobe
+        m = torch.from_numpy(mult).to(dev)
+        c = torch.cumsum(m, 0, dtype=torch.int32)
+        total = c[-1] if nprobe else torch.zeros((), dtype=torch.int32, device=dev)
+        t = int(total)
+        for cap in sorted({0, t // 2, t, t + 37}):
+            cases.append((f"nprobe={nprobe} {kind} total={t} cap={cap}", c, total, cap))
+    return cases
+
+
+def phase_aggregate(dev, card: str) -> dict:
+    """BASELINE's selection filter + hash aggregate over one table at the
+    default budget's edge (16,777,200 rows, uniform and Zipf keys, field 1),
+    the two-phase combine, fields 0, 2 and 3 at 1M rows, and the field-3
+    device expansion; K13 and K14 against their plain versions at their edges
+    and on the runs' own inputs, timed beside their yardsticks."""
+    from database_technology_algorithms_tpu_torch.kernels.expand_sources import (
+        expand_sources, expand_sources_plain)
+    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import (
+        run_aggregate, run_aggregate_plain)
+    from database_technology_algorithms_tpu_torch.ops import filter as F
+    from database_technology_algorithms_tpu_torch.ops.aggregate import group_aggregate
+    from database_technology_algorithms_tpu_torch.ops.hash_join import (
+        hash_join_count, materialize_field3, materialize_field3_device)
+
+    t_phase = time.time()
+    g = np.random.default_rng(12)
+    errs = {"run_aggregate": 0, "expand_sources": 0}
+    # ---- K13 and K14 at their edges ------------------------------------------
+    for what, active, adj, vals in k13_edges(g, dev):
+        errs["run_aggregate"] = max(errs["run_aggregate"], assert_same(
+            f"K13 {what}", agg_result_tensors(run_aggregate(active, adj, vals)),
+            agg_result_tensors(run_aggregate_plain(active, adj, vals))))
+    n = 2 * BIG_ROWS  # one key over every row: two atomics a span, not a row
+    one = (torch.ones(n, dtype=torch.bool, device=dev),
+           torch.ones(n, dtype=torch.bool, device=dev).index_fill_(0, torch.zeros(
+               1, dtype=torch.long, device=dev), False),
+           (torch.full((n,), -7, dtype=torch.int32, device=dev),))
+    errs["run_aggregate"] = max(errs["run_aggregate"], assert_same(
+        f"K13 one key over {n} rows", agg_result_tensors(run_aggregate(*one)),
+        agg_result_tensors(run_aggregate_plain(*one))))
+    one_ms = device_ms(lambda: run_aggregate(*one))
+    del one
+    for what, c, total, cap in k14_edges(g, dev):
+        errs["expand_sources"] = max(errs["expand_sources"], assert_same(
+            f"K14 {what}", (expand_sources(c, total, cap),),
+            (expand_sources_plain(c, total, cap),)))
+    torch.cuda.synchronize()
+    log(f"[kernels] K13 and K14 equal their plain versions at their edges (K13: spans of "
+        f"rows, 1 and 4 measures, bit 31 set; one key over {n} rows, {one_ms:.4f} ms; K14: "
+        f"no probe rows, no output, one row holding all, cap 0, total//2, total, total+37)")
+
+    # ---- 16M-row tables at field 1 ----------------------------------------------
+    runs, captured = {}, {}
+    for table, seed, zipf in (("uniform", 71, None), ("zipf", 72, ZIPF_A)):
+        cols = agg_table(AGG_NBLOCKS, seed, zipf)
+        rows = len(cols["num"])
+        t = to_batch(cols, dev)
+        live_num = np.sort(cols["num"][cols["valid"]])
+        if zipf is None:
+            lo, hi = int(live_num[len(live_num) // 4]), int(live_num[3 * len(live_num) // 4])
+        else:
+            lo, hi = 0, int(live_num[len(live_num) // 2]) + 1
+        pred = F.pred_and(F.pred_valid(), F.pred_num_range(lo, hi))
+        mask = cols["valid"] & (cols["num"] >= lo) & (cols["num"] < hi)
+        kept = np.flatnonzero(mask)
+        what = f"{table}, {rows} rows, field 1"
+        (filtered, n_kept), runs[(table, "filter")] = run_measured(
+            f"filter_batch {what}, num in [{lo}, {hi})", lambda: F.filter_batch(t, pred),
+            FILTER_KERNELS, card)
+        check_filtered(filtered, n_kept, cols, kept, f"filter {what}")
+        res, runs[(table, "aggregate")] = run_measured(
+            f"group_aggregate {what}, {len(kept)} live rows",
+            lambda: group_aggregate(filtered, 1, count=n_kept), agg_kernels(1), card)
+        want = agg_oracle(cols, kept, 1)
+        check_aggregate(res, want, f"group_aggregate {what}")
+        both_phases, runs[(table, "two-phase")] = run_measured(
+            f"two-phase aggregate {what}, {AGG_SLICES} slices", lambda: two_phase(
+                filtered, n_kept, 1), agg_kernels(1), card, reps=3)
+        same_aggregate(both_phases, res, f"two-phase {what}")
+        top = int(np.argmax(want["count"]))
+        log(f"[aggregate] {what}: {len(kept)} rows kept (numpy: the same rows), "
+            f"{want['n_groups']} groups (numpy: the same groups, counts, sums, mins, maxes and "
+            f"first rows); the largest group {int(want['count'][top])} rows; the two-phase "
+            f"form equals the single pass")
+        with recorded_calls("run_aggregate", "run_aggregate") as calls:
+            group_aggregate(filtered, 1, count=n_kept)
+            two_phase(filtered, n_kept, 1)
+        captured[table] = calls[0][0]
+        captured[f"{table} combine"] = calls[-1][0]
+        del t, filtered, res, both_phases, calls
+    # ---- fields 0, 2 and 3 at 1M rows --------------------------------------------
+    cols = agg_table(AGG_SMALL_NBLOCKS, 73)
+    t = to_batch(cols, dev)
+    k = max(3 * len(cols["num"]) // 10, 1)
+    pred = F.pred_and(F.pred_valid(), F.pred_num_range(k // 4, 3 * k // 4))
+    kept = np.flatnonzero(cols["valid"] & (cols["num"] >= k // 4) & (cols["num"] < 3 * k // 4))
+    filtered, n_kept = F.filter_batch(t, pred)
+    check_filtered(filtered, n_kept, cols, kept, "filter, 1M rows")
+    for field in (0, 2, 3):
+        what = f"uniform, {len(cols['num'])} rows, field {field}"
+        res, runs[("1M", f"field {field}")] = run_measured(
+            f"group_aggregate {what}", lambda: group_aggregate(filtered, field, count=n_kept),
+            agg_kernels(field), card)
+        check_aggregate(res, agg_oracle(cols, kept, field), f"group_aggregate {what}")
+    del t, filtered, res
+    # ---- field 3's device expansion ------------------------------------------------
+    b_cols = generate_f3(AGG_SMALL_NBLOCKS, 74, F3_BUILD_KEYS)
+    p_cols = generate_f3(AGG_SMALL_NBLOCKS, 75, F3_PROBE_KEYS)
+    build, probe = to_batch(b_cols, dev), to_batch(p_cols, dev)
+    matched, mult, nres = hash_join_count(build, probe, 3)
+    total = int(nres)
+    host = materialize_field3(probe, matched, mult)
+    f3 = {}
+    for cap in (total, total // 2):
+        what = f"materialize_field3_device, {probe.nrows} probe rows, cap {cap} of {total}"
+        (out, got_total), runs[("field 3", f"cap {cap}")] = run_measured(
+            what, lambda: materialize_field3_device(probe, mult, cap), F3_KERNELS, card)
+        live = min(total, cap)
+        if int(got_total) != total or out.nrows != cap:
+            raise AssertionError(f"{what}: total {int(got_total)}, {out.nrows} rows")
+        for c in ("recid", "num", "strw", "valid"):
+            if not torch.equal(getattr(out, c)[:live], getattr(host, c)[:live]):
+                raise AssertionError(f"{what}: {c} differs from the host materialize_field3")
+            if bool(getattr(out, c)[live:].any()):
+                raise AssertionError(f"{what}: {c} past the total or cap is not zero")
+        f3[cap] = out
+    log(f"[aggregate] field 3: {total} output rows from {int(matched.sum())} matched probe rows, "
+        f"largest multiplicity {int(mult.max())}; cap {total} and {total // 2} equal the host "
+        f"materialize_field3 up to min(total, cap), zero past it, the total whole")
+    with recorded_calls("expand_sources", "expand_sources") as calls:
+        materialize_field3_device(probe, mult, total)
+    captured["field 3"] = calls[0][0]
+    del f3, host, build, probe
+    # ---- K13 and K14 on the runs' own inputs -------------------------------------
+    for what, args in captured.items():
+        if what == "field 3":
+            got, want = (expand_sources(*args),), (expand_sources_plain(*args),)
+            name = "expand_sources"
+        else:
+            got = agg_result_tensors(run_aggregate(*args))
+            want = agg_result_tensors(run_aggregate_plain(*args))
+            name = "run_aggregate"
+        errs[name] = max(errs[name], assert_same(f"{name} on the {what} run's inputs", got, want))
+    torch.cuda.synchronize()
+    log(f"[kernels] K13 equals its plain version on the uniform, Zipf and combine runs' own "
+        f"inputs, K14 on the field-3 run's; max abs err {errs}")
+    recs = [k13_record(captured, runs, errs, card), k14_record(captured, runs, errs, card)]
+    log(f"[aggregate] the phase took {time.time() - t_phase:.1f} s")
+    return {"recs": recs, "runs": runs}
+
+
+def generate_f3(nblocks: int, seed: int, key_range: int) -> dict:
+    """A table whose field-3 keys repeat: num in [0, key_range), 1-letter
+    strings, so that a build of a small range gives probe rows tens of
+    matches."""
+    from database_technology_algorithms_tpu_torch.io.generator import generate_columns
+
+    cols = generate_columns(nblocks, seed=seed, key_range=key_range, str_len=1,
+                            plant_hola=False)
+    cols["strs"] = np.ascontiguousarray(cols["strs"][:, :8])
+    return cols
+
+
+def k13_record(captured: dict, runs: dict, errs: dict, card: str) -> dict:
+    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import (
+        run_aggregate, run_aggregate_plain)
+
+    def timing(args):
+        n, m = args[0].shape[0], len(args[2])
+        nbytes = n * (2 + 4 * m) + 16 * n + 4  # flags and measures in; four columns out
+        bound, by = bound_of(nbytes, 4 * n)
+        return {"ms": device_ms(lambda: run_aggregate(*args)),
+                "plain_ms": device_ms(lambda: run_aggregate_plain(*args)),
+                "library_ms": device_ms(lambda: k13_library(*args)),
+                "bound_ms": bound, "bound_by": by, "rows": n, "measures": m}
+
+    rec = {"name": "run_aggregate", "route": "cuda", "source": f"{PKG}/csrc/run_aggregate.cu",
+           "replaces": f"{JAX_PKG}/ops/aggregate.py:46",
+           "launches": runs[("uniform", "aggregate")]["launches"]["run_aggregate"],
+           "max_abs_err": errs["run_aggregate"]}
+    shapes = {}
+    for what in ("uniform", "zipf", "uniform combine"):
+        shapes[what] = timing(captured[what])
+        s = shapes[what]
+        log(f"[timing] {card}: run_aggregate ({what}: {s['rows']} sorted rows, {s['measures']} "
+            f"measure(s)): device time per call (K2's group ids, the fills and K13): kernel "
+            f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library (cumsum, bincount, 3 "
+            f"scatter_reduce_) {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms")
+    args = captured["uniform"]
+    log(f"[timing] {card}: run_aggregate (uniform), device ms a call by kernel: "
+        f"{device_parts(profile_device(lambda: run_aggregate(*args), reps=10), top=6)}")
+    main = shapes["uniform"]
+    rec.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    rec["shape"] = (f"{main['rows']} sorted rows (16,777,200-row uniform table, field 1, after "
+                    f"the filter), num as the one measure")
+    rec["shapes"] = shapes
+    return rec
+
+
+def k14_record(captured: dict, runs: dict, errs: dict, card: str) -> dict:
+    from database_technology_algorithms_tpu_torch.kernels.expand_sources import (
+        expand_sources, expand_sources_plain)
+
+    c, total, cap = captured["field 3"]
+    nprobe = c.shape[0]
+    mult = torch.diff(c, prepend=c.new_zeros(1)).long()
+    rows = torch.arange(nprobe, device=c.device)
+    nbytes = 4 * nprobe + 4 + 4 * cap  # c and total in, src out
+    bound, by = bound_of(nbytes, 3 * cap * max(nprobe, 1).bit_length())
+    rec = {"name": "expand_sources", "route": "cuda", "source": f"{PKG}/csrc/expand_sources.cu",
+           "replaces": f"{JAX_PKG}/ops/hash_join.py:682",
+           "launches": runs[("field 3", f"cap {cap}")]["launches"]["expand_sources"],
+           "max_abs_err": errs["expand_sources"],
+           "ms": device_ms(lambda: expand_sources(c, total, cap)),
+           "plain_ms": device_ms(lambda: expand_sources_plain(c, total, cap)),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": device_ms(lambda: torch.repeat_interleave(rows, mult, output_size=cap)),
+           "shape": f"{nprobe} probe rows -> {cap} output rows (cap = total, field 3)"}
+    log(f"[timing] {card}: expand_sources ({rec['shape']}): device time per call: kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library repeat_interleave "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({nbytes} B)")
+    return rec
+
+
 def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dict, errs: dict,
                   card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
@@ -3272,7 +3750,9 @@ def main() -> int:
     for name, err in phase_external(dev, card).items():
         errs[name] = max(errs[name], err)
     done("external")
-    kernels = phase_timings(pipe, command, over, sort, probes, errs, card)
+    agg = phase_aggregate(dev, card)
+    done("aggregate")
+    kernels = phase_timings(pipe, command, over, sort, probes, errs, card) + agg["recs"]
     done("timings")
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks[:-1], marks[1:])))

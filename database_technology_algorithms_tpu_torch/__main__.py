@@ -87,6 +87,11 @@ def cmd_pipeline(args) -> int:
         f2 = os.path.join(args.workdir, "file2.bin")
         generate_pair_files(f1, f2, args.nblocks, seed=args.seed)
         r, s = read_blockfile(f1, device=device), read_blockfile(f2, device=device)
+    if args.debug_checks:
+        from .utils.checks import assert_batch
+
+        assert_batch(r)
+        assert_batch(s)
     print(f"[gen] done in {time.time() - t0:.2f}s on {device.type}")
 
     print("\n--------------MERGE JOIN-------------------")
@@ -338,6 +343,8 @@ def main(argv=None) -> int:
     pp.add_argument("--skip-files", action="store_true")
     pp.add_argument("--dist", type=int, default=0,
                     help="run on an N-device mesh (not ported yet: nonzero raises)")
+    pp.add_argument("--debug-checks", action="store_true",
+                    help="validate batch invariants at ingestion (utils/checks)")
     pp.set_defaults(fn=cmd_pipeline)
 
     ms = sub.add_parser("mergesort", help="external sort a block file", parents=[common])

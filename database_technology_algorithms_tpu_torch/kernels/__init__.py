@@ -17,6 +17,10 @@
     K11 tile_copy.tile_copy     <- tools/bench_pallas_dma.py:43,73 make_kernel (Pallas)
     K12 row_move.row_move       <- tools/bench_permute_prims.py:155,176 make_rowmove (Pallas);
                                    the placement route's word gather (ops/movement.py:51,68,108)
+    K13 run_aggregate.run_aggregate
+                                <- ops/aggregate.py:46-75 _run_aggregates' scans and compaction
+    K14 expand_sources.expand_sources
+                                <- ops/hash_join.py:682-686 materialize_field3_device's search
 
 (paths in the JAX package; K11 and K12's in the repository's ``tools/``).
 K1 and K5 run on one one-sweep LSD radix sort (``csrc/radix.cuh``), whose

@@ -30,6 +30,7 @@ import torch
 from ..batch import FIELD_NUMSTR, RecordBatch, canonical_field
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..kernels import cells_plan
+from ..kernels.expand_sources import expand_sources
 from ..kernels.member_mult import member_multiplicity_cells
 from ..kernels.unpermute import unpermute, unpermute_gather
 from ..utils.checks import ensure_device_budget
@@ -377,6 +378,27 @@ def hash_join(
     matched, _, nres = hash_join_count(build, probe, field, cfg)
     out, _ = compact_rows_chunked(probe, matched, cfg)
     return out, nres
+
+
+def materialize_field3_device(
+    probe: RecordBatch, mult: torch.Tensor, cap: int
+) -> tuple[RecordBatch, torch.Tensor]:
+    """Device-side segmented expansion: emit probe row j ``mult[j]`` times.
+
+    The reference's field-3 multimap emits one probe row per matching build
+    (num, str) pair (``DatabaseProject.cpp:619-628``).  The output size
+    depends on the data, so the result has ``cap`` rows and the true total
+    comes with it, a 0-d int32 tensor on the device: output row i (i <
+    total) is probe row ``searchsorted(cumsum(mult), i, 'right')``, the
+    engine's only primitive that duplicates rows.  Rows past the total are
+    zero with valid False; ``total > cap`` means the caller's capacity was
+    too small (run again with cap = total).  The cumsum is K2, the sources
+    K14 (``kernels/expand_sources.py``), the gather K4 with the total as its
+    live count."""
+    c = cumsum(mult.to(torch.int32))
+    total = c[-1] if probe.nrows else torch.zeros((), dtype=torch.int32, device=c.device)
+    src = expand_sources(c, total, cap)
+    return probe.take_fill(src, count=total), total
 
 
 def materialize_field3(probe: RecordBatch, matched, mult) -> RecordBatch:

@@ -46,7 +46,9 @@ def test_port_sources_found():
             "adj_equal.py", "unpermute.py", "distinct.py", "merge_join.py", "hash_join.py",
             "hash_words.py", "stage_cells.py", "member_mult.py", "chunked.py",
             "__main__.py", "tile_copy.py", "row_move.py", "bench_pallas_dma.py",
-            "bench_permute_prims.py", "external.py", "metrics.py", "native.py"} <= names
+            "bench_permute_prims.py", "external.py", "metrics.py", "native.py",
+            "aggregate.py", "filter.py", "checks.py", "run_aggregate.py",
+            "expand_sources.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -82,6 +84,9 @@ def test_entry_points_need_a_device_without_cuda(no_cuda, tmp_path):
         read_blockfile, write_blockfile)
     from database_technology_algorithms_tpu_torch.io.generator import (
         generate_batch, generate_columns)
+    from database_technology_algorithms_tpu_torch.ops import filter_batch, group_aggregate
+    from database_technology_algorithms_tpu_torch.ops.filter import pred_valid
+    from database_technology_algorithms_tpu_torch.ops.hash_join import materialize_field3_device
 
     cols = generate_columns(1)
     path = str(tmp_path / "f.bin")
@@ -104,6 +109,12 @@ def test_entry_points_need_a_device_without_cuda(no_cuda, tmp_path):
                                                  mem_rows=200)),
         lambda: main(["pipeline", "--nblocks", "1", "--skip-files"]),
         lambda: main(["--nblocks", "1", "--skip-files"]),
+        lambda: main(["pipeline", "--nblocks", "1", "--skip-files", "--debug-checks"]),
+        # batches made with no device are made on the card
+        lambda: filter_batch(RecordBatch.from_numpy(u, u), pred_valid()),
+        lambda: group_aggregate(RecordBatch.from_numpy(u, u), 1),
+        lambda: materialize_field3_device(RecordBatch.from_numpy(u, u),
+                                          torch.ones(4, dtype=torch.int32), 4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -128,6 +139,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         stage_to_cells, value_boundaries)
     from database_technology_algorithms_tpu_torch.kernels.row_move import row_move
     from database_technology_algorithms_tpu_torch.kernels.tile_copy import tile_copy
+    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import run_aggregate
+    from database_technology_algorithms_tpu_torch.kernels.expand_sources import (
+        expand_sources)
 
     meta = torch.device("meta")
     words = torch.empty(8, dtype=torch.int32, device=meta)
@@ -150,6 +164,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: tile_copy(torch.empty((2048, 32), dtype=torch.int32, device=meta),
                           torch.zeros(1, dtype=torch.int32), 64),
         lambda: row_move(cells, words[:2], 2, True),
+        lambda: run_aggregate(flags, flags, (words,)),
+        lambda: run_aggregate(flags, flags, (words, words, words, words)),
+        lambda: expand_sources(words, words[0], 8),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
