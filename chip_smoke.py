@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
      K4 record gather, K5 multi-word sort, K6 adjacent-key equality,
      K7 un-permute, K8 key hash, K9 staging into cells, K10 build
      multiplicity over cell pairs, K11 tile copy, K12 row move; K13 run
-     aggregate and K14 expansion sources in phase 9) against its
+     aggregate and K14 expansion sources in phase 9, K15-K18 in phase 10)
+     against its
      plain torch version on the card, bit for bit, at the main paths'
      shapes and at edge cases (K4 and K12, on the row-move engine of
      ``csrc/rowmove.cuh``, also at row widths that take 4-, 8- and 16-byte
@@ -93,8 +94,8 @@ Phases (any failure raises and the script exits non-zero):
      its JSON counters against numpy, ``peak_range_rows <= mem_rows``, an
      empty spill directory and the kernels the run launched, with its host
      wall (a run with no profiler and nothing wrapped) and passes; the
-     9M-row commands and the 1M-row joins again under torch.profiler for
-     the device busy time and where the wall goes; on the automatic route
+     joins (9M + 9M and 1M + 1M rows) again under torch.profiler for the
+     device busy time and where the wall goes; on the automatic route
      the largest ``sort_batch``, ``distinct_sorted`` and ``hash_join_count``
      call run again on the run's own device batches, every kernel they
      launch held against its plain version; the native block-file library
@@ -114,7 +115,21 @@ Phases (any failure raises and the script exits non-zero):
      and read after it, its host wall and device time; K13 and K14 against
      their plain versions at their edges and on the runs' own inputs, timed
      beside their yardsticks;
- 10. timings: each kernel's device time (torch.profiler) beside its plain
+ 10. the alternative u32 engines (``EngineConfig.u32_join_engine`` and
+     ``u32_distinct_engine``) at the bench's shape: ``hash_join_count`` under
+     "generic", "searchsorted" (K15), "table" (K16, K17) and "bucketed"
+     (K18) at fields 0 and 1 on 1M + 1M rows, raw and with the dedup'd
+     sides' live counts, and field 1 at 8M + 8M; ``hash_join`` under each
+     engine at 1M + 1M; ``distinct`` and ``merge_join`` under "fastpath" at
+     1M and 16M rows; each against numpy and the generic engine, the launch
+     counters set to 0 before each run and read after it, each run's device
+     time and host wall beside the generic engine's and ``torch.isin`` of
+     the live keys; the forced fallbacks (all build keys equal for
+     "bucketed", 100 keys on one home slot for "table") taken once each and
+     still exact, and the key whose mix is the table's EMPTY answered
+     exactly; K15-K18 against their plain versions at their edges and on
+     the 1M runs' own inputs (``[engines]`` lines);
+ 11. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
      beside a stable torch.sort, and how many radix passes K1 and K5
@@ -2798,7 +2813,7 @@ def phase_external(dev, card: str) -> dict:
     ``--mem-blocks 1000``.  Each command runs once clean (no profiler, no
     wrapper: the host wall and the launch counters) and is checked against
     numpy, with its counters, a clean spill directory and the native reader.
-    The 9M-row runs and the 1M-row joins run again under torch.profiler and
+    The joins (9M + 9M and 1M + 1M rows) run again under torch.profiler and
     the ExternalClock (the busy share and the wall's parts); on the
     automatic route that repeat also keeps the largest ``sort_batch`` (pass
     1), ``distinct_sorted`` and ``hash_join_count`` (a semi-join pair) call,
@@ -2895,7 +2910,7 @@ def phase_external(dev, card: str) -> dict:
                     f"{line.get('bytes_host', '-')}")
                 log(f"[external]   launches {res['launches']}")
                 os.unlink(fo)
-                if nblocks == EXT_NBLOCKS or cmd in ("mergejoin", "hashjoin"):
+                if cmd in ("mergejoin", "hashjoin"):
                     prof = traced_cli(argv)
                     same = {k: v for k, v in prof["line"].items() if k != "wall_s"}
                     if prof["rc"] != 0 or same != {k: v for k, v in line.items() if k != "wall_s"}:
@@ -3407,6 +3422,508 @@ def k14_record(captured: dict, runs: dict, errs: dict, card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the alternative u32 engines (K15-K18)
+
+JOIN_ENGINES = ("searchsorted", "table", "bucketed")
+JOIN_ENGINE_KERNELS = {
+    "searchsorted": ("radix_sort", "sorted_probe"),
+    "table": ("hash_set_build", "hash_set_probe"),
+    "bucketed": ("hash_words", "radix_sort", "bucket_probe", "unpermute"),
+}
+FASTPATH_KERNELS = ("radix_sort", "compact", "take_fill")
+EMPTY_PAIR = (0xDBDF60C1, 0x331DA083)  # their mixes: 0xFFFFFFFE, 0xFFFFFFFF (EMPTY)
+CLUSTER_KEYS = 100  # keys sharing one home slot of the table: past 64 the build fails
+ENGINE_FALLBACKS = (("hash_join", "build_key_multiset", "bucketed"),
+                    ("hash_table", "hash_join_count_u32", "table"))
+
+
+def inverse_mix(h) -> np.ndarray:
+    """The u32 keys whose murmur3 finalizer (``ops/hash_table._mix``) is h."""
+    h = np.asarray(h, dtype=np.uint64) & 0xFFFFFFFF
+    h ^= h >> 16
+    h = (h * 0x7ED1B41D) & 0xFFFFFFFF
+    h ^= (h >> 13) ^ (h >> 26)
+    h = (h * 0xA5CB9243) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h.astype(np.uint32)
+
+
+def engine_cfg(engine: str):
+    from database_technology_algorithms_tpu_torch.config import EngineConfig
+
+    if engine == "fastpath":
+        return EngineConfig(u32_distinct_engine="fastpath")
+    return EngineConfig() if engine == "generic" else EngineConfig(u32_join_engine=engine)
+
+
+@contextlib.contextmanager
+def fallback_calls():
+    """Count the engines' fallbacks taken inside: the bucketed engine's
+    ``build_key_multiset`` and the table's ``hash_join_count_u32``, by
+    engine.  The wrapped functions still run."""
+    counts = {engine: 0 for _, _, engine in ENGINE_FALLBACKS}
+    saved = []
+    for module_name, name, engine in ENGINE_FALLBACKS:
+        module = importlib.import_module(f"{PKG}.ops.{module_name}")
+        fn = getattr(module, name)
+
+        def record(*a, _fn=fn, _engine=engine, **kw):
+            counts[_engine] += 1
+            return _fn(*a, **kw)
+
+        setattr(module, name, record)
+        saved.append((module, name, fn))
+    try:
+        yield counts
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def membership_oracle(bkeys: np.ndarray, nb_live: int, pkeys: np.ndarray,
+                      np_live: int) -> np.ndarray:
+    """numpy: a probe row matches where it is live and its key is among the
+    live build keys."""
+    want = np.isin(pkeys, bkeys[:nb_live])
+    want[np_live:] = False
+    return want
+
+
+def check_count(res, want: np.ndarray, what: str, generic=None) -> None:
+    matched, mult, nres = res
+    if not np.array_equal(matched.cpu().numpy(), want):
+        raise AssertionError(f"{what}: matched differs from numpy")
+    if not torch.equal(mult, matched.to(torch.int32)) or int(nres) != int(want.sum()):
+        raise AssertionError(f"{what}: mult or nres differ from numpy")
+    if generic is not None and not all(torch.equal(a, b) for a, b in zip(res, generic)):
+        raise AssertionError(f"{what}: differs from the generic engine")
+
+
+def engine_runs(tag: str, build, probe, field: int, bc, pc, want: np.ndarray, card: str,
+                timed_runs: bool, runs: dict) -> None:
+    """hash_join_count under the generic engine and each alternative one:
+    launches counted from 0 around each run, each result against numpy and
+    the generic engine's, no fallback taken; with `timed_runs`, each
+    engine's host wall and device time and ``torch.isin`` of the live keys
+    beside them."""
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join_count
+
+    generic = None
+    line = []
+    for engine in ("generic",) + JOIN_ENGINES:
+        cfg = engine_cfg(engine)
+        fn = lambda: hash_join_count(build, probe, field, cfg, build_count=bc, probe_count=pc)
+        with fallback_calls() as fell:
+            torch.cuda.synchronize()
+            reset_launches()
+            res = fn()
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        if any(fell.values()):
+            raise AssertionError(f"[engines] {engine} {tag}: took a fallback {fell}")
+        check_count(res, want, f"[engines] {engine} {tag}", generic)
+        if engine == "generic":
+            generic = res
+        else:
+            check_launched(launches, JOIN_ENGINE_KERNELS[engine], f"{engine} {tag}")
+        rec = {"launches": {k: v for k, v in launches.items() if v}, "fallbacks": 0}
+        if timed_runs:
+            rec["wall_ms"] = wall_ms(fn, reps=5)
+            prof = profile_device(fn, reps=3)
+            rec["device_ms"] = prof["busy_us"] / 1e3
+            rec["parts"] = device_parts(prof, top=3)
+            line.append(f"{engine} {rec['device_ms']:.4f} / {rec['wall_ms']:.4f}")
+        runs[(tag, engine)] = rec
+    if timed_runs:
+        nb_live = build.nrows if bc is None else int(bc)
+        np_live = probe.nrows if pc is None else int(pc)
+        bk = (build.recid if field == 0 else build.num)[:nb_live]
+        pk = (probe.recid if field == 0 else probe.num)[:np_live]
+        isin = lambda: torch.isin(pk, bk)
+        if not np.array_equal(isin().cpu().numpy(), want[:np_live]):
+            raise AssertionError(f"[engines] torch.isin {tag}: differs from numpy")
+        runs[(tag, "torch.isin")] = {"wall_ms": wall_ms(isin, reps=5), "device_ms": device_ms(isin)}
+        line.append(f"torch.isin {runs[(tag, 'torch.isin')]['device_ms']:.4f} / "
+                    f"{runs[(tag, 'torch.isin')]['wall_ms']:.4f}")
+    log(f"[engines] {card}: hash_join_count {tag}: {int(want.sum())} matches, every engine == "
+        f"numpy and the generic engine, no fallback"
+        + (("; device / host wall ms (median of 5 synchronized runs): " + ", ".join(line))
+           if timed_runs else ""))
+    for engine in JOIN_ENGINES:
+        log(f"[engines]   {engine}: launches {runs[(tag, engine)]['launches']}"
+            + (f"; largest kernels, ms: {runs[(tag, engine)]['parts']}" if timed_runs else ""))
+
+
+def k15_edges(g, dev) -> list:
+    """(what, args) of K15 at its edges: an empty build, a count of 0,
+    keys with bit 31 set, a live 0xFFFFFFFF, sizes of 16 * 2^k +- 1, the
+    counts on the host and on the card."""
+    cases = []
+    for nb in (0, 1, 15, 17, 1023, 1025, 65535, 65537):
+        keys = g.integers(0, 2**32, size=nb, dtype=np.uint64).astype(np.uint32)
+        keys[::3] = keys[::3] % 512 | np.uint32(1 << 31)
+        for live, where in ((nb, "host"), (nb // 2, "card"), (0, "host"), (None, "none")):
+            n_live = nb if live is None else live
+            skey = np.concatenate([np.sort(keys[:n_live]),
+                                   np.full(nb - n_live, 0xFFFFFFFF, np.uint32)])
+            if n_live:
+                skey[n_live - 1] = 0xFFFFFFFF  # a live U32_MAX at count - 1
+            probe = np.concatenate([g.choice(np.append(keys, 0xFFFFFFFF), 2048) if nb else
+                                    np.full(2048, 0xFFFFFFFF),
+                                    g.integers(0, 2**32, 2049, dtype=np.uint64)]).astype(np.uint32)
+            bc = live if where != "card" else torch.tensor(live, dtype=torch.int32, device=dev)
+            for pc in (None, 4000, torch.tensor(3001, dtype=torch.int32, device=dev)):
+                cases.append((f"nb={nb} count={live} ({where}) probe_count="
+                              f"{pc if not isinstance(pc, torch.Tensor) else int(pc)}",
+                              (u32_dev(skey, dev), bc, u32_dev(probe, dev), pc)))
+    return cases
+
+
+def u32_dev(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(dev)
+
+
+def hash_set_parts(hs) -> list:
+    """What of K16's result the order of its atomics leaves fixed: the
+    stored values sorted (where keys failed, how many slots hold one), the
+    EMPTY-key flag and the failure count."""
+    stored = hs.slots[hs.slots != -1]
+    body = (torch.sort(stored).values if int(hs.n_failed) == 0 else
+            torch.tensor([stored.numel()], device=stored.device))
+    return [body, hs.has_empty_key.reshape(1), hs.n_failed.reshape(1)]
+
+
+def k16_edges(g, dev) -> list:
+    """(what, keys, size, count, limit) of K16 and K17 at their edges."""
+    from database_technology_algorithms_tpu_torch.ops.hash_table import table_size_for
+
+    cases = []
+    for n, kind in ((0, "empty"), (1, "random"), (17, "random"), (1025, "random"),
+                    (65537, "random"), (65537, "duplicates"), (4097, "empty pair"),
+                    (CLUSTER_KEYS, "one home slot"), (5000, "bit 31")):
+        size = table_size_for(n)
+        keys = g.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+        if kind == "duplicates":
+            keys = g.choice(keys[:500], size=n)
+        elif kind == "empty pair":
+            keys[::100], keys[1::100] = EMPTY_PAIR
+        elif kind == "one home slot":
+            keys = inverse_mix(11 + size * np.arange(n, dtype=np.uint64))
+        elif kind == "bit 31":
+            keys |= np.uint32(1 << 31)
+        t = u32_dev(keys, dev)
+        # a limit below 64 only where no other key is near: elsewhere which
+        # keys fail would hang on the atomics' order
+        short = 8 if kind == "one home slot" else 64
+        on_card = torch.tensor(n - n // 3, dtype=torch.int32, device=dev)
+        for count, limit in ((None, 64), (n // 2, 64), (on_card, short)):
+            shown = int(count) if isinstance(count, torch.Tensor) else count
+            cases.append((f"n={n} {kind} count={shown} limit={limit}", t, size, count, limit))
+    return cases
+
+
+def k18_edges(g, dev) -> list:
+    """(what, args) of K18 at its edges: overflow on either side, an
+    inactive tail, empty sides, one bucket, keys with bit 31 set."""
+    cases = []
+    for nbuckets, nb, npr, kind, cap in ((1, 100, 100, "one bucket", 128),
+                                         (16, 300, 400, "build overflow", 4),
+                                         (16, 300, 400, "probe overflow", 4),
+                                         (16, 0, 400, "empty build", 128),
+                                         (16, 300, 0, "empty probe", 128),
+                                         (4096, 70_000, 65_000, "inactive tail", 128),
+                                         (65536, 1 << 20, 1 << 20, "uniform", 128),
+                                         (65536, 1 << 20, 1 << 20, "heavy buckets", 128)):
+        sides = []
+        for n, heavy in ((nb, kind in ("build overflow", "heavy buckets")),
+                         (npr, kind in ("probe overflow", "heavy buckets"))):
+            b = g.integers(0, nbuckets, size=n)
+            if heavy and n:
+                b[: 3 * cap] = g.integers(0, 3, size=3 * cap)
+            if kind == "inactive tail":
+                b[n - n // 4:] = nbuckets
+            keys = (g.integers(0, 64, size=n) | np.where(g.random(n) < 0.5, 1 << 31, 0)).astype(
+                np.uint32)
+            sides += [torch.from_numpy(np.sort(b).astype(np.int32)).to(dev), u32_dev(keys, dev)]
+        cases.append((f"{kind}: {nbuckets} buckets, {nb} + {npr} rows, cap {cap}",
+                      (*sides, nbuckets, cap)))
+    return cases
+
+
+def check_engine_kernels_at_edges(g, dev) -> dict:
+    from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
+        bucket_probe, bucket_probe_plain)
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
+    from database_technology_algorithms_tpu_torch.kernels.sorted_probe import (
+        sorted_probe, sorted_probe_plain)
+
+    errs = {"sorted_probe": 0, "hash_set_build": 0, "hash_set_probe": 0, "bucket_probe": 0}
+    for what, args in k15_edges(g, dev):
+        errs["sorted_probe"] = max(errs["sorted_probe"], assert_same(
+            f"K15 {what}", sorted_probe(*args), sorted_probe_plain(*args)))
+    for what, keys, size, count, limit in k16_edges(g, dev):
+        hs = hash_set_build(keys, size, count, limit)
+        errs["hash_set_build"] = max(errs["hash_set_build"], assert_same(
+            f"K16 {what}", hash_set_parts(hs),
+            hash_set_parts(hash_set_build_plain(keys, size, count, limit))))
+        probe = torch.cat([keys, u32_dev(np.array(EMPTY_PAIR + (7,), np.uint32), dev)])
+        for pc, max_probe in ((None, limit), (probe.shape[0] - 2, 200), (None, 1)):
+            errs["hash_set_probe"] = max(errs["hash_set_probe"], assert_same(
+                f"K17 {what} probe_count={pc} max_probe={max_probe}",
+                hash_set_probe(hs, probe, pc, max_probe),
+                hash_set_probe_plain(hs, probe, pc, max_probe)))
+    for what, args in k18_edges(g, dev):
+        errs["bucket_probe"] = max(errs["bucket_probe"], assert_same(
+            f"K18 {what}", bucket_probe(*args), bucket_probe_plain(*args)))
+    torch.cuda.synchronize()
+    log("[kernels] K15-K18 equal their plain versions at their edges (K15: empty build, count "
+        "0, bit 31, a live 0xFFFFFFFF, 16*2^k +- 1 rows, counts on the host and the card; K16: "
+        "the stored set, flag and failures, with duplicates, the EMPTY pair, 100 keys on one "
+        "home slot, limits 64 and 8; K17 on K16's tables, max_probe 1, the limit and 200; "
+        "K18: overflow on either side, inactive tails, empty sides, 1-65536 buckets)")
+    return errs
+
+
+def phase_engines(dev, card: str) -> dict:
+    """The alternative u32 engines at the bench's shape: hash_join_count and
+    hash_join under "searchsorted", "table" and "bucketed" at fields 0 and 1
+    on 1M + 1M rows (raw tables, and the dedup'd sides with live counts),
+    field 1 at 8M + 8M; ``distinct`` and ``merge_join`` under "fastpath" at
+    1M and 16M rows; each against numpy and the generic engine, with the
+    launch counters set to 0 around each run, times beside the generic
+    engine's and ``torch.isin``; the three forced fallbacks; K15-K18 against
+    their plain versions at their edges and on the 1M runs' own inputs."""
+    from database_technology_algorithms_tpu_torch.batch import RecordBatch
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+    from database_technology_algorithms_tpu_torch.ops.distinct import distinct
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join, hash_join_count
+    from database_technology_algorithms_tpu_torch.ops.hash_table import table_size_for
+    from database_technology_algorithms_tpu_torch.ops.merge_join import merge_join
+
+    t_phase = time.time()
+    g = np.random.default_rng(13)
+    errs = check_engine_kernels_at_edges(g, dev)
+    runs: dict = {}
+    captured = {}
+    # ---- 1M + 1M: fields 0 and 1, raw and dedup'd -----------------------------------
+    r_cols, s_cols = gen_pair(ROWS)
+    r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
+    for field in (1, 0):
+        name = "recid" if field == 0 else "num"
+        rk, sk = r_cols[name], s_cols[name]
+        tag = f"field {field}, {ROWS} + {ROWS} rows"
+        recorders = [("sorted_probe", "sorted_probe"), ("hash_set", "hash_set_build"),
+                     ("hash_set", "hash_set_probe"), ("bucket_probe", "bucket_probe")]
+        with contextlib.ExitStack() as stack:
+            calls = {n: stack.enter_context(recorded_calls(m, n)) for m, n in recorders}
+            engine_runs(tag, s, r, field, None, None, membership_oracle(sk, ROWS, rk, ROWS),
+                        card, True, runs)
+        if field == 1:
+            captured = {n: c[0][0] for n, c in calls.items()}
+        r_d, nu_r = distinct(r, field)
+        s_d, nu_s = distinct(s, field)
+        ur, us = np.unique(rk), np.unique(sk)
+        if (int(nu_r), int(nu_s)) != (len(ur), len(us)):
+            raise AssertionError(f"[engines] distinct {tag}: counts differ from numpy")
+        want = membership_oracle(np.pad(us, (0, ROWS - len(us))), len(us),
+                                 np.pad(ur, (0, ROWS - len(ur))), len(ur))
+        engine_runs(f"{tag}, dedup'd ({len(us)} + {len(ur)} live)", s_d, r_d, field, nu_s, nu_r,
+                    want, card, field == 1, runs)
+        hit = np.isin(rk, sk)
+        g_out, g_n = hash_join(s, r, field)
+        for engine in JOIN_ENGINES:
+            out, n_out = hash_join(s, r, field, engine_cfg(engine))
+            if int(n_out) != int(hit.sum()) or not np.array_equal(
+                    u32_host(out.recid[: int(hit.sum())]), r_cols["recid"][hit]):
+                raise AssertionError(f"[engines] hash_join {engine} {tag}: rows differ from numpy")
+            for c in ("recid", "num", "strw", "valid"):
+                if not torch.equal(getattr(out, c), getattr(g_out, c)):
+                    raise AssertionError(f"[engines] hash_join {engine} {tag}: {c} differs "
+                                         f"from the generic engine")
+        log(f"[engines] hash_join {tag}: {int(hit.sum())} probe rows emitted under every "
+            f"engine, == numpy and the generic engine's batch")
+        del r_d, s_d, g_out, out
+    # ---- distinct and merge_join under "fastpath", 1M --------------------------------
+    fast = engine_cfg("fastpath")
+
+    def fastpath_runs(tag: str, batch, r2, s2, want_n: int, want_pairs: int) -> None:
+        for op, fn, gen in (
+                ("distinct", lambda: distinct(batch, 1, fast), lambda: distinct(batch, 1)),
+                ("merge_join", lambda: merge_join(r2, s2, 1, fast), lambda: merge_join(r2, s2, 1))):
+            torch.cuda.synchronize()
+            reset_launches()
+            got = fn()
+            torch.cuda.synchronize()
+            check_launched(dict(LAUNCHES), FASTPATH_KERNELS, f"{op} fastpath {tag}")
+            want = gen()
+            if int(got[1]) != (want_n if op == "distinct" else want_pairs):
+                raise AssertionError(f"[engines] {op} fastpath {tag}: count differs from numpy")
+            for c in ("recid", "num", "strw", "valid"):
+                if not torch.equal(getattr(got[0], c), getattr(want[0], c)):
+                    raise AssertionError(f"[engines] {op} fastpath {tag}: {c} differs from the "
+                                         f"generic engine")
+            times = {}
+            for engine, f in (("fastpath", fn), ("generic", gen)):
+                times[engine] = (device_ms(f), wall_ms(f, reps=3))
+                runs[(f"{op} {tag}", engine)] = {"device_ms": times[engine][0],
+                                                 "wall_ms": times[engine][1]}
+            log(f"[engines] {card}: {op} fastpath {tag}: {int(got[1])} == numpy, equal to the "
+                f"generic engine; device / host wall ms: fastpath {times['fastpath'][0]:.4f} / "
+                f"{times['fastpath'][1]:.4f}, generic {times['generic'][0]:.4f} / "
+                f"{times['generic'][1]:.4f}")
+
+    pairs = len(np.intersect1d(r_cols["num"], s_cols["num"]))
+    fastpath_runs(f"field 1, {ROWS} rows (merge_join {ROWS} + {ROWS})", r, r, s,
+                  len(np.unique(r_cols["num"])), pairs)
+    # ---- the forced fallbacks, 1M + 1M, field 1 --------------------------------------
+    rk, sk = r_cols["num"], s_cols["num"]
+    size = table_size_for(ROWS)
+    cluster = inverse_mix(5 + size * np.arange(CLUSTER_KEYS, dtype=np.uint64))
+    forced = []
+    b_eq = dict(s_cols, num=np.full(ROWS, 77, np.uint32))
+    forced.append(("bucketed", "all build keys equal", b_eq, r_cols))
+    b_cl = dict(s_cols, num=np.concatenate([cluster, sk[CLUSTER_KEYS:]]))
+    p_cl = dict(r_cols, num=np.concatenate([cluster[::2], rk[CLUSTER_KEYS // 2:]]))
+    forced.append(("table", f"{CLUSTER_KEYS} build keys on one home slot", b_cl, p_cl))
+    for engine, what, bc_cols, pc_cols in forced:
+        build, probe = to_batch(bc_cols, dev), to_batch(pc_cols, dev)
+        want = membership_oracle(bc_cols["num"], ROWS, pc_cols["num"], ROWS)
+        with fallback_calls() as fell:
+            res = hash_join_count(build, probe, 1, engine_cfg(engine))
+        check_count(res, want, f"[engines] {engine} {what}", hash_join_count(build, probe, 1))
+        if fell[engine] != 1:
+            raise AssertionError(f"[engines] {engine} {what}: the fallback ran {fell} times")
+        runs[(f"forced: {what}", engine)] = {"fallbacks": fell[engine]}
+        log(f"[engines] forced fallback, {engine}, {what}: the fallback ran ({fell}); "
+            f"{int(want.sum())} matches == numpy and the generic engine")
+    # the EMPTY pair: the key whose mix is EMPTY is flagged, never stored as its pair's mix
+    for held in EMPTY_PAIR:
+        b_e = dict(s_cols, num=np.concatenate([[held], sk[1:]]).astype(np.uint32))
+        p_e = dict(r_cols, num=np.concatenate([list(EMPTY_PAIR), rk[2:]]).astype(np.uint32))
+        build, probe = to_batch(b_e, dev), to_batch(p_e, dev)
+        want = membership_oracle(b_e["num"], ROWS, p_e["num"], ROWS)
+        with fallback_calls() as fell:
+            res = hash_join_count(build, probe, 1, engine_cfg("table"))
+        check_count(res, want, f"[engines] table, the EMPTY pair, build holds {held:#x}",
+                    hash_join_count(build, probe, 1))
+        if any(fell.values()):
+            raise AssertionError(f"[engines] table EMPTY pair: a fallback ran {fell}")
+        log(f"[engines] the EMPTY pair: a build holding only {held:#x} matches the probe's "
+            f"{held:#x} and not its pair: {res[0][:2].tolist()} == numpy and the generic engine")
+    del build, probe, res
+    # ---- K15-K18 on the 1M field-1 run's own inputs ----------------------------------
+    own = check_engine_kernels_on(captured)
+    for k, e in own.items():
+        errs[k] = max(errs[k], e)
+    # ---- 8M + 8M, field 1, the budget's edge -----------------------------------------
+    del r, s
+    r_cols, s_cols = gen_pair(BIG_ROWS)
+    r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
+    engine_runs(f"field 1, {BIG_ROWS} + {BIG_ROWS} rows", s, r, 1, None, None,
+                membership_oracle(s_cols["num"], BIG_ROWS, r_cols["num"], BIG_ROWS), card, True,
+                runs)
+    both = RecordBatch.concat([r, s])
+    fastpath_runs(f"field 1, {2 * BIG_ROWS} rows (merge_join {BIG_ROWS} + {BIG_ROWS})", both,
+                  r, s, len(np.unique(np.concatenate([r_cols["num"], s_cols["num"]]))),
+                  len(np.intersect1d(r_cols["num"], s_cols["num"])))
+    del both, r, s
+    recs = engine_records(captured, runs, errs, card)
+    log(f"[engines] the phase took {time.time() - t_phase:.1f} s")
+    return {"recs": recs, "runs": runs}
+
+
+def check_engine_kernels_on(captured: dict) -> dict:
+    """K15-K18 against their plain versions on the arguments the 1M field-1
+    runs gave them (K16 by the parts its atomics' order leaves fixed; K17 on
+    the kernel's own table)."""
+    from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
+        bucket_probe, bucket_probe_plain)
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
+    from database_technology_algorithms_tpu_torch.kernels.sorted_probe import (
+        sorted_probe, sorted_probe_plain)
+
+    pairs = {"sorted_probe": (lambda a: sorted_probe(*a), lambda a: sorted_probe_plain(*a)),
+             "hash_set_build": (lambda a: hash_set_parts(hash_set_build(*a)),
+                                lambda a: hash_set_parts(hash_set_build_plain(*a))),
+             "hash_set_probe": (lambda a: hash_set_probe(*a), lambda a: hash_set_probe_plain(*a)),
+             "bucket_probe": (lambda a: bucket_probe(*a), lambda a: bucket_probe_plain(*a))}
+    errs = {k: assert_same(f"{k} on the 1M field-1 run's inputs", kern(captured[k]),
+                           plain(captured[k])) for k, (kern, plain) in pairs.items()}
+    torch.cuda.synchronize()
+    log(f"[kernels] K15-K18 equal their plain versions on the 1M field-1 runs' own inputs; "
+        f"max abs err {errs}")
+    return errs
+
+
+def engine_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict]:
+    """The kernels line's entries of K15-K18, at the 1M field-1 run's shapes."""
+    from database_technology_algorithms_tpu_torch.batch import as_u32
+    from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
+        bucket_probe, bucket_probe_plain)
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
+    from database_technology_algorithms_tpu_torch.kernels.sorted_probe import (
+        sorted_probe, sorted_probe_plain)
+
+    tag = f"field 1, {ROWS} + {ROWS} rows"
+    recs = []
+    skey, bc, pkey, pc = captured["sorted_probe"]
+    nb, npr = skey.shape[0], pkey.shape[0]
+    s64, p64 = as_u32(skey), as_u32(pkey)
+    nbytes = 4 * nb + 4 * npr + 5 * npr  # build and probe keys in; hit and mult out
+    recs.append(("sorted_probe", "searchsorted", "csrc/sorted_probe.cu", "ops/fastpath.py:101",
+                 lambda: sorted_probe(*captured["sorted_probe"]),
+                 lambda: sorted_probe_plain(*captured["sorted_probe"]),
+                 lambda: torch.searchsorted(s64, p64), "torch.searchsorted of the u32 values",
+                 nbytes, npr * max(nb, 1).bit_length(),
+                 f"{nb} sorted build keys, {npr} probe keys"))
+    keys, size, count, limit = captured["hash_set_build"]
+    n = keys.shape[0]
+    recs.append(("hash_set_build", "table", "csrc/hash_set.cu", "ops/hash_table.py:50",
+                 lambda: hash_set_build(keys, size, count, limit),
+                 lambda: hash_set_build_plain(keys, size, count, limit), None, None,
+                 4 * n + 4 * size + 8, 12 * n, f"{n} build keys into {size} slots"))
+    hs, pkeys, pcount, max_probe = captured["hash_set_probe"]
+    npk = pkeys.shape[0]
+    recs.append(("hash_set_probe", "table", "csrc/hash_set.cu", "ops/hash_table.py:108",
+                 lambda: hash_set_probe(hs, pkeys, pcount, max_probe),
+                 lambda: hash_set_probe_plain(hs, pkeys, pcount, max_probe), None, None,
+                 4 * size + 4 + 4 * npk + 5 * npk, 12 * npk,
+                 f"{npk} probe keys against {size} slots"))
+    bb, bk, pb, pk, nbuckets, cap = captured["bucket_probe"]
+    cb = torch.bincount(bb.long(), minlength=nbuckets + 1)[:nbuckets]
+    cp = torch.bincount(pb.long(), minlength=nbuckets + 1)[:nbuckets]
+    ok = (cb <= cap) & (cp <= cap)
+    compares = int((cb * cp * ok).sum())
+    searches = 4 * (nbuckets + 1) * max(bb.shape[0], pb.shape[0], 1).bit_length()
+    recs.append(("bucket_probe", "bucketed", "csrc/bucket_probe.cu", "ops/bucket_join.py:59",
+                 lambda: bucket_probe(*captured["bucket_probe"]),
+                 lambda: bucket_probe_plain(*captured["bucket_probe"]), None, None,
+                 8 * bb.shape[0] + 9 * pb.shape[0] + 4, compares + searches,
+                 f"{nbuckets} buckets of cap {cap}, {bb.shape[0]} + {pb.shape[0]} rows, "
+                 f"{compares} key compares"))
+    out = []
+    for name, engine, src, repl, kern, plain, lib, lib_name, nbytes, nops, shape in recs:
+        bound, by = bound_of(nbytes, nops)
+        rec = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+               "replaces": f"{JAX_PKG}/{repl}",
+               "launches": runs[(tag, engine)]["launches"].get(name, 0),
+               "max_abs_err": errs[name], "ms": device_ms(kern), "plain_ms": device_ms(plain),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": device_ms(lib) if lib is not None else None, "shape": shape}
+        log(f"[timing] {card}: {name} ({shape}): device time per call: kernel {rec['ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, library "
+            + (f"{lib_name} {rec['library_ms']:.4f} ms" if lib is not None else "none")
+            + f", bound {bound:.4f} ms ({nbytes} B, {nops} ops, by {by}); launches a run "
+            f"{rec['launches']}")
+        out.append(rec)
+    return out
+
+
 def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dict, errs: dict,
                   card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
@@ -3752,7 +4269,10 @@ def main() -> int:
     done("external")
     agg = phase_aggregate(dev, card)
     done("aggregate")
-    kernels = phase_timings(pipe, command, over, sort, probes, errs, card) + agg["recs"]
+    eng = phase_engines(dev, card)
+    done("engines")
+    kernels = (phase_timings(pipe, command, over, sort, probes, errs, card) + agg["recs"]
+               + eng["recs"])
     done("timings")
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks[:-1], marks[1:])))

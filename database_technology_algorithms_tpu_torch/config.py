@@ -32,10 +32,10 @@ class EngineConfig:
     # --- hash join ----------------------------------------------------------
     hash_load_factor_inv: int = 2
     hash_max_probe: int = 64
-    # only the generic (sort-based) engines are ported.  As in the JAX package
-    # the other engines apply to fields 0 and 1 only (distinct: "fastpath"
-    # without an `active` mask), and there they raise; elsewhere the generic
-    # path runs under any value
+    # "generic" (sort-based), or for fields 0 and 1 only, as in the JAX
+    # package, "searchsorted" (ops/fastpath.py), "table" (ops/hash_table.py)
+    # and "bucketed" (ops/bucket_join.py); distinct: "fastpath" without an
+    # `active` mask.  Elsewhere the generic path runs under any value
     u32_join_engine: str = "generic"
     u32_distinct_engine: str = "generic"
 

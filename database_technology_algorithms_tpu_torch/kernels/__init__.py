@@ -21,6 +21,12 @@
                                 <- ops/aggregate.py:46-75 _run_aggregates' scans and compaction
     K14 expand_sources.expand_sources
                                 <- ops/hash_join.py:682-686 materialize_field3_device's search
+    K15 sorted_probe.sorted_probe
+                                <- ops/fastpath.py:101-104 hash_join_count_u32's searchsorted probe
+    K16 hash_set.hash_set_build <- ops/hash_table.py:50 build_hash_set
+    K17 hash_set.hash_set_probe <- ops/hash_table.py:108 probe_hash_set
+    K18 bucket_probe.bucket_probe
+                                <- ops/bucket_join.py:59-158 the bucket table and compare
 
 (paths in the JAX package; K11 and K12's in the repository's ``tools/``).
 K1 and K5 run on one one-sweep LSD radix sort (``csrc/radix.cuh``), whose
@@ -30,7 +36,7 @@ pass schedule ``radix_plan`` builds; K4 and K12 on one row-move engine
 one tile layout (``csrc/scan.cuh``), whose tile and scratch ``scan_plan``
 holds; K9's span and place warps and K10's tables follow ``cells_plan``;
 K6's rows a lane and key stages and the rows a thread and grid of K7's
-gather follow ``perm_plan``.
+gather follow ``perm_plan``; K15-K18's limits are in ``engines_plan``.
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
 fallback from one to the other.

@@ -34,6 +34,7 @@ LAUNCHES = {
     "words_sort": 0, "adj_equal": 0, "unpermute": 0, "unpermute_gather": 0,
     "hash_words": 0, "stage_cells": 0, "member_mult": 0,
     "tile_copy": 0, "row_move": 0, "run_aggregate": 0, "expand_sources": 0,
+    "sorted_probe": 0, "hash_set_build": 0, "hash_set_probe": 0, "bucket_probe": 0,
 }
 
 
@@ -135,6 +136,10 @@ _SIGNATURES = {
     "dbt_row_move": ([_P, _P, _P, _I64, _I, _I64, _I, _P, _I64, _I, _I, _P], _I),
     "dbt_run_aggregate": ([_P, _P, _PP, _I, _I64, _P, _P, _P], _I),
     "dbt_expand_sources": ([_P, _I64, _P, _I64, _P, _P], _I),
+    "dbt_sorted_probe": ([_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P], _I),
+    "dbt_hash_set_build": ([_P, _I64, _P, _I64, _P, _I64, _I, _P, _P], _I),
+    "dbt_hash_set_probe": ([_P, _I64, _P, _P, _I64, _P, _I64, _I, _P, _P, _P], _I),
+    "dbt_bucket_probe": ([_P, _P, _I64, _P, _P, _I64, _I64, _I, _P, _P, _P], _I),
 }
 
 

@@ -85,10 +85,9 @@ def distinct_impl(
     fld = canonical_field(field)
     if fld in (0, 1) and cfg.u32_distinct_engine == "fastpath" and active is None:
         # the JAX package's only dispatch away from the generic path
-        raise NotImplementedError(
-            f"u32_distinct_engine={cfg.u32_distinct_engine!r}: the alternative "
-            "distinct engines are not ported yet (ROADMAP.md, Queue 1 item 4)"
-        )
+        from .fastpath import distinct_u32
+
+        return distinct_u32(batch, fld, count=count)
     view, keep = distinct_view(batch, fld, cfg, count=count, active=active)
     n = batch.nrows
     if packed_placement(cfg, fld, batch.str_words) and n < (1 << 30):

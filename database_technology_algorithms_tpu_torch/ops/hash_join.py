@@ -18,6 +18,12 @@ join: both sides are hashed (K8) and staged into cells (K9), the cell pairs
 are joined a budget-sized group at a time (K10, whose counts land compacted
 in slot order), and the counts return to probe order through one gather by
 each probe row's slot (K7's gather form).
+
+For fields 0 and 1, ``cfg.u32_join_engine`` picks one of the single-word
+key engines instead of the generic one, as in the JAX package:
+"searchsorted" (``ops/fastpath.py``, K15), "table" (``ops/hash_table.py``,
+K16 and K17) and "bucketed" (``ops/bucket_join.py``, K18), whose fallback
+is ``build_key_multiset`` + ``probe_multiplicity`` here.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from ..batch import FIELD_NUMSTR, RecordBatch, canonical_field
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..kernels import cells_plan
+from ..kernels.compact import compact_words
 from ..kernels.expand_sources import expand_sources
 from ..kernels.member_mult import member_multiplicity_cells
 from ..kernels.unpermute import unpermute, unpermute_gather
@@ -37,13 +44,86 @@ from ..utils.checks import ensure_device_budget
 from .keys import key_hash, key_words
 from .movement import compact_rows, stage_to_cells
 from .scan import cumsum, seg_carry
-from .sort import packed_u32_view_sort, sort_keys, sorted_adjacent_equal
+from .sort import materialize_survivors, packed_u32_view_sort, sort_keys, sorted_adjacent_equal
 
 
 log = logging.getLogger(__name__)
 
 # K9 addresses a side's cells with 32-bit slots
 _MAX_CELL_SLOTS = (1 << 31) - 1
+
+
+def build_key_multiset(
+    build: RecordBatch,
+    field,
+    cfg: EngineConfig = DEFAULT_CONFIG,
+    count=None,
+) -> tuple[RecordBatch, torch.Tensor, torch.Tensor]:
+    """Collapse the build side to (unique-key rows, per-key count, n_unique).
+
+    The heir of the reference's hash-table build phase
+    (``DatabaseProject.cpp:518-547``): the map's key set plus, for field 3,
+    the multimap's per-key multiplicity.  One key sort, the survivors
+    materialized (``materialize_survivors``), and the per-key counts as
+    differences of the inclusive active count (K2) at the run ends,
+    compacted (K3)."""
+    n = build.nrows
+    pre, extra = (), ()
+    if count is not None:
+        act0 = torch.arange(n, dtype=torch.int32, device=build.recid.device) < count
+        pre, extra = (~act0,), (act0.to(torch.int32),)
+    view = sort_keys(build, field, cfg, pre_words=pre, extra=extra, pre_is_mask=True)
+    active = view.extras[0] == 1 if count is not None else torch.ones_like(view.adj_eq)
+    adj = view.adj_eq
+    new_run = active & ~adj
+    # run end: active and (last row, or next row inactive, or next key differs)
+    nxt_active = torch.cat([active[1:], active.new_zeros(1)])
+    nxt_same = torch.cat([adj[1:], adj.new_zeros(1)])
+    is_end = active & (~nxt_active | ~nxt_same)
+    c_incl = cumsum(active.to(torch.int32))
+    uniq, n_unique = materialize_survivors(build, view.perm, new_run, cfg)
+    _, (ends,) = compact_words(is_end, (c_incl,))
+    prev = torch.cat([ends.new_zeros(1), ends[:-1]])
+    rows = torch.arange(n, dtype=torch.int32, device=ends.device)
+    return uniq, torch.where(rows < n_unique, ends - prev, 0), n_unique
+
+
+def probe_multiplicity(
+    build_uniq: RecordBatch,
+    build_counts: torch.Tensor,
+    n_build,
+    probe: RecordBatch,
+    field,
+    cfg: EngineConfig = DEFAULT_CONFIG,
+    probe_count=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-probe-row (matched, build multiplicity), in probe original order.
+
+    Sort build||probe by (inactive, key, row): each equal-key run holds at
+    most one build row, first (build rows occupy [0, nb)).  A segmented
+    carry (K2) hands every row its run head's (is-build, multiplicity), and
+    one un-permute (K7) returns the probe rows' answers to probe order."""
+    nb, np_ = build_uniq.nrows, probe.nrows
+    both = RecordBatch.concat([build_uniq, probe])
+    n = nb + np_
+    idx = torch.arange(n, dtype=torch.int32, device=both.recid.device)
+    probe_active = idx >= nb if probe_count is None else (idx - nb) < probe_count
+    active = torch.where(idx < nb, idx < n_build, probe_active)
+    counts_w = torch.cat([build_counts.to(torch.int32), idx.new_zeros(np_)])
+    view = sort_keys(both, field, cfg, pre_words=(~active,),
+                     extra=(active.to(torch.int32), counts_w), pre_is_mask=True)
+    s_act, s_cnt = view.extras
+    s_build = view.perm < nb
+    is_start = ~view.adj_eq  # element 0 always True
+    # head info packed: bit 31 = head is an active build row; low bits = count
+    head_is_build = is_start & s_build & (s_act == 1)
+    low = torch.where(s_cnt < 0, 0x7FFFFFFF, s_cnt)  # min(count, 0x7FFFFFFF) unsigned
+    carry = seg_carry(is_start, torch.where(head_is_build, low | -(1 << 31), low))
+    matched_sorted = ~s_build & (s_act == 1) & (carry < 0)
+    mult_sorted = torch.where(matched_sorted, carry & 0x7FFFFFFF, 0)
+    matched = unpermute(view.perm, matched_sorted, lo=nb, m=np_)
+    mult = unpermute(view.perm, mult_sorted, lo=nb, m=np_)
+    return matched, mult
 
 
 def _fused_matched_mult(
@@ -116,14 +196,24 @@ def hash_join_count_impl(
     field = canonical_field(field)
     ensure_device_budget(build.nrows + probe.nrows, cfg, "hash_join_count")
     if field in (0, 1) and cfg.u32_join_engine != "generic":
-        # the JAX package dispatches to its single-word key engines here only;
-        # every other field runs the generic path under any engine
-        if cfg.u32_join_engine not in ("searchsorted", "table", "bucketed"):
-            raise ValueError(f"unknown u32_join_engine {cfg.u32_join_engine!r}")
-        raise NotImplementedError(
-            f"u32_join_engine={cfg.u32_join_engine!r}: the alternative join "
-            "engines are not ported yet (ROADMAP.md, Queue 1 item 4)"
-        )
+        # single-word key engines, for fields 0 and 1 only as in the JAX
+        # package; all of them return the generic engine's result
+        if cfg.u32_join_engine == "searchsorted":
+            from .fastpath import hash_join_count_u32
+
+            return hash_join_count_u32(build, probe, field,
+                                       build_count=build_count, probe_count=probe_count)
+        if cfg.u32_join_engine == "table":
+            from .hash_table import hash_join_count_table
+
+            return hash_join_count_table(build, probe, field, cfg,
+                                         build_count=build_count, probe_count=probe_count)
+        if cfg.u32_join_engine == "bucketed":
+            from .bucket_join import hash_join_count_bucketed
+
+            return hash_join_count_bucketed(build, probe, field, cfg,
+                                            build_count=build_count, probe_count=probe_count)
+        raise ValueError(f"unknown u32_join_engine {cfg.u32_join_engine!r}")
     matched, mult = _fused_matched_mult(build, probe, field, cfg, build_count, probe_count)
     if field != FIELD_NUMSTR:
         mult = matched.to(torch.int32)

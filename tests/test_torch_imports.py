@@ -48,7 +48,8 @@ def test_port_sources_found():
             "__main__.py", "tile_copy.py", "row_move.py", "bench_pallas_dma.py",
             "bench_permute_prims.py", "external.py", "metrics.py", "native.py",
             "aggregate.py", "filter.py", "checks.py", "run_aggregate.py",
-            "expand_sources.py"} <= names
+            "expand_sources.py", "fastpath.py", "hash_table.py", "bucket_join.py",
+            "sorted_probe.py", "hash_set.py", "bucket_probe.py", "engines_plan.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -142,6 +143,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     from database_technology_algorithms_tpu_torch.kernels.run_aggregate import run_aggregate
     from database_technology_algorithms_tpu_torch.kernels.expand_sources import (
         expand_sources)
+    from database_technology_algorithms_tpu_torch.kernels.sorted_probe import sorted_probe
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        HashSet, hash_set_build, hash_set_probe)
+    from database_technology_algorithms_tpu_torch.kernels.bucket_probe import bucket_probe
 
     meta = torch.device("meta")
     words = torch.empty(8, dtype=torch.int32, device=meta)
@@ -167,6 +172,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: run_aggregate(flags, flags, (words,)),
         lambda: run_aggregate(flags, flags, (words, words, words, words)),
         lambda: expand_sources(words, words[0], 8),
+        lambda: sorted_probe(words, 4, words, None),
+        lambda: hash_set_build(words, 16, 4),
+        lambda: hash_set_probe(HashSet(words, words[0], words[1]), words, None, 8),
+        lambda: bucket_probe(words, words, words, words, 4, 8),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

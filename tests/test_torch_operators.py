@@ -374,13 +374,9 @@ def test_compact_rows_matches_jax(n, route):
 
 def test_unported_engines_and_routes_raise():
     _, tb = both_batches(make_cols(50, seed=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdistinct.distinct(tb, 1, TConfig(u32_distinct_engine="fastpath"))
-    for engine in ("searchsorted", "table", "bucketed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            thash.hash_join_count(tb, tb, 1, TConfig(u32_join_engine=engine))
-    # the placement route runs (tests/test_torch_placement.py holds it
-    # against JAX) and gives the gather route's result
+    # the alternative u32 engines run (tests/test_torch_engines.py); the
+    # placement route runs (tests/test_torch_placement.py holds it against
+    # JAX) and gives the gather route's result
     sort_route = TConfig(materialize="sort")
     for call in (
         lambda cfg: tsort.sort_batch(tb, 2, cfg)[0],
