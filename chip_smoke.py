@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
      K4 record gather, K5 multi-word sort, K6 adjacent-key equality,
      K7 un-permute, K8 key hash, K9 staging into cells, K10 build
      multiplicity over cell pairs, K11 tile copy, K12 row move; K13 run
-     aggregate and K14 expansion sources in phase 9, K15-K18 in phase 10)
+     aggregate and K14 expansion sources in phase 9, K15-K18 in phase 10,
+     K19-K22 in phase 11)
      against its
      plain torch version on the card, bit for bit, at the main paths'
      shapes and at edge cases (K4 and K12, on the row-move engine of
@@ -94,11 +95,11 @@ Phases (any failure raises and the script exits non-zero):
      its JSON counters against numpy, ``peak_range_rows <= mem_rows``, an
      empty spill directory and the kernels the run launched, with its host
      wall (a run with no profiler and nothing wrapped) and passes; the
-     joins (9M + 9M and 1M + 1M rows) again under torch.profiler for the
-     device busy time and where the wall goes; on the automatic route
-     the largest ``sort_batch``, ``distinct_sorted`` and ``hash_join_count``
-     call run again on the run's own device batches, every kernel they
-     launch held against its plain version; the native block-file library
+     9M + 9M joins (the automatic route) again under torch.profiler for
+     the device busy time and where the wall goes; in that repeat the
+     largest ``sort_batch``, ``distinct_sorted`` and ``hash_join_count``
+     call runs again on the run's own device batches, every kernel it
+     launches held against its plain version; the native block-file library
      built from ``native/dbtio.cpp`` and its read of R against numpy's;
   9. selection filter and group-by aggregate (BASELINE's second
      configuration) at the default budget's edge: two tables of 16,777,200
@@ -129,7 +130,23 @@ Phases (any failure raises and the script exits non-zero):
      still exact, and the key whose mix is the table's EMPTY answered
      exactly; K15-K18 against their plain versions at their edges and on
      the 1M runs' own inputs (``[engines]`` lines);
- 11. timings: each kernel's device time (torch.profiler) beside its plain
+ 11. the distributed plan on a mesh of four shards on the one card
+     (``parallel/``, ``make_dist_pipeline``): K19 (top-k runs), K20 (hot
+     list), K21 (hot-set membership), K22 (range destination) and K9's
+     fill against their plain versions at their edges; the plan at 4M + 4M
+     rows (1M a shard, every seventh row invalid) for fields 0-3 under the
+     "sorted", "skew" and "overlap" engines and "sorted" with 4 exchange
+     slices, each run's counters against numpy and the single-card
+     pipeline, its join rows' keys against numpy, overflow 0 and the launch
+     counters set to 0 before and read after it; BASELINE config 4 (Zipf
+     1.2, 4M + 4M): ``dist_hash_join_skew`` (``n_hot`` printed),
+     ``dist_hash_join`` and ``dist_hash_join_overlapped`` against numpy;
+     ``dist_sort``, ``dist_distinct`` and ``dist_aggregate`` on 4M rows; a
+     3-shard mesh at 3M + 3M (the unsigned modulo); ``pipeline --dist 4``
+     on block files under each engine; K19-K22 and K9's fill again on the
+     runs' own inputs; a 16M + 16M run's stages (local, shuffle, join)
+     timed; the phase must end within 60 s (``[dist]`` lines);
+ 12. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
      beside a stable torch.sort, and how many radix passes K1 and K5
@@ -225,7 +242,7 @@ def wall_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def profile_device(fn, reps: int = 5) -> dict:
+def profile_device(fn, reps: int = 5, cpu: bool = True) -> dict:
     """torch.profiler over `reps` calls: the device kernels' time per call,
     by kernel name (device-side events only, so that an operator and the
     kernel it launched are not counted twice).
@@ -239,9 +256,11 @@ def profile_device(fn, reps: int = 5) -> dict:
     events is left out of the mean.  A trace with no whole call left, with
     calls that differ in their number of events, or that does not end in a
     marker is thrown away and taken again, up to PROFILE_ATTEMPTS traces in
-    all; then the reading is refused."""
+    all; then the reading is refused.  ``cpu=False`` traces the device
+    alone, which keeps the trace of a call with thousands of torch
+    operators short to read."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        calls, lost = _profile_calls(fn, reps)
+        calls, lost = _profile_calls(fn, reps, cpu)
         if calls:
             break
         log(f"[profile] trace {attempt} of {PROFILE_ATTEMPTS} thrown away: {lost}")
@@ -259,7 +278,7 @@ def profile_device(fn, reps: int = 5) -> dict:
             "per_call": [ev.name for ev in calls[-1]]}
 
 
-def _profile_calls(fn, reps: int) -> tuple[list, str]:
+def _profile_calls(fn, reps: int, cpu: bool = True) -> tuple[list, str]:
     """One fenced trace of `reps` calls of fn: (the device events of each
     whole call, or [] and what the trace lost)."""
     from torch.autograd import DeviceType
@@ -269,7 +288,8 @@ def _profile_calls(fn, reps: int) -> tuple[list, str]:
     marker = torch.zeros(1, dtype=torch.complex128, device="cuda")
     marker.add_(1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(PROFILE_GUARD):
             marker.add_(1)
         for _ in range(reps):
@@ -303,11 +323,12 @@ def device_parts(prof: dict, top: int = 4) -> str:
         f"{us / 1e3:.4f}" for name, us in prof["top"][:top])
 
 
-def device_ms(fn) -> float:
+def device_ms(fn, cpu: bool = True) -> float:
     """Device time of the kernels one call of fn launches (torch.profiler,
-    mean of 10 calls).  Unlike a CUDA-event span over back-to-back calls it
-    leaves out the host's issue time, which bounds the small kernels here."""
-    us = profile_device(fn, reps=10)["busy_us"]
+    mean of 10 calls; ``cpu=False`` traces the device alone).  Unlike a
+    CUDA-event span over back-to-back calls it leaves out the host's issue
+    time, which bounds the small kernels here."""
+    us = profile_device(fn, reps=10, cpu=cpu)["busy_us"]
     if us <= 0:
         raise RuntimeError("torch.profiler reported no device time")
     return us / 1e3
@@ -2813,9 +2834,9 @@ def phase_external(dev, card: str) -> dict:
     ``--mem-blocks 1000``.  Each command runs once clean (no profiler, no
     wrapper: the host wall and the launch counters) and is checked against
     numpy, with its counters, a clean spill directory and the native reader.
-    The joins (9M + 9M and 1M + 1M rows) run again under torch.profiler and
-    the ExternalClock (the busy share and the wall's parts); on the
-    automatic route that repeat also keeps the largest ``sort_batch`` (pass
+    The 9M + 9M joins (the automatic route) run again under torch.profiler
+    and the ExternalClock (the busy share and the wall's parts); that
+    repeat also keeps the largest ``sort_batch`` (pass
     1), ``distinct_sorted`` and ``hash_join_count`` (a semi-join pair) call,
     and every kernel those calls launch is held against its plain version
     on the run's own inputs.  Returns {kernel: its largest error there}."""
@@ -2910,7 +2931,7 @@ def phase_external(dev, card: str) -> dict:
                     f"{line.get('bytes_host', '-')}")
                 log(f"[external]   launches {res['launches']}")
                 os.unlink(fo)
-                if cmd in ("mergejoin", "hashjoin"):
+                if auto:  # the 9M-row joins: the 1M-row ones' repeats taught nothing more
                     prof = traced_cli(argv)
                     same = {k: v for k, v in prof["line"].items() if k != "wall_s"}
                     if prof["rc"] != 0 or same != {k: v for k, v in line.items() if k != "wall_s"}:
@@ -2930,24 +2951,22 @@ def phase_external(dev, card: str) -> dict:
                         f"the profiled wall, {busy / res['wall']:.3f} of the clean one")
                     log(f"[external]   largest kernels, ms: " + device_parts(prof))
                     cat = sum(us for k, us in prof["top"] if "CatArrayBatchedCopy" in k)
-                    if cmd in ("mergejoin", "hashjoin"):
-                        log(f"[external]   torch.cat kernels (RecordBatch.concat of the "
-                            f"semi-join's two sides, ops/hash_join.py _fused_matched_mult): "
-                            f"{cat / 1e3:.2f} ms")
-                    if auto:
-                        shapes = {op: op_rows(a) for op, (a, _) in prof["captured"].items()}
-                        seen = check_captured_kernels(prof["captured"], what)
-                        ran = {k for k, v in res["launches"].items() if v}
-                        if ran - set(seen):
-                            raise AssertionError(
-                                f"[external] {what}: the run launched {sorted(ran - set(seen))}, "
-                                f"which the captured calls {shapes} never reached")
-                        for k, (_, _, err) in seen.items():
-                            errs[k] = max(errs.get(k, 0), err)
-                        log(f"[kernels] {what}: the largest call of each operator, by rows "
-                            f"{shapes}, run again on the run's own device batches: every "
-                            f"kernel equals its plain version (calls, largest rows, max abs "
-                            f"err): {seen}")
+                    log(f"[external]   torch.cat kernels (RecordBatch.concat of the "
+                        f"semi-join's two sides, ops/hash_join.py _fused_matched_mult): "
+                        f"{cat / 1e3:.2f} ms")
+                    shapes = {op: op_rows(a) for op, (a, _) in prof["captured"].items()}
+                    seen = check_captured_kernels(prof["captured"], what)
+                    ran = {k for k, v in res["launches"].items() if v}
+                    if ran - set(seen):
+                        raise AssertionError(
+                            f"[external] {what}: the run launched {sorted(ran - set(seen))}, "
+                            f"which the captured calls {shapes} never reached")
+                    for k, (_, _, err) in seen.items():
+                        errs[k] = max(errs.get(k, 0), err)
+                    log(f"[kernels] {what}: the largest call of each operator, by rows "
+                        f"{shapes}, run again on the run's own device batches: every "
+                        f"kernel equals its plain version (calls, largest rows, max abs "
+                        f"err): {seen}")
                     del prof
             del r, s
             os.unlink(f1)
@@ -3924,6 +3943,609 @@ def engine_records(captured: dict, runs: dict, errs: dict, card: str) -> list[di
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the distributed plan on a shard mesh (K19-K22, K9's fill)
+
+DIST_SHARDS = 4  # on the one card: the in-process mesh of --dist 4
+DIST_ROWS = 4 * ROWS  # a table: 1M rows a shard, the single-chip bench's size
+DIST_BIG_ROWS = 16 * ROWS  # the timed run: 4M rows a shard
+DIST_SMALL_ROWS = 3 * ROWS  # the 3-shard mesh: the unsigned modulo at ndev 3
+DIST_NBLOCKS = 2000  # the CLI's files: 200K rows each
+DIST_ENGINES = ("sorted", "skew", "overlap")
+DIST_PHASE_LIMIT_S = 60.0
+# what every run of the plan launches, and what each engine adds
+DIST_KERNELS = ("stage_cells", "compact", "take_fill", "run_aggregate", "seg_scan")
+DIST_ENGINE_KERNELS = {"sorted": (), "skew": ("words_sort", "topk_runs", "hot_hashes",
+                                              "in_hot_set"),
+                       "overlap": ("words_sort",)}
+DIST_RECORDED = (("topk_runs", "topk_runs"), ("hot_set", "hot_hashes"), ("hot_set", "in_hot_set"),
+                 ("range_dest", "range_dest"), ("stage_cells", "stage_to_cells"))
+
+
+def dist_key_ids(cols: dict, field: int) -> np.ndarray:
+    """Integer ids, equal exactly where the keys are, for dist_cols' keys:
+    recid or num; a string of 5 lowercase letters (NUL-padded to 8 bytes)
+    as its base-26 number; (num, string) as num * 26^5 + that number."""
+    if field in (0, 1):
+        return cols["recid" if field == 0 else "num"].astype(np.int64)
+    strs = np.ascontiguousarray(cols["strs"])
+    word = strs.view("<u8").reshape(-1).astype(np.int64)  # byte k in bits 8k..8k+7
+    if strs.shape[1] != 8 or (word >> 40).any():
+        raise AssertionError("dist oracle: the strings are not 5 bytes stored 8 wide")
+    sid = np.zeros(len(strs), np.int64)
+    for k in range(5):
+        letter = ((word >> (8 * k)) & 0xFF) - 97
+        if letter.size and (letter.min() < 0 or letter.max() > 25):
+            raise AssertionError("dist oracle: the strings are not lowercase letters")
+        sid = sid * 26 + letter
+    return sid if field == 2 else cols["num"].astype(np.int64) * 26 ** 5 + sid
+
+
+def dist_unique(ids: np.ndarray) -> np.ndarray:
+    """The distinct ids, sorted: a presence table for small non-negative ids
+    (one pass), np.unique otherwise."""
+    if ids.size and ids.min() >= 0 and ids.max() < 1 << 26:
+        present = np.zeros(int(ids.max()) + 1, bool)
+        present[ids] = True
+        return np.flatnonzero(present)
+    return np.unique(ids)
+
+
+def dist_oracle(r: dict, s: dict, field: int) -> dict:
+    """numpy: the plan's counters over the valid rows, and the matched keys."""
+    ur = dist_unique(dist_key_ids(r, field)[r["valid"]])
+    us = dist_unique(dist_key_ids(s, field)[s["valid"]])
+    both = ur[np.isin(ur, us, assume_unique=True)]
+    return {"nunique_r": len(ur), "nunique_s": len(us), "merge_nres": len(both),
+            "hash_nres": len(both), "agg_groups": len(us), "keys": both}
+
+
+def dist_cols(rows: int, seed: int, zipf_a=None, recid_start: int = 0) -> dict:
+    """A table of the generator's shape (``io/generator.generate_columns``:
+    sequential recids, num uniform in the bench's key range 3 rows/10 or
+    Zipf folded into it, 5 random lowercase letters; no planted "Hola"),
+    drawn straight at an 8-byte string width, every seventh row invalid."""
+    rng = np.random.default_rng(seed)
+    key_range = max(3 * rows // 10, 1)
+    num = (rng.zipf(zipf_a, rows) - 1) % key_range if zipf_a else rng.integers(0, key_range, rows)
+    strs = np.zeros((rows, 8), np.uint8)
+    strs[:, :5] = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)[
+        rng.integers(0, 26, (rows, 5), dtype=np.uint8)]
+    return {"recid": np.arange(recid_start, recid_start + rows, dtype=np.uint32),
+            "num": num.astype(np.uint32), "strs": strs, "valid": np.arange(rows) % 7 != 3}
+
+
+def dist_key_cols(batch, field: int) -> dict:
+    """The host columns dist_key_ids reads of a port batch (only those)."""
+    from database_technology_algorithms_tpu_torch.batch import unpack_str_words
+
+    cols = {"recid": u32_host(batch.recid), "num": u32_host(batch.num)}
+    if field in (2, 3):
+        strs = unpack_str_words(u32_host(batch.strw).reshape(batch.nrows, batch.str_words))
+        cols["strs"] = np.ascontiguousarray(strs[:, :8]) if strs.shape[1] >= 8 else np.pad(
+            strs, ((0, 0), (0, 8 - strs.shape[1])))
+    return cols
+
+
+def dist_counters(out: dict) -> dict:
+    return {k: int(out[k]) for k in ("nunique_r", "nunique_s", "merge_nres", "hash_nres",
+                                     "agg_groups")}
+
+
+def check_dist_run(out: dict, want: dict, single: dict, field: int, what: str) -> dict:
+    got = dist_counters(out)
+    for k, v in got.items():
+        if v != want[k] or v != single.get(k, v):
+            raise AssertionError(f"[dist] {what}: {k} = {v}, numpy says {want[k]}, the "
+                                 f"single-card pipeline {single.get(k)}")
+    if int(out["overflow"]):
+        raise AssertionError(f"[dist] {what}: overflow {int(out['overflow'])}")
+    keys = []
+    for b, c in zip(out["join_out"], out["join_counts"]):
+        keys.append(dist_key_ids(dist_key_cols(b.slice(0, int(c)), field), field))
+    if not np.array_equal(np.sort(np.concatenate(keys)), want["keys"]):
+        raise AssertionError(f"[dist] {what}: the join rows' keys differ from numpy's")
+    return got
+
+
+def dist_run(name: str, fn, kernels, runs: dict):
+    """One run with the launch counters set to 0 just before and read just
+    after; every kernel in `kernels` must have launched."""
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(LAUNCHES)
+    check_launched(launches, kernels, f"[dist] {name}")
+    runs[name] = {"launches": launches, "wall_ms": wall}
+    return out
+
+
+def dist_kernel_edges(g, dev) -> dict:
+    """K19-K22 and K9's fill against their plain versions at their edges."""
+    from database_technology_algorithms_tpu_torch.kernels import dist_plan
+    from database_technology_algorithms_tpu_torch.kernels.hot_set import (
+        hot_hashes, hot_hashes_plain, in_hot_set, in_hot_set_plain)
+    from database_technology_algorithms_tpu_torch.kernels.range_dest import (
+        range_dest, range_dest_plain)
+    from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
+        stage_to_cells, stage_to_cells_plain)
+    from database_technology_algorithms_tpu_torch.kernels.topk_runs import (
+        topk_runs, topk_runs_plain)
+
+    errs = dict.fromkeys(("topk_runs", "hot_hashes", "in_hot_set", "range_dest", "stage_cells"), 0)
+    m32 = 0xFFFFFFFF
+    tile = dist_plan.TOPK_TILE
+    # K19: n < k, one run, all dead, ties at the k-th place, a run across every tile
+    for what, h, nact, k in (
+            ("n < k", g.integers(0, 9, 5), 4, 5),
+            ("one run", np.full(70_001, 2**31 + 5), 70_001, 16),
+            ("all dead", g.integers(0, 2**32, 5000), 0, 16),
+            ("ties at the k-th place", np.repeat(np.arange(300), 7)[:2048], 2000, 16),
+            ("a run across every tile", np.concatenate([np.full(16 * tile, 3),
+                                                        g.integers(4, 2**32, 999)]),
+             16 * tile + 900, 16),
+            ("zipf", g.zipf(1.2, ROWS) % 100_000 * 2654435761 % 2**32, ROWS - 77, 16)):
+        h = np.concatenate([np.sort(np.asarray(h[:nact], np.uint64)),
+                            np.full(len(h) - nact, m32, np.uint64)])
+        hs = u32_dev(h, dev)
+        for cnt in (nact, torch.tensor(nact, dtype=torch.int32, device=dev)):
+            errs["topk_runs"] = max(errs["topk_runs"], assert_same(
+                f"K19 {what}", topk_runs(hs, cnt, k), topk_runs_plain(hs, cnt, k)))
+    # K20: every candidate a sentinel, all equal, mixed; signed thresholds
+    for what, m in (("every candidate a sentinel", 64), ("all candidates equal", 128),
+                    ("mixed", 64), ("mixed", 1024)):
+        gh = g.choice(np.array([5, 2**31 + 1, 9, m32], np.uint64), m)
+        gh = np.full(m, m32) if what.startswith("every") else (
+            np.full(m, 2**31 + 7) if what.startswith("all") else gh)
+        gc = torch.from_numpy(g.integers(0, 2**20, m).astype(np.int32)).to(dev)
+        for thr in (-1, 1, 50_000):
+            errs["hot_hashes"] = max(errs["hot_hashes"], assert_same(
+                f"K20 {what} m={m} threshold {thr}", (hot_hashes(u32_dev(gh, dev), gc, thr),),
+                (hot_hashes_plain(u32_dev(gh, dev), gc, thr),)))
+    # K21: an empty hot list, none at all, a mixed one
+    hashes = u32_dev(g.integers(0, 2**32, 2 * ROWS, dtype=np.uint64), dev)
+    for what, hot in (("empty hot list", np.full(128, m32)), ("no entries", np.zeros(0)),
+                      ("mixed", np.where(np.arange(128) % 9 == 0,
+                                         torch_host_pick(hashes, g, 128), m32))):
+        hot_t = u32_dev(hot, dev)
+        errs["in_hot_set"] = max(errs["in_hot_set"], assert_same(
+            f"K21 {what}", (in_hot_set(hashes, hot_t),), (in_hot_set_plain(hashes, hot_t),)))
+    # K22: 1 and 3 splitters, keys equal to a splitter, on both sides of 2^31, 1-4 words
+    pool = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, m32], np.uint64)
+    strw = u32_dev(g.choice(pool, (ROWS, 4)), dev)
+    for nw in (1, 2, 3, 4):
+        for ns in (1, 3):
+            spl = np.sort(g.choice(pool, (ns, nw)).view(np.uint64), axis=0)
+            spl = spl[np.lexsort(spl.T[::-1])]
+            words = [strw[:, j] for j in range(nw)]
+            splt = [u32_dev(np.ascontiguousarray(spl[:, j]), dev) for j in range(nw)]
+            errs["range_dest"] = max(errs["range_dest"], assert_same(
+                f"K22 {nw} words, {ns} splitters", (range_dest(words, splt),),
+                (range_dest_plain(words, splt),)))
+    # K9 with a fill: the overlap join's key-only pack
+    dest = u32_dev(g.integers(0, DIST_SHARDS, ROWS), dev)
+    pay = [u32_dev(g.integers(0, 2**32, ROWS, dtype=np.uint64), dev) for _ in range(2)]
+    for fill in (0, m32, 0x12345678):
+        for count in (None, ROWS - 1000):
+            args = (dest, None, DIST_SHARDS, ROWS // DIST_SHARDS, pay, "slots")
+            got = stage_to_cells(*args, count=count, fill=fill)
+            want = stage_to_cells_plain(*args, count=count, fill=fill)
+            errs["stage_cells"] = max(errs["stage_cells"], assert_same(
+                f"K9 fill {fill:#x} count {count}", [*got[0], got[1], got[2], got[3].reshape(1)],
+                [*want[0], want[1], want[2], want[3].reshape(1)]))
+    torch.cuda.synchronize()
+    log("[kernels] K19-K22 and K9's fill equal their plain versions at their edges (K19: n < k, "
+        "one run, all dead, ties at the k-th place, a run across 16 tiles, 1M Zipf hashes, the "
+        "count on the host and the card; K20: every candidate a sentinel, all equal, mixed, "
+        "thresholds -1, 1, 50000; K21: an empty hot list, no entries, a mixed one over 2M rows; "
+        "K22: 1-4 strided words, 1 and 3 splitters, keys equal to a splitter and on both sides "
+        "of 2^31; K9: fills 0, 0xFFFFFFFF and 0x12345678 with and without a live count)")
+    return errs
+
+
+def torch_host_pick(t: torch.Tensor, g, m: int) -> np.ndarray:
+    """m values of an int32 tensor holding u32, as numpy u32 (hashes that occur)."""
+    return u32_host(t[torch.from_numpy(g.integers(0, t.shape[0], m)).to(t.device)]).astype(
+        np.uint64)
+
+
+def dist_kernels_on(captured: dict) -> dict:
+    """K19-K22 and K9's fill against their plain versions on the arguments
+    the runs gave them (captured[run][kernel])."""
+    from database_technology_algorithms_tpu_torch.kernels import hot_set, range_dest, stage_cells
+    from database_technology_algorithms_tpu_torch.kernels import topk_runs as k19
+
+    pairs = {"topk_runs": (k19.topk_runs, k19.topk_runs_plain),
+             "hot_hashes": (hot_set.hot_hashes, hot_set.hot_hashes_plain),
+             "in_hot_set": (hot_set.in_hot_set, hot_set.in_hot_set_plain),
+             "range_dest": (range_dest.range_dest, range_dest.range_dest_plain),
+             "stage_to_cells": (stage_cells.stage_to_cells, stage_cells.stage_to_cells_plain)}
+
+    errs = dict.fromkeys(pairs, 0)
+    for run, calls in captured.items():
+        for what, (args, kw) in calls.items():
+            name = what.split()[0]
+            kern, plain = pairs[name]
+            errs[name] = max(errs[name], assert_same(
+                f"{name} on the inputs of the dist run '{run}'", flat_tensors(kern(*args, **kw)),
+                flat_tensors(plain(*args, **kw))))
+    torch.cuda.synchronize()
+    log(f"[kernels] K19-K22 and K9's fill equal their plain versions on the inputs of "
+        f"{len(captured)} dist runs (each kernel's first call in each); max abs err {errs}")
+    return errs
+
+
+def phase_dist(dev, card: str) -> dict:
+    """The distributed plan on a mesh of DIST_SHARDS shards on the one card
+    (``make_dist_pipeline``, the distributed operators, the skew join of
+    BASELINE config 4, a 3-shard mesh and the CLI's ``pipeline --dist 4``),
+    each run against numpy and the single-card pipeline, with the launch
+    counters set to 0 around each run; K19-K22 and K9's fill against their
+    plain versions at their edges and on the runs' own inputs; the timed
+    16M + 16M run by stage."""
+    import tempfile
+
+    from database_technology_algorithms_tpu_torch.config import EngineConfig
+    from database_technology_algorithms_tpu_torch.io.blockfile import read_blockfile_numpy
+    from database_technology_algorithms_tpu_torch.models import pipeline as tpipe
+    from database_technology_algorithms_tpu_torch.parallel import dist_ops, overlap, skew
+    from database_technology_algorithms_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.time()
+    marks = [("start", t_phase)]
+
+    def mark(name: str) -> None:
+        torch.cuda.synchronize()
+        marks.append((name, time.time()))
+
+    g = np.random.default_rng(19)
+    errs = dist_kernel_edges(g, dev)
+    mark("kernel edges")
+    mesh = make_mesh(devices=[dev] * DIST_SHARDS)
+    runs: dict = {}
+    captured: dict = {}
+    cfg = EngineConfig()
+
+    def record(name, fn):
+        """fn() with the first call of each of K19-K22 and of K9 with a fill
+        kept as captured[name][kernel]."""
+        with contextlib.ExitStack() as stack:
+            calls = {n: stack.enter_context(recorded_calls(m, n)) for m, n in DIST_RECORDED}
+            out = fn()
+        captured[name] = {n: next(x for x in c if n != "stage_to_cells" or x[1].get("fill"))
+                          for n, c in calls.items()
+                          if any(n != "stage_to_cells" or kw.get("fill") for _, kw in c)}
+        packs = [x for x in calls["stage_to_cells"] if not x[1].get("fill")]
+        if packs:  # the shuffle's pack with the most payload words
+            captured[name]["stage_to_cells pack"] = max(packs, key=lambda x: len(x[0][4]))
+        return out
+
+    # ---- make_dist_pipeline: 4 shards, 4M + 4M, fields 0-3 x engines -----------------
+    r_cols, s_cols = dist_cols(DIST_ROWS, 42), dist_cols(DIST_ROWS, 43, recid_start=DIST_ROWS // 2)
+    t1, t2 = dist_ops.distribute(mesh, r_cols), dist_ops.distribute(mesh, s_cols)
+    r_b, s_b = to_batch(r_cols, dev), to_batch(s_cols, dev)
+    mark("data")
+    for field in (1, 0, 2, 3):
+        want = dist_oracle(r_cols, s_cols, field)
+        mark(f"field {field}'s oracle")
+        single_out = tpipe.make_pipeline_staged(field)(r_b, s_b)
+        single = {k: int(single_out[k]) for k in ("nunique_r", "nunique_s", "merge_nres",
+                                                  "hash_nres", "agg_groups")}
+        mark(f"field {field}'s single-card counters")
+        for engine, nchunks in [(e, 1) for e in DIST_ENGINES] + [("sorted", 4)]:
+            name = f"field {field}, {engine}, nchunks {nchunks}"
+            ecfg = EngineConfig(dist_join_engine=engine, shuffle_nchunks=nchunks)
+            step = tpipe.make_dist_pipeline(mesh, field, ecfg)
+            kernels = DIST_KERNELS + DIST_ENGINE_KERNELS[engine] + (
+                ("sorted_probe",) if engine == "overlap" and field in (0, 1) else ()) + (
+                ("member_mult",) if engine == "overlap" and field in (2, 3) else ())
+            out = dist_run(name, lambda: record(name, lambda: step(
+                t1.batches, t1.counts, t2.batches, t2.counts)), kernels, runs)
+            got = check_dist_run(out, want, single, field, name)
+            del out
+            timed = ""
+            if field == 1 and nchunks == 1 and engine != "overlap":  # device time, warm wall
+                prof = profile_device(lambda: step(t1.batches, t1.counts, t2.batches, t2.counts),
+                                      reps=2, cpu=False)
+                runs[name].update(device_ms=prof["busy_us"] / 1e3, warm_wall_ms=wall_ms(
+                    lambda: step(t1.batches, t1.counts, t2.batches, t2.counts), reps=3))
+                timed = (f"; warm host wall {runs[name]['warm_wall_ms']:.2f} ms (median of 3), "
+                         f"device {runs[name]['device_ms']:.2f} ms ({device_parts(prof)})")
+            log(f"[dist] {card}: {DIST_SHARDS} shards, {DIST_ROWS} + {DIST_ROWS} rows, {name}: "
+                f"{got} == numpy and the single-card pipeline, overflow 0; host wall "
+                f"{runs[name]['wall_ms']:.1f} ms (first run){timed}; launches "
+                + ", ".join(f"{k} {runs[name]['launches'][k]}" for k in kernels))
+            if field == 1:
+                mark(name)
+        if field == 1:
+            staged = tpipe.make_pipeline_staged(1)
+            prof = profile_device(lambda: staged(r_b, s_b), reps=2, cpu=False)
+            runs["single card"] = {"device_ms": prof["busy_us"] / 1e3,
+                                   "wall_ms": wall_ms(lambda: staged(r_b, s_b), reps=3)}
+            log(f"[dist] {card}: the single-card staged pipeline on the same {DIST_ROWS} + "
+                f"{DIST_ROWS} rows, field 1: host wall {runs['single card']['wall_ms']:.2f} ms, "
+                f"device {runs['single card']['device_ms']:.2f} ms ({device_parts(prof)})")
+        mark(f"field {field}'s runs")
+    del r_b, s_b
+    # ---- BASELINE config 4: Zipf 1.2 keys, the skew join beside the plain one ----------
+    zb, zp = dist_cols(DIST_ROWS, 44, zipf_a=1.2), dist_cols(DIST_ROWS, 45, zipf_a=1.2)
+    zb["valid"][:] = True
+    zp["valid"][:] = True
+    tb, tp = dist_ops.distribute(mesh, zb), dist_ops.distribute(mesh, zp)
+    hit = np.isin(zp["num"], zb["num"])
+    want_rows = np.sort(zp["recid"][hit])
+    for name, fn, kernels in (
+            ("zipf, dist_hash_join_skew", lambda: skew.dist_hash_join_skew(mesh, tb, tp, 1),
+             ("topk_runs", "hot_hashes", "in_hot_set", "stage_cells")),
+            ("zipf, dist_hash_join", lambda: dist_ops.dist_hash_join(mesh, tb, tp, 1),
+             ("stage_cells", "compact")),
+            ("zipf, dist_hash_join_overlapped",
+             lambda: overlap.dist_hash_join_overlapped(mesh, tb, tp, 1), ("stage_cells",
+                                                                         "sorted_probe"))):
+        res = dist_run(name, lambda: record(name, fn), kernels, runs)
+        table, nres, ovf = res[0], int(res[1]), int(res[2])
+        rows = np.sort(dist_ops.collect(table)["recid"])
+        if nres != int(hit.sum()) or ovf or not np.array_equal(rows, want_rows):
+            raise AssertionError(f"[dist] {name}: nres {nres}, overflow {ovf}, numpy "
+                                 f"{int(hit.sum())}, rows equal: {np.array_equal(rows, want_rows)}")
+        extra = f", n_hot {int(res[3])}" if len(res) == 4 else ""
+        log(f"[dist] {card}: BASELINE config 4, {DIST_SHARDS} shards, {DIST_ROWS} + {DIST_ROWS} "
+            f"Zipf 1.2 keys, {name}: {nres} probe rows == numpy, overflow 0{extra}; host wall "
+            f"{runs[name]['wall_ms']:.1f} ms")
+    if "stage_to_cells" not in captured["zipf, dist_hash_join_overlapped"]:
+        raise AssertionError("[dist] the overlapped join never called K9 with its fill")
+    del tb, tp
+    mark("config 4")
+    # ---- dist_sort, dist_distinct, dist_aggregate, 4M rows ---------------------------
+    keys = r_cols["num"]
+    for name, fn, kernels in (
+            ("dist_sort", lambda: dist_ops.dist_sort(mesh, t1, 1),
+             ("range_dest", "words_sort", "stage_cells")),
+            ("dist_distinct", lambda: dist_ops.dist_distinct(mesh, t1, 1), ("stage_cells",)),
+            ("dist_aggregate", lambda: dist_ops.dist_aggregate(mesh, t1, 1),
+             ("stage_cells", "run_aggregate"))):
+        res = dist_run(name, lambda: record(name, fn), kernels, runs)
+        if int(res[-1]):
+            raise AssertionError(f"[dist] {name}: overflow {int(res[-1])}")
+        got = dist_ops.collect(res[0])["num"]
+        if name == "dist_sort":
+            ok = np.array_equal(got, np.sort(keys))
+        elif name == "dist_distinct":
+            ok = int(res[1]) == len(np.unique(keys)) and np.array_equal(np.sort(got),
+                                                                          np.unique(keys))
+        else:
+            u, c = np.unique(keys, return_counts=True)
+            order = np.argsort(got, kind="stable")
+            counts = np.concatenate([a["count"][: int(n)].cpu().numpy()
+                                     for a, n in zip(res[1], res[0].counts)])[order]
+            sums = np.concatenate([u32_host(a["sum"][: int(n)])
+                                   for a, n in zip(res[1], res[0].counts)])[order]
+            ok = (np.array_equal(got[order], u) and np.array_equal(counts, c)
+                  and np.array_equal(sums, (u.astype(np.uint64) * c % 2**32).astype(np.uint32)))
+        if not ok:
+            raise AssertionError(f"[dist] {name}: differs from numpy")
+        log(f"[dist] {card}: {name}, {DIST_SHARDS} shards, {DIST_ROWS} rows, field 1: == numpy "
+            f"(all rows, the invalid ones included, as the operator takes them); host wall "
+            f"{runs[name]['wall_ms']:.1f} ms")
+    del t1, t2
+    mark("operators")
+    # ---- a 3-shard mesh, 3M + 3M: the unsigned modulo at ndev 3 ----------------------
+    mesh3 = make_mesh(devices=[dev] * 3)
+    r3, s3 = dist_cols(DIST_SMALL_ROWS, 46), dist_cols(DIST_SMALL_ROWS, 47)
+    t31, t32 = dist_ops.distribute(mesh3, r3), dist_ops.distribute(mesh3, s3)
+    want = dist_oracle(r3, s3, 1)
+    for engine in ("sorted", "skew"):
+        name = f"3 shards, field 1, {engine}"
+        step = tpipe.make_dist_pipeline(mesh3, 1, EngineConfig(dist_join_engine=engine))
+        out = dist_run(name, lambda: step(t31.batches, t31.counts, t32.batches, t32.counts),
+                       DIST_KERNELS + DIST_ENGINE_KERNELS[engine], runs)
+        got = check_dist_run(out, want, {}, 1, name)
+        log(f"[dist] {card}: {name}, {DIST_SMALL_ROWS} + {DIST_SMALL_ROWS} rows: {got} == numpy")
+    del t31, t32
+    mark("3 shards")
+    # ---- the CLI: pipeline --dist 4 on block files -----------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_dist_") as tmp:
+        for engine in DIST_ENGINES:
+            argv = ["pipeline", "--dist", str(DIST_SHARDS), "--nblocks", str(DIST_NBLOCKS),
+                    "--field", "1", "--join-engine", engine, "--workdir", tmp]
+            t0 = time.perf_counter()
+            rc, line = run_cli(argv)
+            wall = time.perf_counter() - t0
+            files = [read_blockfile_numpy(os.path.join(tmp, f)) for f in ("file.bin",
+                                                                           "file2.bin")]
+            for f in files:
+                f["valid"] = np.asarray(f["valid"], bool)
+            want = dist_oracle(*files, 1)
+            if rc or not line["joins_agree"] or line["merge_join_pairs"] != want["merge_nres"] \
+                    or line["nunique_r"] != want["nunique_r"] or line["overflow"]:
+                raise AssertionError(f"[dist] pipeline --dist {DIST_SHARDS} --join-engine "
+                                     f"{engine}: rc {rc}, {line}, numpy {want}")
+            log(f"[dist] {card}: `{' '.join(argv[:-2])}`: exit 0, {line}, == numpy; "
+                f"{wall:.2f} s with the files")
+    mark("cli")
+    # ---- K19-K22 and K9's fill on the runs' own inputs -------------------------------
+    for k, e in dist_kernels_on(captured).items():
+        key = "stage_cells" if k == "stage_to_cells" else k
+        errs[key] = max(errs[key], e)
+    mark("own inputs")
+    # ---- the timed run: 16M + 16M, field 1, sorted, by stage -------------------------
+    big_r, big_s = dist_cols(DIST_BIG_ROWS, 48), dist_cols(DIST_BIG_ROWS, 49)
+    mark("timed run's data")
+    b1, b2 = dist_ops.distribute(mesh, big_r), dist_ops.distribute(mesh, big_s)
+    mark("timed run's distribute")
+    want = dist_oracle(big_r, big_s, 1)
+    mark("timed run's oracle")
+    step = tpipe.make_dist_pipeline(mesh, 1, cfg)
+    name = f"{DIST_BIG_ROWS} + {DIST_BIG_ROWS} rows, field 1, sorted"
+    out = dist_run(name, lambda: step(b1.batches, b1.counts, b2.batches, b2.counts),
+                   DIST_KERNELS, runs)
+    got = check_dist_run(out, want, {}, 1, name)
+    del out
+    mark("timed run's check")
+    stages = dist_stage_times(mesh, b1, b2, cfg, card)
+    whole_wall = wall_ms(lambda: step(b1.batches, b1.counts, b2.batches, b2.counts), reps=3)
+    device = sum(st["device_ms"] for st in stages.values())
+    runs["big"] = {"wall_ms": whole_wall, "device_ms": device, "stages": stages}
+    log(f"[dist] {card}: {DIST_SHARDS} shards, {name}: {got} == numpy; the step: host wall "
+        f"{whole_wall:.2f} ms (median of 3), device {device:.2f} ms (its stages' sum)")
+    del b1, b2
+    mark("timed run's stages")
+    recs = dist_records(captured, runs, errs, card)
+    mark("records")
+    took = time.time() - t_phase
+    log("[dist] seconds: " + ", ".join(
+        f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks[:-1], marks[1:])))
+    log(f"[dist] the phase took {took:.1f} s (limit {DIST_PHASE_LIMIT_S:.0f} s)")
+    if took > DIST_PHASE_LIMIT_S:
+        raise AssertionError(f"[dist] the phase took {took:.1f} s, past its limit of "
+                             f"{DIST_PHASE_LIMIT_S:.0f} s")
+    return {"recs": recs, "runs": runs, "errs": errs}
+
+
+def dist_stage_times(mesh, b1, b2, cfg, card: str) -> dict:
+    """The timed run's three stages on their own: host wall (median of 3
+    synchronized runs) and device time (torch.profiler, mean of 3)."""
+    from database_technology_algorithms_tpu_torch.models import pipeline as tpipe
+
+    ndev = len(mesh.devices)
+    cap_r, cap_s = tpipe._dist_caps(b1.rows_per_chip, b2.rows_per_chip, ndev, cfg)
+
+    def local():
+        return [tpipe._dist_stage_local(a, b, c, d, 1, cfg)
+                for a, b, c, d in zip(b1.batches, b1.counts, b2.batches, b2.counts)]
+
+    loc = [list(x) for x in zip(*local())]
+
+    def shuffled():
+        return tpipe._dist_stage_shuffle(mesh, *loc, 1, cfg, cap_r, cap_s)
+
+    sh = shuffled()
+
+    def join():
+        return tpipe._dist_stage_join(mesh, *sh[:5], 1, cfg, cap_r, cap_s)
+
+    out = {}
+    for name, fn in (("local", local), ("shuffle", shuffled), ("join", join)):
+        wall = wall_ms(fn, reps=3)
+        prof = profile_device(fn, reps=2, cpu=False)
+        out[name] = {"wall_ms": wall, "device_ms": prof["busy_us"] / 1e3,
+                     "parts": device_parts(prof, top=4)}
+        log(f"[dist] {card}: stage {name}: host wall {wall:.2f} ms, device "
+            f"{prof['busy_us'] / 1e3:.2f} ms ({out[name]['parts']})")
+    return out
+
+
+def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict]:
+    """The kernels line's entries of K19-K22 at the runs' shapes, and K9's
+    time at the shuffle's pack (logged)."""
+    from database_technology_algorithms_tpu_torch.batch import as_u32
+    from database_technology_algorithms_tpu_torch.kernels import hot_set, range_dest, stage_cells
+    from database_technology_algorithms_tpu_torch.kernels import topk_runs as k19
+
+    skew_run = runs["zipf, dist_hash_join_skew"]["launches"]
+    sort_run = runs["dist_sort"]["launches"]
+    zipf = captured["zipf, dist_hash_join_skew"]
+    out = []
+    (hs, nact, k), _ = zipf["topk_runs"]
+    n = hs.shape[0]
+    sel = dist_selection_keys(hs, nact)
+    out.append(dict(name="topk_runs", source="csrc/topk_runs.cu",
+                    replaces="parallel/skew.py:44", launches=skew_run["topk_runs"],
+                    kern=lambda: k19.topk_runs(hs, nact, k),
+                    plain=lambda: k19.topk_runs_plain(hs, nact, k),
+                    lib=lambda: torch.topk(sel, k), lib_name="torch.topk of the (count, "
+                    "position) keys: the selection alone",
+                    nbytes=4 * n + 8 * k, nops=2 * n, shape=f"{n} sorted hashes, k = {k}"))
+    (gh, gc, thr), _ = zipf["hot_hashes"]
+    m = gh.shape[0]
+    out.append(dict(name="hot_hashes", source="csrc/hot_set.cu", replaces="parallel/skew.py:68",
+                    launches=skew_run["hot_hashes"], kern=lambda: hot_set.hot_hashes(gh, gc, thr),
+                    plain=lambda: hot_set.hot_hashes_plain(gh, gc, thr), lib=None,
+                    lib_name=None, nbytes=12 * m + 4, nops=m * m,
+                    shape=f"{m} gathered candidates"))
+    (hh, hot), _ = zipf["in_hot_set"]
+    nh, mh = hh.shape[0], hot.shape[0]
+    live = hot[hot != -1]
+    out.append(dict(name="in_hot_set", source="csrc/hot_set.cu", replaces="parallel/skew.py:91",
+                    launches=skew_run["in_hot_set"], kern=lambda: hot_set.in_hot_set(hh, hot),
+                    plain=lambda: hot_set.in_hot_set_plain(hh, hot),
+                    lib=lambda: torch.isin(hh, live), lib_name="torch.isin of the live entries",
+                    nbytes=5 * nh + 4 * mh, nops=nh * max(live.shape[0], 1),
+                    shape=f"{nh} row hashes, {mh} hot entries ({live.shape[0]} live)"))
+    (words, spl), _ = captured["dist_sort"]["range_dest"]
+    nr, nw, ns = words[0].shape[0], len(words), spl[0].shape[0]
+    lib = None
+    if nw == 1:
+        s64, w64 = as_u32(spl[0]).contiguous(), as_u32(words[0])
+        lib = lambda: torch.searchsorted(s64, w64, right=True)  # noqa: E731
+    out.append(dict(name="range_dest", source="csrc/range_dest.cu",
+                    replaces="parallel/dist_ops.py:312", launches=sort_run["range_dest"],
+                    kern=lambda: range_dest.range_dest(words, spl),
+                    plain=lambda: range_dest.range_dest_plain(words, spl), lib=lib,
+                    lib_name="torch.searchsorted(right=True) of the u32 values",
+                    nbytes=4 * nw * nr + 4 * nw * ns + 4 * nr, nops=nr * ns * nw,
+                    shape=f"{nr} keys of {nw} word(s), {ns} splitters"))
+    recs = []
+    for sp in out:
+        bound, by = bound_of(sp["nbytes"], sp["nops"])
+        rec = {"name": sp["name"], "route": "cuda", "source": f"{PKG}/{sp['source']}",
+               "replaces": f"{JAX_PKG}/{sp['replaces']}", "launches": sp["launches"],
+               "max_abs_err": errs[sp["name"]], "ms": device_ms(sp["kern"], cpu=False),
+               "plain_ms": device_ms(sp["plain"], cpu=False), "bound_ms": bound, "bound_by": by,
+               "library_ms": device_ms(sp["lib"], cpu=False) if sp["lib"] is not None else None,
+               "shape": sp["shape"]}
+        log(f"[timing] {card}: {sp['name']} ({sp['shape']}): device time per call: kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            + (f"{sp['lib_name']} {rec['library_ms']:.4f} ms" if sp["lib"] is not None
+               else "none")
+            + f", bound {bound:.4f} ms ({sp['nbytes']} B, {sp['nops']} ops, by {by}); launches "
+            f"a run {rec['launches']}")
+        recs.append(rec)
+    # K9 at the shuffle's pack and with the overlap join's fill (their own rows in PERF.md)
+    for what, run, key in (
+            ("the shuffle's pack, the 4M + 4M field-1 sorted run", "field 1, sorted, nchunks 1",
+             "stage_to_cells pack"),
+            ("with fill 0xFFFFFFFF, the overlapped join's key-only pack",
+             "zipf, dist_hash_join_overlapped", "stage_to_cells")):
+        args, kw = captured[run][key]
+        n, nparts, cap, w = args[0].shape[0], args[2], args[3], len(args[4])
+        live = n if kw.get("count") is None else int(kw["count"])
+        # the live rows' dest and words read; every slot of every word written
+        # once (staged or filled), the counts, and a slot a row
+        nbytes = live * (4 + 4 * w) + nparts * cap * 4 * w + nparts * 4 + n * 4
+        bound, by = bound_of(nbytes, live * 8 + nparts * cap)
+        log(f"[timing] {card}: stage_cells, {what} ({n} rows, {live} live, {nparts} cells of "
+            f"{cap}, {w} word(s)): device time per call: kernel "
+            f"{device_ms(lambda: stage_cells.stage_to_cells(*args, **kw), cpu=False):.4f} ms, "
+            f"plain "
+            f"{device_ms(lambda: stage_cells.stage_to_cells_plain(*args, **kw), cpu=False):.4f} "
+            f"ms, bound {bound:.4f} ms ({nbytes} B, by {by}); launches a run "
+            f"{runs[run]['launches']['stage_cells']}")
+    return recs
+
+
+def dist_selection_keys(hs: torch.Tensor, nact) -> torch.Tensor:
+    """int64 (run count << 32 | ~position) of every position: what K19
+    selects from, for the library's torch.topk."""
+    n = hs.shape[0]
+    from database_technology_algorithms_tpu_torch.batch import as_u32
+
+    u = as_u32(hs)
+    pos = torch.arange(n, device=hs.device)
+    live = pos < nact
+    new_run = torch.cat([torch.ones(1, dtype=torch.bool, device=hs.device), u[1:] != u[:-1]])
+    new_run &= live
+    seg = (torch.cumsum(new_run, 0) - 1).clamp(min=0)
+    cnt = torch.zeros(n, dtype=torch.int64, device=hs.device).index_add_(0, seg, live.long())
+    run = torch.where(new_run, cnt[seg], 0)
+    return (run << 32) | (~pos & 0xFFFFFFFF)
+
+
 def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dict, errs: dict,
                   card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
@@ -4271,8 +4893,10 @@ def main() -> int:
     done("aggregate")
     eng = phase_engines(dev, card)
     done("engines")
+    dist = phase_dist(dev, card)
+    done("dist")
     kernels = (phase_timings(pipe, command, over, sort, probes, errs, card) + agg["recs"]
-               + eng["recs"])
+               + eng["recs"] + dist["recs"])
     done("timings")
     log("[phases] seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks[:-1], marks[1:])))

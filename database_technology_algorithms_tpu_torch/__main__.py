@@ -19,7 +19,11 @@ through the chunked passes and ``hash_join`` through the tiled join.  The
 file commands take the external route (``external.py``: spill segments in
 ``--workdir``, at most ``mem_rows`` rows on the card at a time) under
 ``--mem-blocks``, and by themselves for block files beyond the default
-budget.  ``--dist`` (the distributed plan) raises ``NotImplementedError``.
+budget.  ``pipeline --dist N`` runs the distributed plan
+(``models/pipeline.make_dist_pipeline``) over N shards in this process, shard
+d on card ``d % device_count`` (or all on the CPU with ``--device cpu``);
+its multi-process flags (``--coordinator`` and the others) raise
+``NotImplementedError``: that form is not ported yet.
 """
 
 from __future__ import annotations
@@ -60,6 +64,13 @@ def _write_chunks(path: str, chunks) -> None:
             w.append(chunk)
 
 
+# the multi-process flags of the JAX CLI and their defaults: parsed, and
+# refused when set (the multi-process plan is not ported yet)
+MULTI_PROCESS_FLAGS = {"coordinator": None, "num_processes": 1, "process_id": 0,
+                       "local_devices": None, "init_timeout": 300, "heartbeat_timeout": 100,
+                       "stage_checkpoints": None, "fail_after_stage": None}
+
+
 def cmd_pipeline(args) -> int:
     from .batch import canonical_field
     from .config import DEFAULT_CONFIG as cfg
@@ -71,10 +82,12 @@ def cmd_pipeline(args) -> int:
     from .ops.merge_join import join_sorted_distinct
     from .utils.checks import resolve_device
 
-    if args.dist:
-        raise NotImplementedError(
-            "--dist: the distributed plan (the JAX package's parallel/) is not ported yet"
-        )
+    multi = [f"--{name.replace('_', '-')}" for name, default in MULTI_PROCESS_FLAGS.items()
+             if getattr(args, name) != default]
+    if multi:
+        from .parallel.multihost import MULTI_PROCESS
+
+        raise NotImplementedError(f"{', '.join(multi)}: {MULTI_PROCESS}")
     device = resolve_device(args.device)
     field = canonical_field(args.field)
     t0 = time.time()
@@ -93,6 +106,8 @@ def cmd_pipeline(args) -> int:
         assert_batch(r)
         assert_batch(s)
     print(f"[gen] done in {time.time() - t0:.2f}s on {device.type}")
+    if args.dist:
+        return _pipeline_dist(args, r, s, field, device)
 
     print("\n--------------MERGE JOIN-------------------")
     t1 = time.time()
@@ -137,6 +152,49 @@ def cmd_pipeline(args) -> int:
         print("ERROR: join counts disagree (reference oracle violated)")
         return 1
     return 0
+
+
+def _pipeline_dist(args, r, s, field: int, device) -> int:
+    """``pipeline --dist N``: the distributed plan over N shards, the JAX
+    CLI's JSON record and exit code (1 unless the joins agree with no
+    overflow)."""
+    import torch
+
+    from .config import EngineConfig
+    from .models.pipeline import make_dist_pipeline
+    from .parallel.dist_ops import distribute
+    from .parallel.mesh import make_mesh
+
+    n = args.dist
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        mesh = make_mesh(devices=[torch.device("cuda", d % count) for d in range(n)])
+    else:
+        mesh = make_mesh(n, devices=device)
+    cfg = EngineConfig(shuffle_slack=4.0, dist_join_engine=args.join_engine,
+                       shuffle_nchunks=args.shuffle_chunks)
+    step = make_dist_pipeline(mesh, field, cfg)
+    t1, t2 = distribute(mesh, r.to_numpy()), distribute(mesh, s.to_numpy())
+    t0 = time.time()
+    out = step(t1.batches, t1.counts, t2.batches, t2.counts)
+    for dev in set(mesh.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    merge, hashed = int(out["merge_nres"]), int(out["hash_nres"])
+    rec = {
+        "mesh_devices": n,
+        "field": field,
+        "merge_join_pairs": merge,
+        "hash_join_pairs": hashed,
+        "joins_agree": merge == hashed,
+        "nunique_r": int(out["nunique_r"]),
+        "nunique_s": int(out["nunique_s"]),
+        "overflow": int(out["overflow"]),
+        "wall_s": round(dt, 4),
+    }
+    print(json.dumps(rec))
+    return 0 if rec["joins_agree"] and rec["overflow"] == 0 else 1
 
 
 def cmd_mergesort(args) -> int:
@@ -342,9 +400,28 @@ def main(argv=None) -> int:
     pp.add_argument("--workdir", default=".")
     pp.add_argument("--skip-files", action="store_true")
     pp.add_argument("--dist", type=int, default=0,
-                    help="run on an N-device mesh (not ported yet: nonzero raises)")
+                    help="run the distributed plan on an N-shard mesh (shard d on card "
+                         "d %% device_count, or all on the CPU with --device cpu)")
+    pp.add_argument("--join-engine", default="sorted", dest="join_engine",
+                    choices=["sorted", "skew", "overlap"],
+                    help="HashJoin cross-check engine in the dist plan "
+                         "(skew = heavy-hitter machinery, overlap = "
+                         "key-only chunked exchange; u32 fields)")
+    pp.add_argument("--shuffle-chunks", type=int, default=1, dest="shuffle_chunks",
+                    help=">1 splits the exchanges into that many slices")
+    pp.add_argument("--coordinator", default=None,
+                    help="multi-process: coordinator address host:port (not ported yet)")
+    pp.add_argument("--num-processes", type=int, default=1)
+    pp.add_argument("--process-id", type=int, default=0)
+    pp.add_argument("--local-devices", type=int, default=None)
+    pp.add_argument("--init-timeout", type=int, default=300, dest="init_timeout")
+    pp.add_argument("--heartbeat-timeout", type=int, default=100, dest="heartbeat_timeout")
     pp.add_argument("--debug-checks", action="store_true",
                     help="validate batch invariants at ingestion (utils/checks)")
+    pp.add_argument("--stage-checkpoints", default=None, dest="stage_checkpoints",
+                    help="dist runs: checkpoint each stage (multi-process plan; not ported yet)")
+    pp.add_argument("--fail-after-stage", default=None, dest="fail_after_stage",
+                    choices=["local", "shuffle"])
     pp.set_defaults(fn=cmd_pipeline)
 
     ms = sub.add_parser("mergesort", help="external sort a block file", parents=[common])

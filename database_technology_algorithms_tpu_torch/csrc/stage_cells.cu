@@ -18,7 +18,10 @@
 //           order;
 //   finish  each bucket's start, the counts clamped to cap, the overflow and
 //           the sink's size, on the card;
-//   fill    a warp a cell zeroes the slots [counts[c], cap);
+//   fill    the caller's fill value (0 unless given; the overlapped
+//           join's key-only pack asks for 0xFFFFFFFF) goes into every dead
+//           slot, [counts[c], cap) of each cell, a block a chunk of 2048
+//           slots of one cell;
 //   place   a block owns its span again, each warp a contiguous sub-span:
 //           the warps count their sub-spans' buckets into 16-bit counters of
 //           their own, the block turns those into each warp's first place a
@@ -33,7 +36,7 @@
 //
 // Bound on the H100: bytes.  Per live row it reads dest (4 B), active (1 B
 // where given) and w payload words and writes the w words and its row map
-// word, plus the nparts * cap - staged cell slots that stay zero.  The
+// word, plus the nparts * cap - staged cell slots that take the fill.  The
 // passes read dest three times and move the count matrix (4 B a bucket and
 // span) through the scan.
 #include "scan.cuh"
@@ -43,6 +46,7 @@ namespace {
 constexpr int ST_COUNT_THREADS = 512;
 constexpr int ST_MAX_WARPS = 8;
 constexpr int ST_FILL_THREADS = 256;
+constexpr int64_t ST_FILL_CHUNK = ST_FILL_THREADS * 8;  // slots of a cell a fill block owns
 constexpr int64_t ST_MAX_SPAN = 65535;  // a warp's 16-bit counters
 constexpr int ST_UNROLL = 4;            // rows a lane loads before it uses any
 constexpr uint32_t ST_OWN = 2048;       // bytes a place warp marks its single lanes in
@@ -206,17 +210,19 @@ __global__ void cells_finish(Rows r, int64_t nstarts, uint32_t cap, uint32_t* st
   }
 }
 
-// A warp a cell: slots [counts[c], cap) of every payload word become 0.
+// The dead slots [counts[c], cap) of every cell become `fill` in every
+// payload word: block (x, c) owns slots [x * ST_FILL_CHUNK, +ST_FILL_CHUNK)
+// of cell c and writes the dead ones among them, coalesced.  A shuffle's
+// few cells of millions of slots spread over the card as evenly as the
+// tiled join's thousands of small ones.
 __global__ void __launch_bounds__(ST_FILL_THREADS)
-cells_fill_dead(const uint32_t* counts, int64_t nparts, int64_t cap, CellPtrs cells) {
-  const int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (c >= nparts) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t hi = (c + 1) * cap;
-  for (int k = 0; k < cells.count; ++k) {
-    uint32_t* p = cells.ptr[k];
-    for (int64_t j = c * cap + counts[c] + lane; j < hi; j += 32) __stcs(&p[j], 0u);
-  }
+cells_fill_dead(const uint32_t* counts, int64_t cap, CellPtrs cells, uint32_t fill) {
+  const int64_t c = blockIdx.y;
+  const int64_t lo = (int64_t)blockIdx.x * ST_FILL_CHUNK;
+  const int64_t hi = lo + ST_FILL_CHUNK < cap ? lo + ST_FILL_CHUNK : cap;
+  const int64_t dead = __ldg(&counts[c]);
+  for (int64_t j = (lo > dead ? lo : dead) + threadIdx.x; j < hi; j += blockDim.x)
+    for (int k = 0; k < cells.count; ++k) __stcs(&cells.ptr[k][c * cap + j], fill);
 }
 
 struct PlaceArgs {
@@ -425,13 +431,15 @@ DBT_API int64_t dbt_stage_cells_scratch_words(int64_t n, int64_t nparts, int64_t
 // int32 live count or null (row i is read only if i < count); pay_in: npay
 // device pointers (host array) to u32 columns of n rows with their row
 // strides; cells: npay device pointers to u32[nparts * cap]; counts
-// u32[nparts]; stats u32[3] = (overflow, active rows with dest > nparts,
+// u32[nparts]; `fill` the value of every dead slot of every cell; stats
+// u32[3] = (overflow, active rows with dest > nparts,
 // rows of the sink bucket); si i32[n] (the rows in (bucket, row) order) or
 // null; slot_of_row i32[n] or null.  `span` rows a block, `warps` warps a
 // place block (kernels/cells_plan.py).
 DBT_API int dbt_stage_cells(const void* dest, const void* active, const void* count, int64_t n,
                             int64_t nparts, int64_t cap, const void* const* pay_in,
-                            const int64_t* pay_strides, void* const* cells, int npay, void* counts,
+                            const int64_t* pay_strides, void* const* cells, int npay,
+                            uint32_t fill, void* counts,
                             void* stats, void* si, void* slot_of_row, void* scratch,
                             int64_t scratch_words, int64_t span, int warps, void* stream) {
   const int64_t nbins = nparts + 1;
@@ -484,8 +492,9 @@ DBT_API int dbt_stage_cells(const void* dest, const void* active, const void* co
     DBT_CHECK_LAUNCH();
   }
   if (npay > 0) {
-    cells_fill_dead<<<dbt::blocks_for(nparts * 32, ST_FILL_THREADS), ST_FILL_THREADS, 0, st>>>(
-        static_cast<const uint32_t*>(counts), nparts, cap, cp);
+    const dim3 fill_grid(dbt::blocks_for(cap, ST_FILL_CHUNK), (unsigned)nparts);
+    cells_fill_dead<<<fill_grid, ST_FILL_THREADS, 0, st>>>(static_cast<const uint32_t*>(counts),
+                                                           cap, cp, fill);
     DBT_CHECK_LAUNCH();
   }
   return 0;

@@ -27,6 +27,10 @@
     K17 hash_set.hash_set_probe <- ops/hash_table.py:108 probe_hash_set
     K18 bucket_probe.bucket_probe
                                 <- ops/bucket_join.py:59-158 the bucket table and compare
+    K19 topk_runs.topk_runs     <- parallel/skew.py:44-65 local_topk_hashes' run counts and top_k
+    K20 hot_set.hot_hashes      <- parallel/skew.py:68-88 hot_hash_set's candidate reduction
+    K21 hot_set.in_hot_set      <- parallel/skew.py:91 in_hash_set
+    K22 range_dest.range_dest   <- parallel/dist_ops.py:312,380 _lex_ge and its sum
 
 (paths in the JAX package; K11 and K12's in the repository's ``tools/``).
 K1 and K5 run on one one-sweep LSD radix sort (``csrc/radix.cuh``), whose
@@ -36,7 +40,9 @@ pass schedule ``radix_plan`` builds; K4 and K12 on one row-move engine
 one tile layout (``csrc/scan.cuh``), whose tile and scratch ``scan_plan``
 holds; K9's span and place warps and K10's tables follow ``cells_plan``;
 K6's rows a lane and key stages and the rows a thread and grid of K7's
-gather follow ``perm_plan``; K15-K18's limits are in ``engines_plan``.
+gather follow ``perm_plan``; K15-K18's limits are in ``engines_plan``,
+K19-K22's in ``dist_plan``.  The distributed plan's shuffle packs with K9
+(``stage_to_cells``; with a fill value for the key-only pack).
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launch in ``LAUNCHES``; there is no
 fallback from one to the other.

@@ -35,6 +35,7 @@ LAUNCHES = {
     "hash_words": 0, "stage_cells": 0, "member_mult": 0,
     "tile_copy": 0, "row_move": 0, "run_aggregate": 0, "expand_sources": 0,
     "sorted_probe": 0, "hash_set_build": 0, "hash_set_probe": 0, "bucket_probe": 0,
+    "topk_runs": 0, "hot_hashes": 0, "in_hot_set": 0, "range_dest": 0,
 }
 
 
@@ -128,8 +129,8 @@ _SIGNATURES = {
     "dbt_value_boundaries_scratch_words": ([_I64, _I64, _I64], _I64),
     "dbt_value_boundaries": ([_P, _I64, _I64, _P, _P, _I64, _I64, _P], _I),
     "dbt_stage_cells_scratch_words": ([_I64, _I64, _I64], _I64),
-    "dbt_stage_cells": ([_P, _P, _P, _I64, _I64, _I64, _PP, _PI64, _PP, _I, _P, _P, _P, _P, _P,
-                         _I64, _I64, _I, _P], _I),
+    "dbt_stage_cells": ([_P, _P, _P, _I64, _I64, _I64, _PP, _PI64, _PP, _I, _U32, _P, _P, _P, _P,
+                         _P, _I64, _I64, _I, _P], _I),
     "dbt_member_mult": ([_PP, _PI64, _PP, _PI64, _I, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P,
                          _I64, _I64, _I, _P], _I),
     "dbt_tile_copy": ([_P, _P, _P, _I64, _I, _I, _I, _I, _P], _I),
@@ -140,6 +141,11 @@ _SIGNATURES = {
     "dbt_hash_set_build": ([_P, _I64, _P, _I64, _P, _I64, _I, _P, _P], _I),
     "dbt_hash_set_probe": ([_P, _I64, _P, _P, _I64, _P, _I64, _I, _P, _P, _P], _I),
     "dbt_bucket_probe": ([_P, _P, _I64, _P, _P, _I64, _I64, _I, _P, _P, _P], _I),
+    "dbt_topk_runs_scratch_words": ([_I64, _I], _I64),
+    "dbt_topk_runs": ([_P, _I64, _P, _I, _P, _P, _P, _I64, _P], _I),
+    "dbt_hot_hashes": ([_P, _P, _I64, _P, _P, _P], _I),
+    "dbt_in_hot_set": ([_P, _I64, _P, _I64, _P, _P], _I),
+    "dbt_range_dest": ([_PP, _PI64, _I, _I64, _P, _I64, _P, _P], _I),
 }
 
 

@@ -15,7 +15,9 @@ above ``nparts``), computed without a sort:
   spans up to s: the last row of (b, s) in "si" order, plus one;
 - finish: each bucket's start, the counts clamped to ``cap``, the overflow
   and the sink's size, on the card;
-- fill: a warp a cell zeroes its dead slots ``[counts[c], cap)``;
+- fill: a block a chunk of 2048 slots of one cell writes the fill value (0
+  unless given) into the chunk's dead slots, ``[counts[c], cap)`` of its
+  cell;
 - place: a block owns its span again, ``warps`` warps each a contiguous
   sub-span of ``SPAN / warps`` rows.  Each warp counts its sub-span's
   buckets into its own 16-bit counters in shared memory; the block turns

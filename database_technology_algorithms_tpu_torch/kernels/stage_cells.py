@@ -66,6 +66,7 @@ def stage_to_cells(
     row_map: str = "slots",
     count=None,
     in_range: bool = False,
+    fill: int = 0,
 ) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """Stage rows into padded [nparts, cap] cells by destination id.
 
@@ -77,7 +78,8 @@ def stage_to_cells(
     ``active`` of ``arange(N) < count``, whose rows past it the kernel does
     not read.  Returns ``(cells, counts, row_map_out, overflow)``: one
     int32[nparts * cap] array per payload word (int32[N] columns, possibly
-    strided), dead slots zero; the per-cell live counts clamped to cap
+    strided), dead slots holding `fill` (a u32 value, or its int32 bits;
+    0 unless given); the per-cell live counts clamped to cap
     (int32[nparts]); and the number of active rows beyond their cell's
     capacity, which are not staged (0-d int32).  `row_map` selects the third
     output:
@@ -103,8 +105,9 @@ def stage_to_cells(
     if nparts < 1 or cap < 1:
         raise ValueError("stage_to_cells: nparts and cap must be positive")
     payloads = list(payloads)
+    fill = _fill_bits(fill)
     if dest.device.type == "cpu":
-        return stage_to_cells_plain(dest, active, nparts, cap, payloads, row_map, count)
+        return stage_to_cells_plain(dest, active, nparts, cap, payloads, row_map, count, fill)
     dev = dest.device
     n = dest.shape[0]
     _lib.check_cuda("stage_to_cells dest", dest, torch.int32)
@@ -133,7 +136,7 @@ def stage_to_cells(
             dest.data_ptr(), None if active is None else active.data_ptr(),
             None if cnt is None else cnt.data_ptr(), n, nparts, cap,
             _lib.ptr_array(payloads), _lib.stride_array(payloads), _lib.ptr_array(cells),
-            len(payloads), counts.data_ptr(), stats.data_ptr(),
+            len(payloads), fill & 0xFFFFFFFF, counts.data_ptr(), stats.data_ptr(),
             None if si is None else si.data_ptr(), None if slots is None else slots.data_ptr(),
             scratch.data_ptr(), words, cells_plan.SPAN, warps, _lib.stream_of(dest),
         )
@@ -161,6 +164,14 @@ def stage_to_cells(
     return cells, counts, si, overflow
 
 
+def _fill_bits(fill: int) -> int:
+    """A u32 fill value (or its int32 bits) as the int32 the cells hold."""
+    fill = int(fill)
+    if not -(1 << 31) <= fill < 1 << 32:
+        raise ValueError(f"stage_to_cells: fill {fill} is not a u32 value")
+    return fill - (1 << 32) if fill >= 1 << 31 else fill
+
+
 def stage_to_cells_plain(
     dest: torch.Tensor,
     active: torch.Tensor | None,
@@ -169,6 +180,7 @@ def stage_to_cells_plain(
     payloads: Sequence[torch.Tensor],
     row_map: str = "slots",
     count=None,
+    fill: int = 0,
 ) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """The same staging from one stable torch.sort of the destinations."""
     n = dest.shape[0]
@@ -190,7 +202,7 @@ def stage_to_cells_plain(
     slot = torch.where(ok, sd * cap + rank, m)
     cells = []
     for w in payloads:
-        cell = torch.zeros(m, dtype=torch.int32, device=dev)
+        cell = torch.full((m,), _fill_bits(fill), dtype=torch.int32, device=dev)
         cell[slot[ok]] = w[si[ok]]
         cells.append(cell)
     counts = hist[:nparts].clamp(max=cap).to(torch.int32)

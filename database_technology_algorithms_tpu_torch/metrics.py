@@ -1,6 +1,5 @@
 """Operator statistics and bytes-moved accounting (port of the JAX
-package's ``metrics.py``: its fields that the single-device operators
-fill, with the same names and meaning).
+package's ``metrics.py``: its fields, with the same names and meaning).
 
 The reference's only instrumentation is its stats-out parameters —
 ``nsorted_segs``, ``npasses``, ``nunique``, ``nres``, ``nios``
@@ -30,14 +29,28 @@ class OperatorStats:
     nunique_r: int = 0
     nunique_s: int = 0
     nres: int = 0
-    # bytes moved per tier (the nios heir): the device, host RAM and disk
+    # bytes moved per tier (the nios heir): the device, host RAM and disk,
+    # and the exchanges between shards (ICI within a host, DCN across hosts)
     bytes_hbm: int = 0
     bytes_host: int = 0
+    bytes_ici: int = 0
+    bytes_dcn: int = 0
     # out-of-core discipline: the largest key-range working set pass 2 ever
     # held in host RAM at once (rows); must stay O(mem_rows)
     peak_range_rows: int = 0
+    # shuffle-overflow recoveries: capacity-doubling re-runs that were needed
+    # before the exchange fit (0 = first attempt fit)
+    retries: int = 0
     # timing
     wall_s: float = 0.0
+
+    def merge(self, other: "OperatorStats") -> "OperatorStats":
+        """A copy of self with other's passes, segments and bytes added."""
+        out = dataclasses.replace(self)
+        for f in ("nsorted_segs", "npasses", "bytes_hbm", "bytes_host", "bytes_ici",
+                  "bytes_dcn"):
+            setattr(out, f, getattr(self, f) + getattr(other, f))
+        return out
 
 
 class Timer:

@@ -1,7 +1,8 @@
 """The composed query pipeline (port of the JAX package's ``models/pipeline.py``,
 all four key fields, both materialization routes; beyond the device budget
 the staged runner composes the chunked distinct, the tiled join and the
-chunked compaction).
+chunked compaction; ``make_dist_pipeline``, the distributed plan over a
+shard mesh, at the end of the module).
 
 The reference driver's workload (``main.cpp:109-123``) is MergeJoin
 (sort -> distinct -> two-pointer join) followed by HashJoin on the dedup'd
@@ -27,7 +28,12 @@ import torch
 
 from ..batch import RecordBatch, as_u32, canonical_field, u32_bits
 from ..config import DEFAULT_CONFIG, EngineConfig
+from ..ops.aggregate import combine_group_aggregate_impl, group_aggregate_impl
+from ..ops.distinct import distinct_impl
+from ..ops.filter import compact
+from ..ops.hash_join import hash_join_count_impl
 from ..ops.keys import key_words
+from ..ops.merge_join import join_sorted_distinct_impl
 from ..ops.movement import (
     compact_words, packed_keep_backsort, packed_placement, permute_rows, place_join_by_key,
     use_sort_placement)
@@ -35,6 +41,11 @@ from ..ops.scan import cumsum, seg_carry, seg_max, seg_min
 from ..ops.sort import (
     SortedView, materialize_survivors, packed_u32_view_sort, sort_keys, sorted_adjacent_equal,
     survivor_dest, view_sort_3key)
+from ..parallel.dist_ops import hash_dest
+from ..parallel.mesh import mesh_size
+from ..parallel.overlap import overlap_key_words, overlapped_join_local
+from ..parallel.shuffle import shuffle_with_extra
+from ..parallel.skew import skew_join_local
 from ..utils.checks import ensure_device_budget
 
 
@@ -232,3 +243,125 @@ def make_pipeline_staged(field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
     run.stage_a = stage_a  # type: ignore[attr-defined]
     run.materialize = materialize  # type: ignore[attr-defined]
     return run
+
+
+# ---------------------------------------------------------------------------
+# the distributed plan over a shard mesh
+
+
+def _dist_caps(nrow_r: int, nrow_s: int, ndev: int, cfg: EngineConfig):
+    cap_r = max(int(nrow_r * cfg.shuffle_slack) // ndev + 1, 64)
+    cap_s = max(int(nrow_s * cfg.shuffle_slack) // ndev + 1, 64)
+    return cap_r, cap_s
+
+
+def _dist_stage_local(rb: RecordBatch, rc, sb: RecordBatch, sc, field, cfg: EngineConfig):
+    """Stage 1 on one shard, no collectives: the filter (valid rows below
+    the live count), the local dedup of R and the partial aggregates of S."""
+    rf, rcf = compact(rb, rb.valid & (torch.arange(rb.nrows, device=rb.valid.device) < rc), cfg)
+    sf, scf = compact(sb, sb.valid & (torch.arange(sb.nrows, device=sb.valid.device) < sc), cfg)
+    rloc, nur_loc = distinct_impl(rf, field, cfg, count=rcf)
+    sloc, s_pagg, nus_loc = group_aggregate_impl(sf, field, cfg, count=scf,
+                                                 materialize_reps=True)
+    return rloc, nur_loc, sloc, s_pagg, nus_loc
+
+
+def _dist_stage_shuffle(mesh, rloc: list, nur_loc: list, sloc: list, s_pagg: list,
+                        nus_loc: list, field, cfg: EngineConfig, cap_r: int, cap_s: int):
+    """Stage 2, the exchange: one hash-partition all-to-all a table; S's
+    partial aggregates ride as extra words."""
+    ndev = mesh_size(mesh)
+    rsh, _, rtot, ovf1 = shuffle_with_extra(
+        mesh, rloc, nur_loc, [hash_dest(b, field, ndev) for b in rloc], cap_r, cfg,
+        nchunks=cfg.shuffle_nchunks)
+    ssh, s_px, stot, ovf2 = shuffle_with_extra(
+        mesh, sloc, nus_loc, [hash_dest(b, field, ndev) for b in sloc], cap_s, cfg,
+        extras=[(p["count"], p["sum"], p["min"], p["max"]) for p in s_pagg],
+        nchunks=cfg.shuffle_nchunks)
+    return rsh, rtot, ssh, s_px, stot, [a + b for a, b in zip(ovf1, ovf2)]
+
+
+def _dist_stage_join(mesh, rsh: list, rtot: list, ssh: list, s_px: list, stot: list, field,
+                     cfg: EngineConfig, cap_r: int, cap_s: int) -> dict:
+    """Stage 3, colocated: the global dedup and combine, the merge join, the
+    HashJoin cross-check under ``cfg.dist_join_engine``, the counters summed
+    over the shards."""
+    ndev = mesh_size(mesh)
+    joined = []
+    for r, rt, s, px, st in zip(rsh, rtot, ssh, s_px, stot):
+        r_d, nu_r = distinct_impl(r, field, cfg, count=rt)
+        s_d, agg, nu_s = combine_group_aggregate_impl(s, field, px, cfg, count=st,
+                                                      materialize_reps=True)
+        joined.append((r_d, nu_r, s_d, nu_s, agg,
+                       *join_sorted_distinct_impl(r_d, nu_r, s_d, nu_s, field, cfg)))
+    rd, nur, sd, nus, aggs, mj_out, mjn = (list(x) for x in zip(*joined))
+
+    # the HashJoin cross-check on the dedup'd intermediates (main.cpp:121) by
+    # the configured engine; every engine gives the same count.  The sides
+    # are already hash-colocated, so the engines run with colocated=True
+    # and skip their exchanges.
+    engine = cfg.dist_join_engine
+    if engine == "skew":
+        cap_hot = min(max(2 * ndev * cfg.hh_topk, 64), rd[0].nrows)
+        _, _, hjn, hj_ovf, _ = skew_join_local(mesh, rd, nur, sd, nus, field, cfg,
+                                               cap_r, cap_s, cap_hot, colocated=True)
+    elif engine == "overlap" and (overlap_key_words(rd[0], field) is not None
+                                  and overlap_key_words(sd[0], field) is not None):
+        chunks = max(cfg.shuffle_nchunks, 2)
+        _, _, hjn, hj_ovf = overlapped_join_local(mesh, rd, nur, sd, nus, field, cfg, cap_r,
+                                                  cap_s, -(-cap_s // chunks), chunks,
+                                                  colocated=True)
+    else:
+        hjn = mesh.psum([hash_join_count_impl(r, s, field, cfg, build_count=a, probe_count=b)[2]
+                         for r, s, a, b in zip(rd, sd, nur, nus)])
+        hj_ovf = [torch.zeros((), dtype=torch.int32, device=d) for d in mesh.devices]
+
+    nus_g = mesh.psum(nus)[0]
+    return {
+        "nunique_r": mesh.psum(nur)[0],
+        "nunique_s": nus_g,
+        "merge_nres": mesh.psum(mjn)[0],
+        "hash_nres": hjn[0],
+        "agg_groups": nus_g,
+        "join_out": mj_out,
+        "join_counts": mjn,
+        "agg_count": [a["count"] for a in aggs],
+        "agg_sum": [a["sum"] for a in aggs],
+        "overflow": hj_ovf[0],
+    }
+
+
+def make_dist_pipeline(mesh, field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG):
+    """The distributed plan over the shards of `mesh`.
+
+    Returns ``step(r_batches, r_counts, s_batches, s_counts)``, one batch and
+    one live count a shard (a ``DistTable``'s ``batches`` and ``counts``),
+    which returns the JAX package's dict: the counters of ``pipeline_single``
+    summed over the shards (``nunique_r``, ``nunique_s``, ``merge_nres``,
+    ``hash_nres``, ``agg_groups``; 0-d int32), a list a shard of
+    ``join_out``, ``join_counts``, ``agg_count`` and ``agg_sum``, and
+    ``overflow`` (0-d int32).
+
+    The plan is local-first: each shard filters, dedups R and aggregates S
+    on its own rows (stage 1), so a key moves at most one row a shard a
+    side; one hash-partition all-to-all a table follows, S's partial
+    (count, sum, min, max) riding as extra words (stage 2; in
+    ``cfg.shuffle_nchunks`` slices); then, colocated, the global dedup,
+    the combine of the partials, the merge join and the HashJoin
+    cross-check under ``cfg.dist_join_engine`` ("sorted", "skew" or
+    "overlap"; all exact) (stage 3).  The stages are this module's
+    ``_dist_stage_local``, ``_dist_stage_shuffle`` and ``_dist_stage_join``.
+    """
+    ndev = mesh_size(mesh)
+
+    def step(rb: list, rc: list, sb: list, sc: list) -> dict:
+        cap_r, cap_s = _dist_caps(rb[0].nrows, sb[0].nrows, ndev, cfg)
+        local = [_dist_stage_local(r, a, s, b, field, cfg) for r, a, s, b in zip(rb, rc, sb, sc)]
+        rloc, nur_loc, sloc, s_pagg, nus_loc = (list(x) for x in zip(*local))
+        rsh, rtot, ssh, s_px, stot, sh_ovf = _dist_stage_shuffle(
+            mesh, rloc, nur_loc, sloc, s_pagg, nus_loc, field, cfg, cap_r, cap_s)
+        out = _dist_stage_join(mesh, rsh, rtot, ssh, s_px, stot, field, cfg, cap_r, cap_s)
+        out["overflow"] = out["overflow"] + sh_ovf[0]
+        return out
+
+    return step

@@ -59,10 +59,11 @@ def u32(t) -> np.ndarray:
 
 
 def emulate_stage(dest, active, count, nparts, cap, payloads, row_map, span, warps,
-                  in_range=False):
+                  in_range=False, fill=0):
     """K9 as the card runs it: count, in-place scan of the bucket-major
-    matrix, finish, fill, place (with the wrapper's K5 ordering of the sink
-    where destinations pass nparts and `in_range` is not given).  Returns
+    matrix, finish, fill (with `fill`, a u32), place (with the wrapper's K5
+    ordering of the sink where destinations pass nparts and `in_range` is not
+    given).  Returns
     (cells, counts, row map, overflow) as numpy arrays."""
     dest = np.asarray(dest, dtype=U32).astype(np.int64)
     n = dest.shape[0]
@@ -91,9 +92,9 @@ def emulate_stage(dest, active, count, nparts, cap, payloads, row_map, span, war
     counts = np.minimum(total[:nparts], cap)
     overflow = int(np.maximum(total[:nparts] - cap, 0).sum())
     nsink = int(total[nparts]) + n - live
-    # fill: every slot 0 until placed
+    # fill: every slot holds `fill` until placed
     m = nparts * cap
-    cells = [np.zeros(m, U32) for _ in payloads]
+    cells = [np.full(m, fill, U32) for _ in payloads]
     pays = [np.asarray(p, dtype=U32) for p in payloads]
     si = np.full(n, -1, np.int64)
     slots = np.full(n, -1, np.int64)

@@ -166,14 +166,18 @@ def external_both(cmd: str, files: list, flags: list, tmp_path, monkeypatch, cap
 
 
 def test_unported_flags_and_commands_raise(pair_files, tmp_path, monkeypatch, capsys):
-    """Only ``--dist`` is still refused, by a message that names the JAX
-    package's ``parallel/``; ``mergesort`` and ``--mem-blocks`` run the
-    external route and equal the JAX CLI."""
+    """Only the multi-process flags of ``pipeline`` are still refused, each
+    by a message that names the multi-process plan; ``mergesort`` and
+    ``--mem-blocks`` run the external route and equal the JAX CLI."""
     f1, f2 = pair_files
     out = str(tmp_path / "o.bin")
     cpu = ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        t_main(["pipeline", "--nblocks", "1", "--dist", "4", *cpu])
+    for flag in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],
+                 ["--process-id", "1"], ["--local-devices", "2"], ["--init-timeout", "5"],
+                 ["--heartbeat-timeout", "5"], ["--stage-checkpoints", str(tmp_path / "c")],
+                 ["--fail-after-stage", "local"]):
+        with pytest.raises(NotImplementedError, match=f"{flag[0]}: the multi-process plan"):
+            t_main(["pipeline", "--nblocks", "1", "--dist", "4", *flag, *cpu])
     for cmd, files in (("mergesort", [f1]), ("elimdup", [f1]), ("hashjoin", [f1, f2]),
                        ("mergejoin", [f1, f2])):
         line = external_both(cmd, files, ["--mem-blocks", "10"], tmp_path / cmd, monkeypatch,
@@ -242,3 +246,30 @@ def test_pipeline_command_routes_generated_tables_beyond_the_budget(monkeypatch,
     rc, got = run_port(capsys, argv)
     assert rc == 0 and got == want and got["joins_agree"] and got["merge_join_pairs"] > 0
     assert len(routed) == 2  # both tables went through the chunked distinct
+
+
+DIST_CASES = [("0", "sorted", 4, []), ("1", "skew", 3, []),
+              ("2", "overlap", 4, ["--shuffle-chunks", "2"]), ("3", "sorted", 8, ["--skip-files"]),
+              ("1", "overlap", 8, ["--shuffle-chunks", "3"])]
+
+
+@pytest.mark.parametrize("field,engine,ndev,flags", DIST_CASES)
+def test_pipeline_dist_command_matches_jax(field, engine, ndev, flags, tmp_path, monkeypatch,
+                                           capsys):
+    """``pipeline --dist N`` on the files the command writes (or generated
+    tables): the JAX CLI's record, field for field but ``wall_s``, and its
+    exit code."""
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jdir.mkdir()
+    tdir.mkdir()
+    argv = ["pipeline", "--nblocks", str(NBLOCKS), "--field", field, "--seed", "5", "--dist",
+            str(ndev), "--join-engine", engine, *flags]
+    jrc, want = run_jax(monkeypatch, capsys, [*argv, "--workdir", str(jdir)])
+    trc, got = run_port(capsys, [*argv, "--workdir", str(tdir)])
+    assert jrc == trc == 0
+    assert got == want and got["joins_agree"] is True and got["overflow"] == 0
+    assert set(got) == {"mesh_devices", "field", "merge_join_pairs", "hash_join_pairs",
+                        "joins_agree", "nunique_r", "nunique_s", "overflow"}
+    if "--skip-files" not in flags:
+        for name in ("file.bin", "file2.bin"):
+            assert (tdir / name).read_bytes() == (jdir / name).read_bytes(), name

@@ -49,7 +49,9 @@ def test_port_sources_found():
             "bench_permute_prims.py", "external.py", "metrics.py", "native.py",
             "aggregate.py", "filter.py", "checks.py", "run_aggregate.py",
             "expand_sources.py", "fastpath.py", "hash_table.py", "bucket_join.py",
-            "sorted_probe.py", "hash_set.py", "bucket_probe.py", "engines_plan.py"} <= names
+            "sorted_probe.py", "hash_set.py", "bucket_probe.py", "engines_plan.py",
+            "mesh.py", "multihost.py", "shuffle.py", "dist_ops.py", "skew.py", "overlap.py",
+            "topk_runs.py", "hot_set.py", "range_dest.py", "dist_plan.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -88,6 +90,7 @@ def test_entry_points_need_a_device_without_cuda(no_cuda, tmp_path):
     from database_technology_algorithms_tpu_torch.ops import filter_batch, group_aggregate
     from database_technology_algorithms_tpu_torch.ops.filter import pred_valid
     from database_technology_algorithms_tpu_torch.ops.hash_join import materialize_field3_device
+    from database_technology_algorithms_tpu_torch.parallel import make_host_chip_mesh, make_mesh
 
     cols = generate_columns(1)
     path = str(tmp_path / "f.bin")
@@ -111,6 +114,9 @@ def test_entry_points_need_a_device_without_cuda(no_cuda, tmp_path):
         lambda: main(["pipeline", "--nblocks", "1", "--skip-files"]),
         lambda: main(["--nblocks", "1", "--skip-files"]),
         lambda: main(["pipeline", "--nblocks", "1", "--skip-files", "--debug-checks"]),
+        lambda: main(["pipeline", "--nblocks", "1", "--skip-files", "--dist", "2"]),
+        lambda: make_mesh(2),
+        lambda: make_host_chip_mesh(1, 2),
         # batches made with no device are made on the card
         lambda: filter_batch(RecordBatch.from_numpy(u, u), pred_valid()),
         lambda: group_aggregate(RecordBatch.from_numpy(u, u), 1),
@@ -147,6 +153,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     from database_technology_algorithms_tpu_torch.kernels.hash_set import (
         HashSet, hash_set_build, hash_set_probe)
     from database_technology_algorithms_tpu_torch.kernels.bucket_probe import bucket_probe
+    from database_technology_algorithms_tpu_torch.kernels.hot_set import hot_hashes, in_hot_set
+    from database_technology_algorithms_tpu_torch.kernels.range_dest import range_dest
+    from database_technology_algorithms_tpu_torch.kernels.topk_runs import topk_runs
 
     meta = torch.device("meta")
     words = torch.empty(8, dtype=torch.int32, device=meta)
@@ -176,6 +185,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         lambda: hash_set_build(words, 16, 4),
         lambda: hash_set_probe(HashSet(words, words[0], words[1]), words, None, 8),
         lambda: bucket_probe(words, words, words, words, 4, 8),
+        lambda: topk_runs(words, 4, 2),
+        lambda: hot_hashes(words, words, 1),
+        lambda: in_hot_set(words, words),
+        lambda: range_dest([words, words], [words[:3], words[:3]]),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
