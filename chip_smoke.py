@@ -56,7 +56,8 @@ Phases (any failure raises and the script exits non-zero):
      rows on both placement routes against the gather route; device time
      and host wall of the three routes side by side;
      the probes: the K11 tile copy (``tools/bench_pallas_dma``'s Pallas
-     kernel) for each chunk size G and the K12 row move (P4 and P5 of
+     kernel) for each chunk size G (also under plans of other units, rings
+     and grids, and at other row widths) and the K12 row move (P4 and P5 of
      ``tools/bench_permute_prims``) through the port's probe modules, with
      their bounds and library yardsticks;
   4. the ``pipeline`` command, the reference's main program, at ``--nblocks 10000``
@@ -132,8 +133,10 @@ Phases (any failure raises and the script exits non-zero):
      the 1M runs' own inputs (``[engines]`` lines);
  11. the distributed plan on a mesh of four shards on the one card
      (``parallel/``, ``make_dist_pipeline``): K19 (top-k runs), K20 (hot
-     list), K21 (hot-set membership), K22 (range destination) and K9's
-     fill against their plain versions at their edges; the plan at 4M + 4M
+     list), K21 (hot-set membership), K22 (range destination: its vector
+     path with 0-3 rows of tail, its scalar path on strided and misaligned
+     columns) and K9's fill against their plain versions at their edges;
+     the plan at 4M + 4M
      rows (1M a shard, every seventh row invalid) for fields 0-3 under the
      "sorted", "skew" and "overlap" engines and "sorted" with 4 exchange
      slices, each run's counters against numpy and the single-card
@@ -158,7 +161,9 @@ Phases (any failure raises and the script exits non-zero):
      over-budget route's largest call and within the ``pipeline`` command's
      profile (fields 0-3), K7's scatter in its bool form on the placement
      route beside ``scatter_``, its gather at the over-budget shape beside
-     ``index_select``; K11 and ``copy_`` in turns in one profiled window.
+     ``index_select``; K11 and ``copy_`` in turns in one profiled window;
+     K22 launching one kernel a call, in turns with
+     ``torch.searchsorted(right=True)``, and at field 3's key.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -769,15 +774,32 @@ def check_probe_kernels(dev, g, sizes) -> dict:
     from database_technology_algorithms_tpu_torch.kernels.tile_copy import (
         tile_copy, tile_copy_plain)
     from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as dma
+    from database_technology_algorithms_tpu_torch.tools import copy_sweep
     from database_technology_algorithms_tpu_torch.tools import bench_permute_prims as prims
 
     errs = {"tile_copy": 0, "row_move": 0}
     pin = probe_inputs(dev, g)
+    # the default plan, and plans whose blocks take tens of units through their ring,
+    # with units of 32-512 rows (chunks that span units) and rings of 2-16
+    plans = ({"UNIT_BYTES": 64 * 128, "RING": 8, "BLOCKS_PER_SM": 1},
+             {"UNIT_BYTES": 512 * 128, "RING": 2, "BLOCKS_PER_SM": 1},
+             {"UNIT_BYTES": 32 * 128, "RING": 16, "BLOCKS_PER_SM": 3})
     for G in dma.GS:
         for order, st in pin["starts"].items():
+            want = tile_copy_plain(pin["x"], st, G)
             errs["tile_copy"] = max(errs["tile_copy"], assert_same(
-                f"K11 n={dma.N} G={G} {order} starts",
-                (tile_copy(pin["x"], st, G),), (tile_copy_plain(pin["x"], st, G),)))
+                f"K11 n={dma.N} G={G} {order} starts", (tile_copy(pin["x"], st, G),), (want,)))
+            for values in plans:
+                with copy_sweep.plan(**values) as plan:
+                    errs["tile_copy"] = max(errs["tile_copy"], assert_same(
+                        f"K11 n={dma.N} G={G} {order} starts, {plan}",
+                        (tile_copy(pin["x"], st, G),), (want,)))
+    for w, tile, G, n in ((8, 256, 64, 256 * 37), (4, 64, 32, 64 * 5), (512, 128, 32, 128 * 9)):
+        x = torch.from_numpy(g.integers(-2**31, 2**31, n * w).astype(np.int32)).to(dev)
+        st = torch.from_numpy((g.permutation(n // tile) * tile).astype(np.int32))
+        errs["tile_copy"] = max(errs["tile_copy"], assert_same(
+            f"K11 W={w} T={tile} G={G} n={n}", (tile_copy(x, st, G, tile, w),),
+            (tile_copy_plain(x, st, G, tile, w),)))
     for load in (True, False):
         errs["row_move"] = max(errs["row_move"], assert_same(
             f"K12 N={prims.N} tile={prims.T} load={load}",
@@ -796,9 +818,11 @@ def check_probe_kernels(dev, g, sizes) -> dict:
                     (row_move(x, s, max(n, 1), load),), (row_move_plain(x, s, max(n, 1), load),)))
     torch.cuda.synchronize()
     log(f"[kernels] K11 equals its plain version at n={dma.N} for G in {dma.GS} with identity "
-        f"and tile-permuted starts; K12 in both modes at N={prims.N} in tiles of {prims.T} "
-        f"(W={prims.W}) and as one tile at N in {sizes} (W 5 and {prims.W}) with slots outside "
-        f"the tile")
+        f"and tile-permuted starts, under the default plan and {len(plans)} others (units "
+        f"of 32-512 rows, rings of 2-16, blocks that reload their ring tens of times), and at "
+        f"W 8, 4 and 512 with permuted starts; K12 in both modes at N={prims.N} "
+        f"in tiles of {prims.T} (W={prims.W}) and as one tile at N in {sizes} (W 5 and "
+        f"{prims.W}) with slots outside the tile")
     errs["row_move"] = max(errs["row_move"], check_row_move_cases(dev, g))
     return errs
 
@@ -4115,18 +4139,36 @@ def dist_kernel_edges(g, dev) -> dict:
         hot_t = u32_dev(hot, dev)
         errs["in_hot_set"] = max(errs["in_hot_set"], assert_same(
             f"K21 {what}", (in_hot_set(hashes, hot_t),), (in_hot_set_plain(hashes, hot_t),)))
-    # K22: 1 and 3 splitters, keys equal to a splitter, on both sides of 2^31, 1-4 words
+    # K22: 1 and 3 splitters, keys equal to a splitter, on both sides of 2^31, 1-4 words;
+    # strided words (the scalar path), contiguous aligned ones (the vector path) with
+    # n % 4 = 0-3 rows of tail, misaligned ones (a view one row in: the scalar path),
+    # strided splitters
     pool = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, m32], np.uint64)
-    strw = u32_dev(g.choice(pool, (ROWS, 4)), dev)
+    strw = u32_dev(g.choice(pool, (ROWS + 3, 4)), dev)
+    paths = {True: 0, False: 0}
     for nw in (1, 2, 3, 4):
         for ns in (1, 3):
             spl = np.sort(g.choice(pool, (ns, nw)).view(np.uint64), axis=0)
             spl = spl[np.lexsort(spl.T[::-1])]
-            words = [strw[:, j] for j in range(nw)]
             splt = [u32_dev(np.ascontiguousarray(spl[:, j]), dev) for j in range(nw)]
-            errs["range_dest"] = max(errs["range_dest"], assert_same(
-                f"K22 {nw} words, {ns} splitters", (range_dest(words, splt),),
-                (range_dest_plain(words, splt),)))
+            spl_mat = u32_dev(spl, dev)
+            layouts = [("strided", [strw[:ROWS, j] for j in range(nw)], splt),
+                       ("strided splitters", [strw[:ROWS, j] for j in range(nw)],
+                        [spl_mat[:, j] for j in range(nw)])]
+            for tail in (0, 1, 2, 3):
+                cols = [strw[:, j].contiguous() for j in range(nw)]
+                layouts += [(f"contiguous, tail {tail}", [c[:ROWS + tail] for c in cols], splt),
+                            (f"one row in, {ROWS + tail - 1} rows",
+                             [c[1:ROWS + tail] for c in cols], splt)]
+            for what, words, sp in layouts:
+                vec = dist_plan.range_plan(words[0].shape[0], [w.data_ptr() for w in words],
+                                           [w.stride(0) for w in words], 0)[0]
+                paths[vec] += 1
+                errs["range_dest"] = max(errs["range_dest"], assert_same(
+                    f"K22 {nw} words, {ns} splitters, {what}", (range_dest(words, sp),),
+                    (range_dest_plain(words, sp),)))
+    if not paths[True] or not paths[False]:
+        raise AssertionError(f"K22's edges took one path only: {paths}")
     # K9 with a fill: the overlap join's key-only pack
     dest = u32_dev(g.integers(0, DIST_SHARDS, ROWS), dev)
     pay = [u32_dev(g.integers(0, 2**32, ROWS, dtype=np.uint64), dev) for _ in range(2)]
@@ -4143,8 +4185,10 @@ def dist_kernel_edges(g, dev) -> dict:
         "one run, all dead, ties at the k-th place, a run across 16 tiles, 1M Zipf hashes, the "
         "count on the host and the card; K20: every candidate a sentinel, all equal, mixed, "
         "thresholds -1, 1, 50000; K21: an empty hot list, no entries, a mixed one over 2M rows; "
-        "K22: 1-4 strided words, 1 and 3 splitters, keys equal to a splitter and on both sides "
-        "of 2^31; K9: fills 0, 0xFFFFFFFF and 0x12345678 with and without a live count)")
+        f"K22: 1-4 words, 1 and 3 splitters, keys equal to a splitter and on both sides of "
+        f"2^31, strided ({paths[False]} calls on the scalar path, with the views one row in) "
+        f"and contiguous with 0-3 rows of tail ({paths[True]} on the vector path), strided "
+        f"splitters; K9: fills 0, 0xFFFFFFFF and 0x12345678 with and without a live count)")
     return errs
 
 
@@ -4506,6 +4550,7 @@ def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict
             + f", bound {bound:.4f} ms ({sp['nbytes']} B, {sp['nops']} ops, by {by}); launches "
             f"a run {rec['launches']}")
         recs.append(rec)
+    recs[-1].update(dist_k22_readings(words, spl, lib, card))
     # K9 at the shuffle's pack and with the overlap join's fill (their own rows in PERF.md)
     for what, run, key in (
             ("the shuffle's pack, the 4M + 4M field-1 sorted run", "field 1, sorted, nchunks 1",
@@ -4527,6 +4572,52 @@ def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict
             f"ms, bound {bound:.4f} ms ({nbytes} B, by {by}); launches a run "
             f"{runs[run]['launches']['stage_cells']}")
     return recs
+
+
+def dist_k22_readings(words: list, spl: list, lib, card: str) -> dict:
+    """K22's wrapper on dist_sort's own inputs launches one kernel and
+    nothing else; K22 and torch.searchsorted(right=True) in turns in one
+    profiled window (one-word keys); K22 at field 3's key: dist_sort's num
+    column and 3 string words of a [rows, 8] matrix (strided), 3
+    splitters."""
+    from database_technology_algorithms_tpu_torch.kernels import range_dest
+
+    def named(prof, name):
+        return sum(us for n, us in prof["top"] if name in n) / 1e3
+
+    alone = profile_device(lambda: range_dest.range_dest(words, spl), reps=10, cpu=False)
+    if len(alone["per_call"]) != 1 or "range_dest" not in alone["per_call"][0]:
+        raise AssertionError(f"K22's wrapper launched {alone['per_call']}, not K22 alone")
+    out = {}
+    if lib is not None:
+        alt = profile_device(lambda: (range_dest.range_dest(words, spl), lib()), reps=20,
+                             cpu=False)
+        out["ms_alternating"] = named(alt, "range_dest")
+        out["library_ms_alternating"] = alt["busy_us"] / 1e3 - out["ms_alternating"]
+        log(f"[timing] {card}: range_dest and torch.searchsorted(right=True) in turns, one "
+            f"profiled window of 20 pairs: kernel {out['ms_alternating']:.4f} ms, searchsorted "
+            f"{out['library_ms_alternating']:.4f} ms a call ({device_parts(alt, top=3)})")
+    n, ns = words[0].shape[0], spl[0].shape[0]
+    g = np.random.default_rng(22)
+    strw = u32_dev(g.integers(0, 2**32, (n, 8), dtype=np.uint64), words[0].device)
+    f3 = [words[0]] + [strw[:, j] for j in range(3)]
+    rows = torch.from_numpy(np.sort(g.choice(n, ns, replace=False))).to(words[0].device)
+    keys = np.stack([u32_host(w[rows]) for w in f3], 1).astype(np.uint64)
+    keys = keys[np.lexsort(keys.T[::-1])]
+    f3_spl = [u32_dev(np.ascontiguousarray(keys[:, j]), words[0].device) for j in range(4)]
+    err = assert_same("K22 at field 3's key", (range_dest.range_dest(f3, f3_spl),),
+                      (range_dest.range_dest_plain(f3, f3_spl),))
+    nbytes = 4 * 4 * n + 4 * 4 * ns + 4 * n
+    bound, by = bound_of(nbytes, n * ns * 4)
+    out["field3"] = {"ms": device_ms(lambda: range_dest.range_dest(f3, f3_spl), cpu=False),
+                     "plain_ms": device_ms(lambda: range_dest.range_dest_plain(f3, f3_spl),
+                                           cpu=False),
+                     "bound_ms": bound, "max_abs_err": err,
+                     "shape": f"{n} rows, 4 words (3 strided), {ns} splitters"}
+    log(f"[timing] {card}: range_dest at field 3's key ({out['field3']['shape']}): device time "
+        f"per call: kernel {out['field3']['ms']:.4f} ms, plain {out['field3']['plain_ms']:.4f} "
+        f"ms, bound {bound:.4f} ms ({nbytes} B, by {by}); equal to the plain version")
+    return out
 
 
 def dist_selection_keys(hs: torch.Tensor, nact) -> torch.Tensor:

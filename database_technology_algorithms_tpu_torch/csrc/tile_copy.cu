@@ -6,98 +6,160 @@
 // chunks at runtime offsets: chunk j of tile t lands at record row
 // starts[t] + j*g.  What the probe measures is the cost of issuing a copy.
 //
-// Hopper form: one block (one warp) a tile.  Lane 0 loads a stage of the
-// tile with cp.async.bulk global -> shared, completing on an mbarrier
-// (complete_tx::bytes); the lanes then issue the chunks of that stage as
-// cp.async.bulk shared -> global stores, a lane every 32nd chunk, each lane
-// committing its bulk group and waiting until its stores have read the
-// stage before the next load reuses it.  A TPU tile is 2048 x 32 words =
-// 256 KiB, more than a block's 227 KiB of shared memory, so the wrapper
-// stages it in parts of at most 128 KiB (two halves for the probe); a chunk
-// that spans a stage boundary (g = 2048) is issued as one copy a stage.
-// Bulk copies need 16-byte aligned addresses and sizes: a row is 4w bytes
-// and chunks and stages are multiples of 32 rows.
-//
-// Bound on the H100: bytes (each word read once and written once).  One
-// 128 KiB stage a block leaves one block an SM, so loads and stores of a
-// block do not overlap: a first form, right before fast.
+// Bound on the H100: bytes (each word read once and written once).  The
+// copies are cp.async.bulk (the TMA's one-dimensional form): global ->
+// shared completing on an mbarrier (complete_tx::bytes), shared -> global
+// completing as bulk groups.  To keep the card's memory busy, loads and
+// stores have to be in flight together on every SM, all the time:
+// - the rows are cut into units of unit_rows rows (a multiple of 32, dividing
+//   the tile, so a unit lies in one tile);
+// - the grid is persistent: blocks_per_sm blocks an SM, all resident at
+//   once.  A block takes its next unit from a counter that every block of
+//   the launch shares (one atomicAdd a unit), so no SM idles while another
+//   still has a long range to go;
+// - each block keeps a ring of `ring` unit buffers in shared memory with one
+//   "full" mbarrier each.  Its one thread loads the first `ring` units it
+//   takes, then for the k-th: waits for its barrier, issues its chunk stores
+//   (a chunk part a store: chunk j of the tile clipped to the unit) as one
+//   bulk group, and reloads the buffer of the (k-1)-th with the next unit
+//   once cp.async.bulk.wait_group.read 1 says the (k-1)-th unit's stores
+//   have read it.  So the stores of up to two units and the loads of
+//   ring - 1 are in flight in each block;
+// - the thread reads starts[t] when it loads a unit of tile t, unless the
+//   unit before it in that block lay in the same tile;
+// - the last block to finish sets the counter back to 0 for the next
+//   launch.  So two launches of this kernel on one device must not run at
+//   the same time (the wrapper launches on the caller's stream; nothing in
+//   the port launches it on two streams).
+// Bulk copies need 16-byte aligned addresses and sizes: a row is 4w bytes,
+// and units, chunks and starts are multiples of 32 rows.  The plan comes
+// from kernels/tile_copy.py copy_plan; the entry below repeats its refusals.
 #include "common.cuh"
 
 namespace {
+
+constexpr int MAX_RING = 16;           // kernels/tile_copy.py MAX_RING
+constexpr int RING_BYTES = 232448 - 1024;  // kernels/tile_copy.py RING_BYTES
+
+__device__ unsigned long long k11_next_unit;  // the units taken (and one past the end a block)
+__device__ unsigned int k11_blocks_done;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(32)
-tile_copy_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ starts,
-                 uint8_t* __restrict__ out, int tile, int w, int g, int stage_rows) {
-  extern __shared__ __align__(128) uint8_t stage[];
-  __shared__ __align__(8) uint64_t bar;
-  const int lane = threadIdx.x;
-  const int64_t row_bytes = (int64_t)w * 4;
-  const uint32_t bar_a = smem_addr(&bar);
-  const uint32_t stage_a = smem_addr(stage);
-  if (lane == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+__device__ __forceinline__ void load_unit(uint32_t buf, uint32_t bar, const uint8_t* src,
+                                          uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(buf), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wait_full(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
-  __syncwarp();
-  const uint8_t* src = x + (int64_t)blockIdx.x * tile * row_bytes;
-  uint8_t* dst = out + (int64_t)starts[blockIdx.x] * row_bytes;
-  const uint32_t stage_bytes = (uint32_t)(stage_rows * row_bytes);
-  for (int h = 0, lo = 0; lo < tile; ++h, lo += stage_rows) {
-    if (lane == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   ::"r"(bar_a), "r"(stage_bytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-          ::"r"(stage_a), "l"(reinterpret_cast<uint64_t>(src + lo * row_bytes)),
-          "r"(stage_bytes), "r"(bar_a) : "memory");
+}
+
+__device__ __forceinline__ int64_t take_unit() {
+  return (int64_t)atomicAdd(&k11_next_unit, 1ull);
+}
+
+__global__ void __launch_bounds__(1)
+tile_copy_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ starts,
+                 uint8_t* __restrict__ out, int64_t units, int tile, int w, int g, int unit_rows,
+                 int ring) {
+  extern __shared__ __align__(128) uint8_t buf[];
+  __shared__ __align__(8) uint64_t full[MAX_RING];
+  __shared__ int64_t held[MAX_RING];  // the unit in each buffer
+  __shared__ int64_t dst[MAX_RING];   // byte offset of its tile's destination
+  const int64_t row_bytes = (int64_t)w * 4;
+  const uint32_t unit_bytes = (uint32_t)(unit_rows * row_bytes);
+  const int64_t per_tile = tile / unit_rows;
+  const uint32_t buf_a = smem_addr(buf), full_a = smem_addr(full);
+  for (int b = 0; b < ring; ++b)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(full_a + 8 * b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  int64_t t_read = -1;  // the tile whose start this block read last
+  int64_t dst_read = 0;
+  int64_t loaded = 0;  // the units this block loaded
+  auto load = [&](int64_t u) {
+    const int b = (int)(loaded % ring);
+    const int64_t t = u / per_tile;
+    if (t != t_read) {
+      t_read = t;
+      dst_read = (int64_t)starts[t] * row_bytes;
     }
-    uint32_t done = 0;
-    while (!done) {  // the load of stage h completes phase h of the barrier
-      asm volatile(
-          "{\n\t.reg .pred p;\n\t"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-          "selp.u32 %0, 1, 0, p;\n\t}"
-          : "=r"(done) : "r"(bar_a), "r"(h & 1) : "memory");
-    }
-    // the chunks of this stage (a chunk that spans stages: its part here)
-    const int j0 = lo / g, j1 = (lo + stage_rows - 1) / g;
-    for (int j = j0 + lane; j <= j1; j += 32) {
+    held[b] = u;
+    dst[b] = dst_read;
+    load_unit(buf_a + (uint32_t)b * unit_bytes, full_a + 8 * (uint32_t)b,
+              x + u * unit_rows * row_bytes, unit_bytes);
+    ++loaded;
+  };
+  int64_t next = take_unit();  // the unit this block loads next, if < units
+  for (; loaded < ring && next < units; next = take_unit()) load(next);
+  for (int64_t k = 0; k < loaded; ++k) {
+    const int b = (int)(k % ring);
+    wait_full(full_a + 8 * b, (uint32_t)((k / ring) & 1));
+    const int64_t u = held[b];
+    const int lo = (int)(u % per_tile) * unit_rows;  // the unit's first row in its tile
+    const uint32_t ub = buf_a + (uint32_t)b * unit_bytes;
+    for (int j = lo / g, last = (lo + unit_rows - 1) / g; j <= last; ++j) {
       const int a = max(j * g, lo);
-      const int b = min((j + 1) * g, lo + stage_rows);
+      const int e = min((j + 1) * g, lo + unit_rows);
       asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                   ::"l"(reinterpret_cast<uint64_t>(dst + a * row_bytes)),
-                   "r"(stage_a + (uint32_t)((a - lo) * row_bytes)),
-                   "r"((uint32_t)((b - a) * row_bytes)) : "memory");
+                   ::"l"(reinterpret_cast<uint64_t>(out + dst[b] + a * row_bytes)),
+                   "r"(ub + (uint32_t)((a - lo) * row_bytes)),
+                   "r"((uint32_t)((e - a) * row_bytes)) : "memory");
     }
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    // the next load reuses the stage: every lane's stores must have read it
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-    __syncwarp();
+    if (k >= 1 && next < units) {  // the buffer of unit k - 1 takes the next unit
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      load(next);
+      next = take_unit();
+    }
   }
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  // every block took its last unit before it counts itself done, so the
+  // last one to count may set the counters back for the next launch
+  __threadfence();
+  if (atomicAdd(&k11_blocks_done, 1u) == gridDim.x - 1) {
+    atomicExch(&k11_next_unit, 0ull);
+    atomicExch(&k11_blocks_done, 0u);
+  }
 }
 
 }  // namespace
 
 // x u32[n, w] (n = ntiles * tile rows), starts i32[ntiles] on the device,
-// out u32[n, w]; the wrapper checks the alignment, the divisibility and that
-// the tiles land disjoint inside [0, n).  stage_rows divides tile and
-// stage_rows * 4w bytes fit a block's shared memory.
+// out u32[n, w]; the wrapper checks the divisibility and that the tiles land
+// disjoint inside [0, n).  The plan: unit_rows a unit, `ring` buffers a
+// block, `blocks` blocks (all resident: kernels/tile_copy.py copy_grid).
 DBT_API int dbt_tile_copy(const void* x, const void* starts, void* out, int64_t ntiles, int tile,
-                          int w, int g, int stage_rows, void* stream) {
+                          int w, int g, int unit_rows, int ring, int64_t blocks, void* stream) {
   if (ntiles <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = stage_rows * w * 4;
+  const int64_t unit_bytes = (int64_t)unit_rows * w * 4;
+  if (w < 1 || tile < 1 || g < 32 || g % 32 || tile % g || unit_rows < 32 || unit_rows % 32 ||
+      tile % unit_rows || ring < 2 || ring > MAX_RING || ring * unit_bytes > RING_BYTES ||
+      blocks < 1 || blocks > INT32_MAX ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int64_t units = ntiles * (tile / unit_rows);
+  if (blocks > units) blocks = units;
+  const int smem = (int)(ring * unit_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       tile_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  tile_copy_kernel<<<(unsigned)ntiles, 32, smem, st>>>(
+  tile_copy_kernel<<<(unsigned)blocks, 1, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<const int32_t*>(starts),
-      static_cast<uint8_t*>(out), tile, w, g, stage_rows);
+      static_cast<uint8_t*>(out), units, tile, w, g, unit_rows, ring);
   DBT_CHECK_LAUNCH();
   return 0;
 }

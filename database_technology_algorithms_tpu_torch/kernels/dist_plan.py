@@ -10,6 +10,14 @@ K22, the distributed sort's range destination (``csrc/range_dest.cu``).
 - K20 holds the all-gathered candidates (hash and count, 8 bytes each) in
   shared memory, K21 the hot list (4 bytes an entry), K22 the splitters
   (4 bytes a word of each), each at most ``SHARED_BYTES``.
+- K22 takes one of two paths (``range_plan``).  Where every key column is
+  contiguous and 16-byte aligned, as num and recid are, and so is the
+  output, a thread reads ``RANGE_ROWS`` = 4 rows by one 16-byte load a
+  word and writes their destinations as one 16-byte store; the thread just
+  past the last whole group takes the ``n % 4`` rows of the tail one by
+  one.  Otherwise (string words, columns of the row-major strw matrix, or a
+  view that starts off 16 bytes) a thread takes ``RANGE_ROWS`` rows,
+  ``RANGE_THREADS`` apart, by 4-byte loads.  The grid covers the rows once.
 
 The C entries repeat these checks; ``tests/test_torch_dist_schedule.py``
 emulates the four kernels with them on the CPU.
@@ -24,6 +32,8 @@ TOPK_MAX_K = 1024  # K19: picks, one block-wide reduction each
 HOT_MAX_CANDIDATES = SHARED_BYTES // 8  # K20
 IN_SET_MAX_HOT = (SHARED_BYTES - 16) // 4  # K21 (16 bytes for the block's count)
 RANGE_MAX_WORDS = 4  # K22's key words (MAX_WORDS in csrc/range_dest.cu)
+RANGE_THREADS = 256  # K22's block (THREADS in csrc/range_dest.cu)
+RANGE_ROWS = 4  # K22's rows a thread (ROWS in csrc/range_dest.cu): one 16-byte load a word
 
 
 def topk_tiles(n: int) -> int:
@@ -65,3 +75,13 @@ def check_splitters(name: str, n: int, nw: int, ns: int) -> None:
     if 4 * nw * ns > SHARED_BYTES:
         raise ValueError(f"{name}: {ns} splitters of {nw} words; K22 holds them in shared "
                          f"memory, at most {SHARED_BYTES} bytes")
+
+
+def range_plan(n: int, ptrs, strides, dest_ptr: int) -> tuple[bool, int]:
+    """(vector path, blocks) of K22 over n rows.  The vector
+    path takes every key column contiguous (row stride 1) and, like the
+    output, 16-byte aligned.  `ptrs` and `dest_ptr` are byte addresses,
+    `strides` row strides in words."""
+    vec = (all(s == 1 for s in strides) and all(p % 16 == 0 for p in ptrs)
+           and dest_ptr % 16 == 0)
+    return vec, max(-(-n // (RANGE_THREADS * RANGE_ROWS)), 1)

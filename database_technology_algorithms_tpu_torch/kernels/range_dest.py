@@ -20,8 +20,11 @@ def range_dest(words: Sequence[torch.Tensor], splitters: Sequence[torch.Tensor])
     equal to, lexicographically over the u32 words, unsigned.
 
     `words` are 1-4 int32[N] key columns (most significant first, possibly
-    strided), `splitters` as many int32[S] columns, splitter s being
-    ``(splitters[0][s], ..., splitters[-1][s])``.
+    strided), `splitters` as many int32[S] columns (possibly strided, on the
+    card: the wrapper launches K22 and nothing else), splitter s being
+    ``(splitters[0][s], ..., splitters[-1][s])``.  ``dist_plan.range_plan``
+    picks K22's path: 16-byte loads where every key column is contiguous
+    and aligned, 4-byte loads otherwise.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -36,18 +39,18 @@ def range_dest(words: Sequence[torch.Tensor], splitters: Sequence[torch.Tensor])
     if dev.type != "cuda":
         raise ValueError(f"range_dest: expected CUDA tensors, got {dev}")
     _lib.check_columns("range_dest", words, n, dev)
-    for s in splitters:
-        _lib.check_cuda("range_dest splitters", s, torch.int32, dev)
-        if s.shape != (ns,):
-            raise ValueError("range_dest: splitter columns must all be [S]")
-    spl = torch.stack(splitters).contiguous()  # word-major [nw, S]
+    _lib.check_columns("range_dest splitters", splitters, ns, dev)
     dest = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return dest
+    vec, blocks = dist_plan.range_plan(n, [w.data_ptr() for w in words],
+                                             [w.stride(0) for w in words], dest.data_ptr())
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_range_dest(_lib.ptr_array(words), _lib.stride_array(words), len(words), n,
-                                 spl.data_ptr(), ns, dest.data_ptr(), _lib.stream_of(words[0]))
+                                 _lib.ptr_array(splitters), _lib.stride_array(splitters), ns,
+                                 dest.data_ptr(), int(vec), blocks,
+                                 _lib.stream_of(words[0]))
     _lib.raise_on_error(err, "range_dest")
     _lib.LAUNCHES["range_dest"] += 1
     return dest

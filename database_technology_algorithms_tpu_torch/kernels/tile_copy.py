@@ -5,38 +5,100 @@ Replaces the Pallas probe ``make_kernel(G, n)`` (``tools/bench_pallas_dma.py:43,
 of the repository), which measures what it costs to issue a copy: a tile of
 T record rows is loaded once and stored back as T/G chunks of G rows at
 runtime offsets.
+
+The kernel's plan (``copy_plan``): the rows are cut into units of
+``stage_rows(T, W)`` rows, which lie in one tile; a persistent grid of
+``blocks_per_sm`` blocks an SM (``copy_grid``), all resident at once, takes
+the units one at a time from a counter the blocks share; a block keeps a
+ring of ``ring`` unit buffers in shared memory, and its one thread reloads
+the buffer of its unit k - 1 as soon as the stores of unit k are issued and
+those of unit k - 1 have read it.  ``tools/copy_sweep.py`` times the unit,
+ring and blocks an SM on the card, by setting the constants below around
+``tile_copy`` calls; ``PERF.md`` has the readings that chose them.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _lib
 
-SMEM_STAGE_BYTES = 128 * 1024  # a stage of a tile in one block's shared memory
+UNIT_BYTES = 8 * 1024  # a unit's bytes at most (64 rows of 32 words)
+RING = 6  # unit buffers a block
+BLOCKS_PER_SM = 32  # at most: the plan keeps every block of the grid resident
+MAX_RING = 16  # MAX_RING in csrc/tile_copy.cu
+RING_BYTES = 232448 - 1024  # a block's dynamic shared memory, its barriers aside
+SM_SHARED_BYTES = 233472  # an SM's shared memory
+BLOCK_SHARED_BYTES = 1024 + 8 * 3 * MAX_RING  # reserved a block, and the kernel's static arrays
+MAX_BLOCKS_PER_SM = 32
+H100_SMS = 132
+
+
+class CopyPlan(NamedTuple):
+    unit_rows: int
+    ring: int
+    blocks_per_sm: int
 
 
 def stage_rows(T: int, W: int) -> int:
-    """Rows of a tile staged at a time: T halved until the stage fits
-    ``SMEM_STAGE_BYTES`` (1024 rows, two stages, for the probe's T = 2048,
-    W = 32)."""
-    s = T
-    while s * W * 4 > SMEM_STAGE_BYTES:
-        if s % 2:
-            raise ValueError(f"tile_copy: a tile of {T} rows of {W} words cannot be staged")
-        s //= 2
-    if s % 32:
-        raise ValueError(f"tile_copy: a stage of {s} rows is not a multiple of 32 rows")
-    return s
+    """S, the rows of a unit: the largest multiple of 32 rows that divides
+    the tile and fits ``UNIT_BYTES`` (64 rows for the probe's W = 32), at
+    least 32 rows."""
+    fits = [s for s in range(32, T + 1, 32) if T % s == 0 and s * W * 4 <= UNIT_BYTES]
+    if fits:
+        return fits[-1]
+    if T % 32:
+        raise ValueError(f"tile_copy: a tile of {T} rows is not a multiple of 32 rows")
+    return 32
+
+
+def resident_blocks(ring_bytes: int) -> int:
+    """The blocks an SM holds at once when each has a ring of `ring_bytes`."""
+    return min(SM_SHARED_BYTES // (ring_bytes + BLOCK_SHARED_BYTES), MAX_BLOCKS_PER_SM)
+
+
+def copy_plan(T: int, W: int) -> CopyPlan:
+    """K11's plan for tiles of T rows of W words, from ``UNIT_BYTES``,
+    ``RING`` and ``BLOCKS_PER_SM``: the ring shrinks to fit shared memory,
+    the blocks an SM to those that are resident together.  Raises
+    ValueError on what the kernel refuses: a ring of fewer than 2 or more
+    than ``MAX_RING`` buffers or past ``RING_BYTES``, fewer than one block
+    an SM."""
+    s = stage_rows(T, W)
+    unit_bytes = s * W * 4
+    r = min(RING, RING_BYTES // unit_bytes)
+    if not 2 <= r <= MAX_RING:
+        raise ValueError(f"tile_copy: a ring of {r} units of {unit_bytes} B; the kernel takes "
+                         f"2-{MAX_RING} buffers within {RING_BYTES} B of shared memory")
+    bps = min(BLOCKS_PER_SM, resident_blocks(r * unit_bytes))
+    if bps < 1:
+        raise ValueError(f"tile_copy: {BLOCKS_PER_SM} blocks an SM")
+    return CopyPlan(s, r, bps)
+
+
+def copy_grid(n: int, plan: CopyPlan, sms: int = H100_SMS) -> int:
+    """The blocks of one launch over n rows: blocks_per_sm a streaming
+    multiprocessor, at most one a unit."""
+    return max(min(plan.blocks_per_sm * sms, n // plan.unit_rows), 1)
+
+
+def chunk_parts(lo: int, S: int, G: int) -> list[tuple[int, int]]:
+    """[a, e) tile rows of each store of the unit whose first tile row is lo:
+    each chunk of G rows clipped to the unit."""
+    return [(max(j * G, lo), min((j + 1) * G, lo + S))
+            for j in range(lo // G, (lo + S - 1) // G + 1)]
 
 
 def bulk_copies(n: int, G: int, T: int = 2048, W: int = 32) -> int:
-    """The bulk copies one call issues: a load per stage and a store per
-    chunk part of a stage (a chunk that spans stages is one store each)."""
-    s = stage_rows(T, W)
-    per_stage = max(s // G, 1)
-    return (n // T) * (T // s) * (1 + per_stage)
+    """The bulk copies one call issues under the plan: a load a unit and a
+    store a chunk part of a unit (a chunk that spans units is one store
+    each), whichever block takes the unit."""
+    S = stage_rows(T, W)
+    per_tile = sum(1 + len(chunk_parts(lo, S, G)) for lo in range(0, T, S))
+    return (n // T) * per_tile
 
 
 def _check(x: torch.Tensor, starts: torch.Tensor, G: int, T: int, W: int) -> None:
@@ -88,13 +150,15 @@ def tile_copy(x: torch.Tensor, starts: torch.Tensor, G: int, T: int = 2048,
         raise ValueError("tile_copy: bulk copies need x 16-byte aligned")
     st = starts.to(dev, torch.int32).contiguous()
     out = torch.empty_like(x)
-    ntiles = x.numel() // W // T
-    if ntiles == 0:
+    n = x.numel() // W
+    if n == 0:
         return out
+    plan = copy_plan(T, W)
+    blocks = copy_grid(n, plan, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib.library()
     with torch.cuda.device(dev):
-        err = lib.dbt_tile_copy(x.data_ptr(), st.data_ptr(), out.data_ptr(), ntiles, T, W, G,
-                                stage_rows(T, W), _lib.stream_of(x))
+        err = lib.dbt_tile_copy(x.data_ptr(), st.data_ptr(), out.data_ptr(), n // T, T, W, G,
+                                plan.unit_rows, plan.ring, blocks, _lib.stream_of(x))
     _lib.raise_on_error(err, "tile_copy")
     _lib.LAUNCHES["tile_copy"] += 1
     return out

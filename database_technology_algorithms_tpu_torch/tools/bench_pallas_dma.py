@@ -6,8 +6,8 @@ stored back as T/G chunks of G rows at runtime offsets; the slope of the
 time against 1/G gives the cost of one copy, and G = T the bandwidth of the
 pattern.  Identity offsets keep the copy checkable; they still arrive as
 runtime data.  Per G it prints the time, the rate (2·n·W·4 B over the time),
-the bulk copies issued (a load per stage of a tile, a store per chunk part of
-a stage: ``kernels/tile_copy.bulk_copies``) and the time per copy.
+the bulk copies issued (a load a unit of 64 rows, a store a chunk part of a
+unit: ``kernels/tile_copy.bulk_copies``) and the time per copy.
 
     python -m database_technology_algorithms_tpu_torch.tools.bench_pallas_dma [--cpu]
 

@@ -151,7 +151,57 @@ def command(cs, dev) -> tuple[dict, dict]:
     return res, counters
 
 
-SETS = {"tiled_join": tiled_join, "perm": perm, "command": command}
+def copy_range(cs, dev) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from database_technology_algorithms_tpu_torch.kernels.range_dest import range_dest
+    from database_technology_algorithms_tpu_torch.kernels.tile_copy import tile_copy
+    from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as dma
+
+    g = np.random.default_rng(15)
+    pin = cs.probe_inputs(dev, g)
+    x, ms, sums = pin["x"], {}, {}
+
+    def named(prof, name):
+        return sum(us for n, us in prof["top"] if name in n) / 1e3
+
+    for G in dma.GS:
+        for order, st in pin["starts"].items():
+            sums[f"K11 G={G} {order}"] = int(tile_copy(x, st, G).to(torch.int64).sum())
+        st = pin["starts"]["identity"]
+        ms[f"K11 G={G}"] = named(cs.profile_device(lambda G=G: tile_copy(x, st, G), reps=10),
+                                 "tile_copy")
+    into = torch.empty_like(x)
+    st = pin["starts"]["identity"]
+    alt = cs.profile_device(lambda: (tile_copy(x, st, 32), into.copy_(x)), reps=20)
+    ms["K11 G=32 in turns"] = named(alt, "tile_copy")
+    ms["copy_ in turns"] = sum(us for n, us in alt["top"]
+                               if "tile_copy" not in n and "HtoD" not in n) / 1e3
+    n = 1 << 20
+    num = torch.from_numpy(g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+                           .view(np.int32)).to(dev)
+    strw = torch.from_numpy(g.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32)).to(dev)
+    picks = torch.tensor([n // 4, n // 2, 3 * n // 4], device=dev)
+    keys = {"one word": [num], "field 3": [num] + [strw[:, j] for j in range(3)]}
+    for what, words in keys.items():
+        spl = [w[picks] for w in words]
+        sums[f"K22 {what}"] = int(range_dest(words, spl).to(torch.int64).sum())
+        ms[f"K22 {what}"] = cs.device_ms(lambda w=words, s=spl: range_dest(w, s))
+    words, spl = [num], [num[picks]]
+    u64 = lambda t: t.to(torch.int64) & 0xFFFFFFFF  # noqa: E731
+    s64, w64 = u64(spl[0]).sort().values, u64(num)
+    alt = cs.profile_device(lambda: (range_dest(words, spl),
+                                     torch.searchsorted(s64, w64, right=True)), reps=20)
+    ms["K22 one word in turns"] = named(alt, "range_dest")
+    ms["searchsorted in turns"] = named(alt, "searchsorted")
+    ms["K22 one word in turns, all its kernels"] = (
+        alt["busy_us"] / 1e3 - ms["searchsorted in turns"])
+    return {"ms": ms}, sums
+
+
+SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range}
 
 
 def one(sets: list[str], root: str) -> dict:

@@ -81,25 +81,28 @@ def build_variants() -> dict:
 
 def kernel_ms(fn, names: tuple) -> float:
     """Median device time of one call's kernels whose names hold one of
-    `names`, over REPS calls."""
+    `names` ("" holds any), over REPS calls; a trace that lost one of them
+    is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            for name in names:
-                if name in ev.name:
-                    by_name.setdefault(name, []).append(ev.device_time)
-    if set(by_name) != set(names):
-        raise RuntimeError(f"scan_sweep: torch.profiler saw {sorted(by_name)}, not {names}")
-    return sum(statistics.median(v) * len(v) / REPS for v in by_name.values()) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                for name in names:
+                    if name in ev.name:
+                        by_name.setdefault(name, []).append(ev.device_time)
+        if set(by_name) == set(names) and all(len(v) % REPS == 0 for v in by_name.values()):
+            return sum(statistics.median(v) * len(v) / REPS for v in by_name.values()) / 1e3
+    raise RuntimeError(f"scan_sweep: torch.profiler saw {({k: len(v) for k, v in by_name.items()})}"
+                       f" of {REPS} calls of {names}")
 
 
 def main() -> int:

@@ -10,8 +10,12 @@ against their plain torch versions and the JAX package.
   candidates summed in 32 bits, the first occurrence, the signed threshold.
 - K21 (``csrc/hot_set.cu``): the hot list's non-sentinel entries copied in
   any order, a row against each.
-- K22 (``csrc/range_dest.cu``): a thread a row, each splitter compared word
-  by word, unsigned.
+- K22 (``csrc/range_dest.cu``): the plan's path and grid
+  (``dist_plan.range_plan``); on the vector path a thread's 4 rows by one
+  16-byte load a word and the tail's n % 4 rows by the thread past the last
+  whole group, on the scalar path ``RANGE_ROWS`` rows a thread,
+  ``RANGE_THREADS`` apart; every row written once; each splitter compared
+  in the branch-free form (gt |= eq & (w > s); eq &= w == s), unsigned.
 - K9's fill (``csrc/stage_cells.cu``): the dead slots of the key-only pack
   hold 0xFFFFFFFF (``tests/test_torch_cells_schedule.py``'s emulation with
   a fill).
@@ -232,62 +236,162 @@ def test_k21_emulation_matches_plain_and_jax(case):
 # K22
 
 
-def k22_emulate(words, splitters) -> np.ndarray:
-    words = [np.asarray(w, np.uint32) for w in words]
-    spl = [np.asarray(s, np.uint32) for s in splitters]
-    out = np.zeros(len(words[0]), np.int32)
-    for i in range(len(out)):
-        for s in range(len(spl[0])):
-            ge = True
-            for w, sp in zip(words, spl):
-                if w[i] != sp[s]:
-                    ge = bool(w[i] > sp[s])
-                    break
-            out[i] += ge
+def k22_count(keys: np.ndarray, spl_smem: np.ndarray, ns: int) -> np.ndarray:
+    """The splitters each of a thread's rows (keys [R, NW], u32) is >= to,
+    from the word-major shared copy ``spl_smem[k * ns + s]``."""
+    nw = keys.shape[1]
+    cnt = np.zeros(len(keys), np.int32)
+    for s in range(ns):
+        gt, eq = np.zeros(len(keys), bool), np.ones(len(keys), bool)
+        for k in range(nw):
+            b = spl_smem[k * ns + s]
+            gt |= eq & (keys[:, k] > b)
+            eq &= keys[:, k] == b
+        cnt += gt | eq
+    return cnt
+
+
+def k22_emulate(words, splitters, plan) -> np.ndarray:
+    """csrc/range_dest.cu under `plan` = (vector path, blocks), thread by
+    thread; every row must be written exactly once."""
+    vec, blocks = plan
+    rows = dist_plan.RANGE_ROWS
+    words = np.stack([np.asarray(w, np.uint32) for w in words], 1)
+    ns = len(splitters[0])
+    spl_smem = np.concatenate([np.asarray(s, np.uint32) for s in splitters])  # word-major
+    n, threads = len(words), dist_plan.RANGE_THREADS
+    out, written = np.zeros(n, np.int32), np.zeros(n, np.int64)
+    full = n // rows
+    for b in range(blocks):
+        for t in range(threads):
+            if vec:
+                grp = b * threads + t
+                if grp < full:  # one 16-byte load a word, one 16-byte store
+                    mine = np.arange(rows * grp, rows * grp + rows)
+                elif grp == full:  # the tail, row by row
+                    mine = np.arange(rows * full, n)
+                else:
+                    continue
+            else:
+                mine = b * threads * rows + t + threads * np.arange(rows)
+                mine = mine[mine < n]
+            out[mine] = k22_count(words[mine], spl_smem, ns)
+            written[mine] += 1
+    assert (written == 1).all(), "a row written twice or never"
     return out
 
 
-@pytest.mark.parametrize("nw", [1, 2, 3, 4])
-@pytest.mark.parametrize("ns", [0, 1, 3, 7])
-def test_k22_emulation_matches_plain_and_jax(nw, ns):
-    """Keys equal to a splitter, equal in the leading words only, and on both
-    sides of 2^31 in every word."""
-    g = np.random.default_rng(nw * 10 + ns)
+def plan_of(words: list) -> tuple[bool, int]:
+    """K22's plan for these columns, as the wrapper makes it (the output a
+    fresh, aligned allocation)."""
+    n = words[0].shape[0]
+    return dist_plan.range_plan(n, [w.data_ptr() for w in words], [w.stride(0) for w in words],
+                                torch.empty(max(n, 1), dtype=torch.int32).data_ptr())
+
+
+def k22_case(g, nw: int, ns: int, n: int):
+    """u32 key columns and sorted splitters: keys equal to a splitter, equal
+    in the leading words only, and on both sides of 2^31 in every word."""
     pool = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, M32], np.uint64)
     spl = [np.sort(g.choice(pool, ns)).astype(np.uint32) for _ in range(nw)]
     spl_rows = np.stack(spl, 1) if ns else np.zeros((0, nw), np.uint32)
     order = np.lexsort(spl_rows.T[::-1]) if ns else np.arange(0)
     spl = [s[order] for s in (spl_rows.T if ns else spl)]
-    n = 600
     words = [g.choice(pool, n).astype(np.uint32) for _ in range(nw)]
     if ns:  # rows equal to a splitter, and to one in all but the last word
-        pick = g.integers(0, ns, 200)
+        m = min(200, n)
+        pick = g.integers(0, ns, m)
         for w, s in zip(words, spl):
-            w[:200] = s[pick]
-        words[-1][100:200] ^= np.uint32(1)
-    emu = k22_emulate(words, spl)
-    np.testing.assert_array_equal(range_dest(list(map(t32, words)), list(map(t32, spl))).numpy(),
-                                  emu)
-    np.testing.assert_array_equal(range_dest_plain(list(map(t32, words)),
-                                                   list(map(t32, spl))).numpy(), emu)
+            w[:m] = s[pick]
+        words[-1][m // 2:m] ^= np.uint32(1)
+    return words, spl
+
+
+def check_k22(words_t: list, spl_t: list, want_vec: bool) -> np.ndarray:
+    """The emulation under the wrapper's plan against the plain version and
+    the JAX package's _lex_ge sum; the plan's path as expected."""
+    plan = plan_of(words_t)
+    assert plan[0] == want_vec
+    words = [torch_to_u32(w) for w in words_t]
+    spl = [torch_to_u32(s) for s in spl_t]
+    emu = k22_emulate(words, spl, plan)
+    np.testing.assert_array_equal(range_dest(words_t, spl_t).numpy(), emu)
+    np.testing.assert_array_equal(range_dest_plain(words_t, spl_t).numpy(), emu)
     want = jdist._lex_ge([jnp.asarray(w) for w in words], [jnp.asarray(s) for s in spl])
     np.testing.assert_array_equal(np.asarray(want).sum(1), emu)
+    return emu
+
+
+@pytest.mark.parametrize("nw", [1, 2, 3, 4])
+@pytest.mark.parametrize("ns", [0, 1, 3, 7])
+def test_k22_emulation_matches_plain_and_jax(nw, ns):
+    """Contiguous aligned columns (the vector path) at n = 600, a multiple
+    of 4; keys equal to a splitter, equal in the leading words only, and on
+    both sides of 2^31 in every word."""
+    g = np.random.default_rng(nw * 10 + ns)
+    words, spl = k22_case(g, nw, ns, 600)
+    check_k22(list(map(t32, words)), list(map(t32, spl)), want_vec=True)
+    want = jdist._lex_ge([jnp.asarray(w) for w in words], [jnp.asarray(s) for s in spl])
     got = tdist._lex_ge(list(map(t32, words)), list(map(t32, spl)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("nw", [1, 2, 3, 4])
+@pytest.mark.parametrize("tail", [0, 1, 2, 3])
+@pytest.mark.parametrize("ns", [1, 3, 7])
+def test_k22_vector_path_and_its_tail(nw, tail, ns):
+    """n = 4q + tail rows across more than one block: the thread past the
+    last whole group takes the tail row by row; n < 4 is all tail."""
+    g = np.random.default_rng(100 * nw + 10 * tail + ns)
+    for n in (4 * 300 + tail, tail):
+        if n == 0:
+            continue
+        words, spl = k22_case(g, nw, ns, n)
+        check_k22(list(map(t32, words)), list(map(t32, spl)), want_vec=True)
+
+
+@pytest.mark.parametrize("nw", [1, 2, 4])
+@pytest.mark.parametrize("ns", [0, 3, 7])
+def test_k22_misaligned_contiguous_column_takes_the_scalar_path(nw, ns):
+    """A contiguous column that starts at an odd row lies 4 bytes past a
+    16-byte boundary: the scalar path, as one misaligned word among aligned
+    ones sends every word there."""
+    g = np.random.default_rng(nw + 7 * ns)
+    words, spl = k22_case(g, nw, ns, 1203)
+    cols = [t32(np.concatenate([[5], w]))[1:] for w in words]
+    assert all(c.is_contiguous() and c.data_ptr() % 16 == 4 for c in cols)
+    check_k22(cols, list(map(t32, spl)), want_vec=False)
+    mixed = [t32(words[0])] + cols[1:]
+    check_k22(mixed, list(map(t32, spl)), want_vec=nw == 1)
+
+
 def test_k22_strided_key_words_and_refusals():
-    """The key words as string columns of a row-major matrix (strided)."""
+    """The key words as string columns of a row-major matrix (strided), with
+    num contiguous beside them (field 3's key); strided splitters; the
+    plan's grid and the wrapper's refusals."""
     g = np.random.default_rng(4)
-    strw = t32(g.integers(0, 2**32, (500, 4), dtype=np.uint64))
-    spl = [t32(np.sort(g.integers(0, 2**32, 3, dtype=np.uint64))) for _ in range(2)]
+    strw = t32(g.integers(0, 2**32, (2500, 8), dtype=np.uint64))
+    spl = [t32(np.sort(g.integers(0, 2**32, 3, dtype=np.uint64))) for _ in range(4)]
     cols = [strw[:, 0], strw[:, 1]]
     assert not cols[0].is_contiguous()
-    np.testing.assert_array_equal(range_dest(cols, spl).numpy(),
-                                  k22_emulate([torch_to_u32(c) for c in cols],
-                                              [torch_to_u32(s) for s in spl]))
+    check_k22(cols, spl[:2], want_vec=False)
+    num = t32(g.integers(0, 2**32, 2500, dtype=np.uint64))
+    check_k22([num] + [strw[:, j] for j in range(3)], spl, want_vec=False)
+    spl_mat = t32(np.stack([torch_to_u32(s) for s in spl], 1))  # [3, 4]: strided columns
+    check_k22([num, num], [spl_mat[:, 0], spl_mat[:, 1]], want_vec=True)
+    # the grid covers the rows once: rows a thread times threads a block
+    for n, vec in ((1, True), (1024, True), (1025, True), (3000, False)):
+        want = (vec, max(-(-n // (dist_plan.RANGE_THREADS * dist_plan.RANGE_ROWS)), 1))
+        assert dist_plan.range_plan(n, [0], [1 if vec else 8], 0) == want
+    assert dist_plan.range_plan(8, [16, 32], [1, 1], 8)[0] is False  # the output misaligned
     with pytest.raises(ValueError, match="K22"):
         range_dest([strw[:, 0]] * 5, [spl[0]] * 5)
+    with pytest.raises(ValueError, match="K22"):  # the splitters past shared memory
+        ns = dist_plan.SHARED_BYTES // 16 + 1
+        range_dest([num] * 4, [torch.zeros(ns, dtype=torch.int32)] * 4)
+    with pytest.raises(ValueError, match="K22"):
+        dist_plan.check_splitters("range_dest", dist_plan.MAX_ROWS + 1, 1, 3)
+    dist_plan.check_splitters("range_dest", dist_plan.MAX_ROWS, 4, dist_plan.SHARED_BYTES // 16)
     with pytest.raises(ValueError, match="one splitter column a key word"):
         range_dest(cols, spl[:1])
 

@@ -8,6 +8,17 @@ the loaded module.  Inputs are made from a seed with numpy; every value is a
 u32 word, so every comparison is exact (tolerance: max abs err 0).  The
 global form of K12 (one tile spanning all rows, the placement route's
 gather) and the argument checks of K11 are held against numpy.
+
+K11's kernel (``csrc/tile_copy.cu``) is emulated under its plan
+(``kernels/tile_copy.py``): a persistent grid whose blocks take units from
+one shared counter, interleaved in a seeded random order; each block's ring
+of unit buffers and their barriers' phases, the chunk parts of a unit
+stored as one bulk group, a buffer reloaded only once ``wait_group.read 1``
+has retired the stores that read it, a tile's start read again only when a
+block's unit lies in another tile than its last, and the counter set back
+to 0 by the last block.  A store copies its buffer when it retires, so a
+buffer reloaded too early gives a wrong result, not only a failed
+assertion.
 """
 
 import importlib.util
@@ -19,6 +30,7 @@ import torch
 
 from database_technology_algorithms_tpu_torch.batch import torch_to_u32, u32_to_torch
 from database_technology_algorithms_tpu_torch.kernels.row_move import row_move, row_move_plain
+from database_technology_algorithms_tpu_torch.kernels import tile_copy as k11
 from database_technology_algorithms_tpu_torch.kernels.tile_copy import (
     bulk_copies, tile_copy, tile_copy_plain)
 from database_technology_algorithms_tpu_torch.tools import bench_pallas_dma as tdma
@@ -51,6 +63,97 @@ def t32(a) -> torch.Tensor:
     return u32_to_torch(np.asarray(a).astype(np.uint32), CPU)
 
 
+def k11_emulate(x: np.ndarray, starts: np.ndarray, G: int, T: int, W: int, plan: k11.CopyPlan,
+                sms: int, seed: int = 0) -> tuple[np.ndarray, dict]:
+    """csrc/tile_copy.cu under `plan` on `sms` SMs' worth of blocks, the
+    blocks' steps interleaved in a random order from `seed`: the output
+    rows and what the blocks did (bulk copies, ring reloads, starts read,
+    blocks whose units lay in more than one tile)."""
+    rows = np.asarray(x).reshape(-1, W)
+    n, S, R = len(rows), plan.unit_rows, plan.ring
+    units, per_tile = n // S, T // S
+    out = np.zeros_like(rows)
+    blocks = k11.copy_grid(n, plan, sms)
+    stats = {"loads": 0, "stores": 0, "reloads": 0, "starts_read": 0, "multi_tile": 0,
+             "blocks": blocks, "taken": 0}
+    counters = {"next": 0, "done": 0}
+
+    def take_unit():  # atomicAdd(&k11_next_unit, 1)
+        u = counters["next"]
+        counters["next"] += 1
+        stats["taken"] += 1
+        return u
+
+    def block():
+        buf = [None] * R
+        held = [-1] * R  # the unit a buffer holds
+        dst = [0] * R
+        phase = [0] * R  # completed phases of each buffer's barrier
+        groups = []  # committed bulk groups not yet retired: (buffer, stores)
+        last = {"t": -1, "start": 0, "loaded": 0}
+        tiles = set()
+
+        def retire(keep):  # cp.async.bulk.wait_group.read keep
+            while len(groups) > keep:
+                b, stores = groups.pop(0)
+                for d, a, e in stores:
+                    out[d: d + e - a] = buf[b][a: e]
+
+        def load(u):
+            b = last["loaded"] % R
+            assert all(g[0] != b for g in groups), "a buffer reloaded under its stores"
+            t = u // per_tile
+            if t != last["t"]:
+                last["t"], last["start"] = t, int(starts[t])
+                stats["starts_read"] += 1
+            tiles.add(t)
+            buf[b] = rows[u * S: (u + 1) * S].copy()
+            held[b], dst[b] = u, last["start"]
+            phase[b] += 1
+            last["loaded"] += 1
+            stats["loads"] += 1
+
+        yield
+        nxt = take_unit()
+        while last["loaded"] < R and nxt < units:
+            load(nxt)
+            yield
+            nxt = take_unit()
+        k = 0
+        while k < last["loaded"]:
+            b = k % R
+            assert phase[b] == k // R + 1  # the wait on parity (k / R) & 1
+            u = held[b]
+            lo = (u % per_tile) * S
+            stores = [(dst[b] + a, a - lo, e - lo) for a, e in k11.chunk_parts(lo, S, G)]
+            stats["stores"] += len(stores)
+            groups.append((b, stores))
+            if k >= 1 and nxt < units:
+                retire(1)
+                load(nxt)
+                stats["reloads"] += 1
+                yield
+                nxt = take_unit()
+            k += 1
+        retire(0)
+        stats["multi_tile"] += len(tiles) > 1
+        counters["done"] += 1  # the last block sets the counters back
+        if counters["done"] == blocks:
+            assert counters["next"] == units + blocks  # one failed take a block
+            counters["next"] = counters["done"] = 0
+
+    live = [block() for _ in range(blocks)]
+    order = np.random.default_rng(seed)
+    while live:
+        i = int(order.integers(len(live)))
+        try:
+            next(live[i])
+        except StopIteration:
+            live.pop(i)
+    assert counters == {"next": 0, "done": 0}
+    return out.reshape(np.asarray(x).shape), stats
+
+
 @pytest.mark.parametrize("order", ["identity", "tile_permuted"])
 @pytest.mark.parametrize("G", [32, 128, 2048])
 def test_tile_copy_plain_matches_pallas(pallas_dma, G, order):
@@ -71,6 +174,106 @@ def test_tile_copy_plain_matches_pallas(pallas_dma, G, order):
         torch_to_u32(tdma.make_kernel(G, n)(t32(x), torch.from_numpy(starts))), want)
     if order == "tile_permuted":
         assert not np.array_equal(want, x)
+    # the kernel as the card runs it, on 3 SMs' worth of blocks (ring
+    # reloads, blocks whose units lie in several tiles) and on the H100's 132
+    for sms in (3, k11.H100_SMS):
+        emu, _ = k11_emulate(x, starts, G, T, 32, k11.copy_plan(T, 32), sms, seed=sms)
+        np.testing.assert_array_equal(emu, want)
+
+
+def plan_constants(monkeypatch, plan: str, W: int) -> None:
+    """tile_copy's constants for `plan`, "S/R/blocks an SM" ("default":
+    as they are), as tools/copy_sweep.py sets them."""
+    if plan != "default":
+        s, r, bps = map(int, plan.split("/"))
+        monkeypatch.setattr(k11, "UNIT_BYTES", s * W * 4)
+        monkeypatch.setattr(k11, "RING", r)
+        monkeypatch.setattr(k11, "BLOCKS_PER_SM", bps)
+
+
+@pytest.mark.parametrize("sms", [1, 3, 132])
+@pytest.mark.parametrize("plan", ["default", "64/8/1", "512/2/1", "32/16/3", "256/4/2",
+                                  "128/4/2", "64/8/4"])
+@pytest.mark.parametrize("G", [32, 64, 128, 512, 2048])
+def test_tile_copy_emulation_under_plans(monkeypatch, G, plan, sms):
+    """The unit and ring plan at every G of the probe: units smaller and
+    larger than a chunk (chunks that span units, split a store a unit),
+    permuted starts, blocks that reload their ring and take units of
+    several tiles in a random interleaving; the copies issued are the
+    plan's count."""
+    n, T, W = 16384, 2048, 32
+    g = np.random.default_rng(G + sms)
+    x = g.integers(0, 2**32, size=(n, W), dtype=np.uint64).astype(np.uint32)
+    starts = (g.permutation(n // T) * T).astype(np.int32)
+    plan_constants(monkeypatch, plan, W)
+    p = k11.copy_plan(T, W)
+    if plan != "default":
+        s, r, bps = map(int, plan.split("/"))
+        assert (p.unit_rows, p.ring) == (s, r)
+        assert p.blocks_per_sm == min(bps, k11.resident_blocks(r * s * W * 4))
+    emu, stats = k11_emulate(x, starts, G, T, W, p, sms, seed=G * sms)
+    want = torch_to_u32(tile_copy_plain(t32(x), torch.from_numpy(starts), G, T, W))
+    np.testing.assert_array_equal(emu, want)
+    units = n // p.unit_rows
+    assert stats["blocks"] == min(p.blocks_per_sm * sms, units)
+    assert stats["loads"] == units and stats["taken"] == units + stats["blocks"]
+    parts = sum(len(k11.chunk_parts(lo, p.unit_rows, G)) for lo in range(0, T, p.unit_rows))
+    assert stats["stores"] == n // T * parts
+    if G > p.unit_rows:
+        assert parts == T // p.unit_rows  # a chunk spans units: one part a unit
+    assert stats["loads"] + stats["stores"] == bulk_copies(n, G, T, W)
+    assert stats["starts_read"] <= units
+    if units > stats["blocks"] * p.ring:  # some block took more units than its ring holds
+        assert stats["reloads"] > 0 and stats["multi_tile"] > 0
+
+
+@pytest.mark.parametrize("W,T,G", [(8, 256, 64), (4, 64, 32), (512, 128, 32), (36, 2048, 32)])
+def test_tile_copy_emulation_at_other_widths(W, T, G):
+    """Other row widths and tiles: the unit is the largest multiple of 32
+    rows dividing the tile within UNIT_BYTES, at least 32; the ring shrinks
+    to fit shared memory, the blocks an SM to those resident together."""
+    n = T * 9
+    g = np.random.default_rng(W)
+    x = g.integers(0, 2**32, size=(n, W), dtype=np.uint64).astype(np.uint32)
+    starts = (g.permutation(n // T) * T).astype(np.int32)
+    p = k11.copy_plan(T, W)
+    assert p.unit_rows % 32 == 0 and T % p.unit_rows == 0
+    assert p.unit_rows * W * 4 <= max(k11.UNIT_BYTES, 32 * W * 4)
+    assert 2 <= p.ring <= k11.RING and p.ring * p.unit_rows * W * 4 <= k11.RING_BYTES
+    ring_bytes = p.ring * p.unit_rows * W * 4
+    assert 1 <= p.blocks_per_sm
+    assert p.blocks_per_sm * (ring_bytes + k11.BLOCK_SHARED_BYTES) <= k11.SM_SHARED_BYTES
+    emu, _ = k11_emulate(x, starts, G, T, W, p, 2, seed=W)
+    want = torch_to_u32(tile_copy_plain(t32(x), torch.from_numpy(starts), G, T, W))
+    np.testing.assert_array_equal(emu, want)
+
+
+def test_tile_copy_plan_refusals(monkeypatch):
+    # the default: units of 64 rows, a ring of 6, the blocks that fit an SM,
+    # and at the probe's shape every block takes more units than its ring holds
+    p = k11.copy_plan(2048, 32)
+    assert p == k11.CopyPlan(64, k11.RING, k11.resident_blocks(k11.RING * 64 * 128))
+    assert (1 << 20) // p.unit_rows > k11.copy_grid(1 << 20, p) * p.ring
+    assert k11.copy_grid(1 << 20, p) == p.blocks_per_sm * k11.H100_SMS
+    assert k11.copy_grid(128, p, 132) == 2  # a block a unit at most
+    assert k11.stage_rows(2048, 32) == 64 and k11.stage_rows(96, 1) == 96
+    assert k11.resident_blocks(0) == k11.MAX_BLOCKS_PER_SM
+    assert k11.resident_blocks(96 * 1024) == 2 and k11.resident_blocks(64 * 1024) == 3
+    for values in ({"RING": 1}, {"RING": k11.MAX_RING + 1, "UNIT_BYTES": 32 * 128},
+                   {"BLOCKS_PER_SM": 0}):
+        with monkeypatch.context() as m:
+            for k, v in values.items():
+                m.setattr(k11, k, v)
+            with pytest.raises(ValueError, match="tile_copy"):
+                k11.copy_plan(2048, 32)
+    with monkeypatch.context() as m:  # the ring shrinks to fit shared memory
+        m.setattr(k11, "UNIT_BYTES", 64 * 1024)
+        m.setattr(k11, "RING", 8)
+        assert k11.copy_plan(2048, 32) == k11.CopyPlan(512, 3, 1)
+    with pytest.raises(ValueError, match="tile_copy"):
+        k11.copy_plan(4096, 2048)  # a 32-row unit of 8 KiB rows: no ring of 2 fits
+    with pytest.raises(ValueError, match="tile_copy"):
+        k11.stage_rows(48, 1)
 
 
 @pytest.mark.parametrize("load", [True, False])
@@ -143,11 +346,12 @@ def test_tile_copy_refuses_bad_arguments():
 
 
 def test_bulk_copies_counts_loads_and_chunk_parts():
-    # the probe's shape: 512 tiles, two stages of 1024 rows a tile
+    # the probe's shape: 512 tiles, 32 units of 64 rows a tile, a load a
+    # unit and a store a chunk part of a unit
     n = 1 << 20
     assert {G: bulk_copies(n, G) for G in tdma.GS} == {
-        32: 512 * 2 * (1 + 32), 64: 512 * 2 * (1 + 16), 128: 512 * 2 * (1 + 8),
-        512: 512 * 2 * (1 + 2), 2048: 512 * 2 * (1 + 1)}
+        32: 512 * 32 * (1 + 2), 64: 512 * 32 * (1 + 1), 128: 512 * 32 * (1 + 1),
+        512: 512 * 32 * (1 + 1), 2048: 512 * 32 * (1 + 1)}
 
 
 def test_probe_mains_check_on_the_cpu(capsys):
