@@ -323,9 +323,12 @@ def _profile_calls(fn, reps: int, cpu: bool = True) -> tuple[list, str]:
 
 def device_parts(prof: dict, top: int = 4) -> str:
     """The largest kernels of a profile_device reading, with their ms a call."""
-    return ", ".join(
-        f"{re.sub(r'^void |[(]anonymous namespace[)]::|dbt::', '', name).split('(')[0]} "
-        f"{us / 1e3:.4f}" for name, us in prof["top"][:top])
+    return ", ".join(f"{launch_name(name)} {us / 1e3:.4f}" for name, us in prof["top"][:top])
+
+
+def launch_name(name: str) -> str:
+    """A device event's name without its namespace and arguments."""
+    return re.sub(r"^void |[(]anonymous namespace[)]::|dbt::", "", name).split("(")[0].strip()
 
 
 def device_ms(fn, cpu: bool = True) -> float:
@@ -794,6 +797,7 @@ def check_probe_kernels(dev, g, sizes) -> dict:
                     errs["tile_copy"] = max(errs["tile_copy"], assert_same(
                         f"K11 n={dma.N} G={G} {order} starts, {plan}",
                         (tile_copy(pin["x"], st, G),), (want,)))
+    errs["tile_copy"] = max(errs["tile_copy"], check_tile_copy_streams(dev, g, pin))
     for w, tile, G, n in ((8, 256, 64, 256 * 37), (4, 64, 32, 64 * 5), (512, 128, 32, 128 * 9)):
         x = torch.from_numpy(g.integers(-2**31, 2**31, n * w).astype(np.int32)).to(dev)
         st = torch.from_numpy((g.permutation(n // tile) * tile).astype(np.int32))
@@ -819,12 +823,39 @@ def check_probe_kernels(dev, g, sizes) -> dict:
     torch.cuda.synchronize()
     log(f"[kernels] K11 equals its plain version at n={dma.N} for G in {dma.GS} with identity "
         f"and tile-permuted starts, under the default plan and {len(plans)} others (units "
-        f"of 32-512 rows, rings of 2-16, blocks that reload their ring tens of times), and at "
-        f"W 8, 4 and 512 with permuted starts; K12 in both modes at N={prims.N} "
+        f"of 32-512 rows, rings of 2-16, blocks that reload their ring tens of times), two "
+        f"calls on two streams at once, and at W 8, 4 and 512 with permuted starts; K12 in both modes at N={prims.N} "
         f"in tiles of {prims.T} (W={prims.W}) and as one tile at N in {sizes} (W 5 and "
         f"{prims.W}) with slots outside the tile")
     errs["row_move"] = max(errs["row_move"], check_row_move_cases(dev, g))
     return errs
+
+
+def check_tile_copy_streams(dev, g, pin) -> int:
+    """Two K11 calls on two streams at once, each with its own unit counter:
+    a permuted copy at G = 32 and an identity one at G = 128 of other words,
+    under the default plan and under one block an SM (so that both grids
+    fit the card together), 5 rounds each; each equals its plain version."""
+    from database_technology_algorithms_tpu_torch.kernels.tile_copy import (
+        tile_copy, tile_copy_plain)
+    from database_technology_algorithms_tpu_torch.tools import copy_sweep
+
+    x1, x2 = pin["x"], torch.flip(pin["x"], (0,)).contiguous()
+    s1, s2 = pin["starts"]["tile-permuted"], pin["starts"]["identity"]
+    want = (tile_copy_plain(x1, s1, 32), tile_copy_plain(x2, s2, 128))
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    err = 0
+    for values in ({}, {"UNIT_BYTES": 64 * 128, "RING": 8, "BLOCKS_PER_SM": 1}):
+        with copy_sweep.plan(**values) as plan:
+            for _ in range(5):
+                torch.cuda.synchronize()
+                with torch.cuda.stream(streams[0]):
+                    a = tile_copy(x1, s1, 32)
+                with torch.cuda.stream(streams[1]):
+                    b = tile_copy(x2, s2, 128)
+                torch.cuda.synchronize()
+                err = max(err, assert_same(f"K11 two streams at once, {plan}", (a, b), want))
+    return err
 
 
 def check_row_move_cases(dev, g) -> int:
@@ -2030,7 +2061,8 @@ def phase_probes(dev, card: str, g) -> dict:
                          "ns_per_copy": ms * 1e6 / copies, "bound_ms": bound_ms(nbytes),
                          "library_ms": lib, "wrapper_ms": prof["busy_us"] / 1e3}
         log(f"[probes] {card}: K11 tile copy n={dma.N} W={dma.W} T={dma.T} G={G}: kernel "
-            f"{ms:.4f} ms ({prof['busy_us'] / 1e3:.4f} ms with the starts' upload), "
+            f"{ms:.4f} ms ({prof['busy_us'] / 1e3:.4f} ms with the starts' upload and the "
+            f"counter's memset), "
             f"{nbytes / ms / 1e6:.1f} GB/s, {copies} bulk copies -> {ms * 1e6 / copies:.2f} "
             f"ns/copy; bound {bound_ms(nbytes):.4f} ms ({nbytes} B); library copy_ {lib:.4f} ms; "
             f"CUDA-event span per back-to-back call {cuda_ms(lambda: copiers[G](x, st)):.4f} ms")
@@ -2039,8 +2071,8 @@ def phase_probes(dev, card: str, g) -> dict:
     alt = profile_device(lambda: (copiers[32](x, st), copy_out.copy_(x)), reps=20)
     res["k11_alternating"] = {
         "ms": sum(us for n, us in alt["top"] if "tile_copy" in n) / 1e3,
-        "library_ms": sum(us for n, us in alt["top"]
-                          if "tile_copy" not in n and "HtoD" not in n) / 1e3}
+        "library_ms": sum(us for n, us in alt["top"] if "tile_copy" not in n
+                          and "HtoD" not in n and "Memset" not in n) / 1e3}
     log(f"[probes] {card}: K11 at G=32 and copy_ in turns, one profiled window of 20 pairs: "
         f"kernel {res['k11_alternating']['ms']:.4f} ms, copy_ "
         f"{res['k11_alternating']['library_ms']:.4f} ms a call; by kernel: "
@@ -3018,9 +3050,10 @@ F3_KERNELS = ("seg_scan", "expand_sources", "take_fill")
 
 
 def agg_kernels(field: int) -> tuple:
-    """What one group_aggregate at `field` must launch (gather route)."""
+    """What one group_aggregate at `field` must launch (gather route); K13
+    finds its group ids itself, so no K2."""
     sort = ("radix_sort",) if field in (0, 1) else ("words_sort", "adj_equal")
-    return sort + ("seg_scan", "run_aggregate", "compact", "take_fill")
+    return sort + ("run_aggregate", "compact", "take_fill")
 
 
 def agg_table(nblocks: int, seed: int, zipf_a=None) -> dict:
@@ -3178,16 +3211,38 @@ def k13_library(active_s, adj, vals):
     return count, total, lo, hi
 
 
-def k13_edges(g, dev) -> list:
-    """(what, active_s, adj, vals) at K13's span edges
-    (tests/test_torch_aggregate.py's cases, at the kernel's own span)."""
-    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import SPAN_ROWS
+def k13_prefilled(active_s, adj, vals):
+    """K13's entry on an output filled with 0x5A5A5A5A, n_groups with -1 and
+    its scratch with 0xFFFFFFFF before the call: a word that the kernel
+    left to a pre-fill, or a record that it read before its memset, would
+    show."""
+    from database_technology_algorithms_tpu_torch.kernels import _lib
+    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import agg_scratch_words
 
-    span, block = SPAN_ROWS, 8 * SPAN_ROWS
+    n, dev = active_s.shape[0], active_s.device
+    out = torch.full((4, n), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    n_groups = torch.full((), -1, dtype=torch.int32, device=dev)
+    words = agg_scratch_words(n)
+    scratch = torch.full((words,), -1, dtype=torch.int32, device=dev)
+    err = _lib.library().dbt_run_aggregate(
+        active_s.data_ptr(), adj.data_ptr(), _lib.ptr_array(vals), len(vals), n, out.data_ptr(),
+        n_groups.data_ptr(), scratch.data_ptr(), words, _lib.stream_of(active_s))
+    _lib.raise_on_error(err, "run_aggregate")
+    return dict(zip(AGG_NAMES, out)), n_groups
+
+
+def k13_edges(g, dev) -> list:
+    """(what, active_s, adj, vals) at K13's tile edges
+    (tests/test_torch_aggregate.py's cases, at the kernel's own tile): a
+    warp's 512 rows, a tile, 40 tiles (look-backs across windows of 32)."""
+    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import TILE_ROWS
+
+    span, block = TILE_ROWS, 512
     cases = []
     for n, kind in ((0, "random"), (1, "random"), (31, "random"), (32, "random"),
-                    (33, "random"), (span - 1, "random"), (span, "random"), (span + 1, "random"),
-                    (block - 1, "random"), (block + 1, "random"), (3 * span + 17, "sparse"),
+                    (33, "random"), (block - 1, "random"), (block + 1, "random"),
+                    (span - 1, "random"), (span, "random"), (span + 1, "random"),
+                    (40 * span + 3, "sparse"), (3 * span + 17, "sparse"),
                     (4 * span, "group over spans"), (4 * span, "starts on a span's last row"),
                     (5 * span, "every row a group"), (5 * span + 3, "one group"),
                     (4 * span, "all inactive"), (70_001, "random"), (ROWS, "random"),
@@ -3270,10 +3325,13 @@ def phase_aggregate(dev, card: str) -> dict:
     errs = {"run_aggregate": 0, "expand_sources": 0}
     # ---- K13 and K14 at their edges ------------------------------------------
     for what, active, adj, vals in k13_edges(g, dev):
+        want = agg_result_tensors(run_aggregate_plain(active, adj, vals))
         errs["run_aggregate"] = max(errs["run_aggregate"], assert_same(
-            f"K13 {what}", agg_result_tensors(run_aggregate(active, adj, vals)),
-            agg_result_tensors(run_aggregate_plain(active, adj, vals))))
-    n = 2 * BIG_ROWS  # one key over every row: two atomics a span, not a row
+            f"K13 {what}", agg_result_tensors(run_aggregate(active, adj, vals)), want))
+        errs["run_aggregate"] = max(errs["run_aggregate"], assert_same(
+            f"K13 {what}, output and scratch filled with other bits first",
+            agg_result_tensors(k13_prefilled(active, adj, vals)), want))
+    n = 2 * BIG_ROWS  # one key over every row: one group open across 4096 tiles
     one = (torch.ones(n, dtype=torch.bool, device=dev),
            torch.ones(n, dtype=torch.bool, device=dev).index_fill_(0, torch.zeros(
                1, dtype=torch.long, device=dev), False),
@@ -3288,8 +3346,9 @@ def phase_aggregate(dev, card: str) -> dict:
             f"K14 {what}", (expand_sources(c, total, cap),),
             (expand_sources_plain(c, total, cap),)))
     torch.cuda.synchronize()
-    log(f"[kernels] K13 and K14 equal their plain versions at their edges (K13: spans of "
-        f"rows, 1 and 4 measures, bit 31 set; one key over {n} rows, {one_ms:.4f} ms; K14: "
+    log(f"[kernels] K13 and K14 equal their plain versions at their edges (K13: a warp's "
+        f"rows, a tile, 40 tiles, 1 and 4 measures, bit 31 set, also on an output and scratch "
+        f"filled with other bits first; one key over {n} rows, {one_ms:.4f} ms; K14: "
         f"no probe rows, no output, one row holding all, cap 0, total//2, total, total+37)")
 
     # ---- 16M-row tables at field 1 ----------------------------------------------
@@ -3426,17 +3485,25 @@ def k13_record(captured: dict, runs: dict, errs: dict, card: str) -> dict:
         shapes[what] = timing(captured[what])
         s = shapes[what]
         log(f"[timing] {card}: run_aggregate ({what}: {s['rows']} sorted rows, {s['measures']} "
-            f"measure(s)): device time per call (K2's group ids, the fills and K13): kernel "
+            f"measure(s)): device time per call (the memset, the pass, the identity tail): kernel "
             f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library (cumsum, bincount, 3 "
             f"scatter_reduce_) {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms")
     args = captured["uniform"]
-    log(f"[timing] {card}: run_aggregate (uniform), device ms a call by kernel: "
-        f"{device_parts(profile_device(lambda: run_aggregate(*args), reps=10), top=6)}")
+    prof = profile_device(lambda: run_aggregate(*args), reps=10)
+    kernels = [k for k in prof["per_call"] if "Memset" not in k]
+    if (len(prof["per_call"]) - len(kernels) != 1 or len(kernels) != 2
+            or not any("run_aggregate_kernel" in k for k in kernels)
+            or not any("identity_tail" in k for k in kernels)):
+        raise AssertionError(f"one K13 call launched {prof['per_call']}, not one memset, "
+                             f"run_aggregate_kernel and identity_tail")
+    log(f"[timing] {card}: run_aggregate (uniform), device ms a call by launch (one memset and "
+        f"K13's two kernels, nothing else): {device_parts(prof, top=6)}")
     main = shapes["uniform"]
     rec.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     rec["shape"] = (f"{main['rows']} sorted rows (16,777,200-row uniform table, field 1, after "
                     f"the filter), num as the one measure")
     rec["shapes"] = shapes
+    rec["by_launch"] = {launch_name(k): us / 1e3 for k, us in prof["top"]}
     return rec
 
 
@@ -3978,9 +4045,11 @@ DIST_NBLOCKS = 2000  # the CLI's files: 200K rows each
 DIST_ENGINES = ("sorted", "skew", "overlap")
 DIST_PHASE_LIMIT_S = 60.0
 # what every run of the plan launches, and what each engine adds
-DIST_KERNELS = ("stage_cells", "compact", "take_fill", "run_aggregate", "seg_scan")
-DIST_ENGINE_KERNELS = {"sorted": (), "skew": ("words_sort", "topk_runs", "hot_hashes",
-                                              "in_hot_set"),
+DIST_KERNELS = ("stage_cells", "compact", "take_fill", "run_aggregate")
+# K2 runs in the generic hash join of the sorted and skew engines (K13 finds
+# its group ids itself)
+DIST_ENGINE_KERNELS = {"sorted": ("seg_scan",), "skew": ("seg_scan", "words_sort", "topk_runs",
+                                                         "hot_hashes", "in_hot_set"),
                        "overlap": ("words_sort",)}
 DIST_RECORDED = (("topk_runs", "topk_runs"), ("hot_set", "hot_hashes"), ("hot_set", "in_hot_set"),
                  ("range_dest", "range_dest"), ("stage_cells", "stage_to_cells"))
@@ -4104,7 +4173,9 @@ def dist_kernel_edges(g, dev) -> dict:
     errs = dict.fromkeys(("topk_runs", "hot_hashes", "in_hot_set", "range_dest", "stage_cells"), 0)
     m32 = 0xFFFFFFFF
     tile = dist_plan.TOPK_TILE
-    # K19: n < k, one run, all dead, ties at the k-th place, a run across every tile
+    # K19: n < k, one run, all dead, ties at the k-th place, a run across every tile;
+    # each at k = 16 (a warp's list in its lanes) and, where n allows, 33 and 1024 (the
+    # block's list in shared memory)
     for what, h, nact, k in (
             ("n < k", g.integers(0, 9, 5), 4, 5),
             ("one run", np.full(70_001, 2**31 + 5), 70_001, 16),
@@ -4117,9 +4188,10 @@ def dist_kernel_edges(g, dev) -> dict:
         h = np.concatenate([np.sort(np.asarray(h[:nact], np.uint64)),
                             np.full(len(h) - nact, m32, np.uint64)])
         hs = u32_dev(h, dev)
-        for cnt in (nact, torch.tensor(nact, dtype=torch.int32, device=dev)):
-            errs["topk_runs"] = max(errs["topk_runs"], assert_same(
-                f"K19 {what}", topk_runs(hs, cnt, k), topk_runs_plain(hs, cnt, k)))
+        for kk in sorted({k, min(33, len(h)), min(1024, len(h))}):
+            for cnt in (nact, torch.tensor(nact, dtype=torch.int32, device=dev)):
+                errs["topk_runs"] = max(errs["topk_runs"], assert_same(
+                    f"K19 {what} k={kk}", topk_runs(hs, cnt, kk), topk_runs_plain(hs, cnt, kk)))
     # K20: every candidate a sentinel, all equal, mixed; signed thresholds
     for what, m in (("every candidate a sentinel", 64), ("all candidates equal", 128),
                     ("mixed", 64), ("mixed", 1024)):
@@ -4183,7 +4255,7 @@ def dist_kernel_edges(g, dev) -> dict:
     torch.cuda.synchronize()
     log("[kernels] K19-K22 and K9's fill equal their plain versions at their edges (K19: n < k, "
         "one run, all dead, ties at the k-th place, a run across 16 tiles, 1M Zipf hashes, the "
-        "count on the host and the card; K20: every candidate a sentinel, all equal, mixed, "
+        "count on the host and the card, each at k = 16, 33 and 1024 where n allows; K20: every candidate a sentinel, all equal, mixed, "
         "thresholds -1, 1, 50000; K21: an empty hot list, no entries, a mixed one over 2M rows; "
         f"K22: 1-4 words, 1 and 3 splitters, keys equal to a splitter and on both sides of "
         f"2^31, strided ({paths[False]} calls on the scalar path, with the views one row in) "
@@ -4427,7 +4499,7 @@ def phase_dist(dev, card: str) -> dict:
     step = tpipe.make_dist_pipeline(mesh, 1, cfg)
     name = f"{DIST_BIG_ROWS} + {DIST_BIG_ROWS} rows, field 1, sorted"
     out = dist_run(name, lambda: step(b1.batches, b1.counts, b2.batches, b2.counts),
-                   DIST_KERNELS, runs)
+                   DIST_KERNELS + DIST_ENGINE_KERNELS["sorted"], runs)
     got = check_dist_run(out, want, {}, 1, name)
     del out
     mark("timed run's check")
@@ -4550,6 +4622,7 @@ def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict
             + f", bound {bound:.4f} ms ({sp['nbytes']} B, {sp['nops']} ops, by {by}); launches "
             f"a run {rec['launches']}")
         recs.append(rec)
+    recs[0].update(dist_k19_readings(hs, nact, k, sel, card))
     recs[-1].update(dist_k22_readings(words, spl, lib, card))
     # K9 at the shuffle's pack and with the overlap join's fill (their own rows in PERF.md)
     for what, run, key in (
@@ -4572,6 +4645,38 @@ def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict
             f"ms, bound {bound:.4f} ms ({nbytes} B, by {by}); launches a run "
             f"{runs[run]['launches']['stage_cells']}")
     return recs
+
+
+def dist_k19_readings(hs: torch.Tensor, nact, k: int, sel: torch.Tensor, card: str) -> dict:
+    """K19 on the skew join's own shard: the device events of one wrapper
+    call (its memset and its one kernel) with their times, and at k = 33
+    and 1024 (the block's list in shared memory) against its plain version,
+    timed beside torch.topk of the same (count, position) keys."""
+    from database_technology_algorithms_tpu_torch.kernels import topk_runs as k19
+
+    alone = profile_device(lambda: k19.topk_runs(hs, nact, k), reps=10, cpu=False)
+    kernels = [n for n in alone["per_call"] if "Memset" not in n]
+    if len(kernels) != 1 or "topk_kernel" not in kernels[0] or len(alone["per_call"]) != 2:
+        raise AssertionError(f"K19's wrapper launched {alone['per_call']}, not one memset and "
+                             f"one topk_kernel")
+    out = {"by_launch": {launch_name(n): us / 1e3 for n, us in alone["top"]}}
+    log(f"[timing] {card}: topk_runs (k = {k}), device ms a call by launch: "
+        f"{device_parts(alone, top=3)}")
+    n = hs.shape[0]
+    for kk in (33, 1024):
+        err = assert_same(f"K19 on the skew join's shard, k = {kk}", k19.topk_runs(hs, nact, kk),
+                          k19.topk_runs_plain(hs, nact, kk))
+        bound, by = bound_of(4 * n + 8 * kk, 2 * n)
+        r = {"ms": device_ms(lambda: k19.topk_runs(hs, nact, kk), cpu=False),
+             "plain_ms": device_ms(lambda: k19.topk_runs_plain(hs, nact, kk), cpu=False),
+             "library_ms": device_ms(lambda: torch.topk(sel, kk), cpu=False),
+             "bound_ms": bound, "max_abs_err": err}
+        out[f"k{kk}"] = r
+        log(f"[timing] {card}: topk_runs ({n} sorted hashes, k = {kk}): device time per call: "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library torch.topk of the "
+            f"(count, position) keys {r['library_ms']:.4f} ms, bound {bound:.4f} ms (by {by}); "
+            f"equal to the plain version")
+    return out
 
 
 def dist_k22_readings(words: list, spl: list, lib, card: str) -> dict:

@@ -16,7 +16,10 @@
 // - the grid is persistent: blocks_per_sm blocks an SM, all resident at
 //   once.  A block takes its next unit from a counter that every block of
 //   the launch shares (one atomicAdd a unit), so no SM idles while another
-//   still has a long range to go;
+//   still has a long range to go.  The counter is the caller's: 16 bytes
+//   that the wrapper allocates for the call and the entry zeroes on the
+//   call's stream before the launch, so launches on other streams, or after
+//   one that failed midway, share nothing;
 // - each block keeps a ring of `ring` unit buffers in shared memory with one
 //   "full" mbarrier each.  Its one thread loads the first `ring` units it
 //   takes, then for the k-th: waits for its barrier, issues its chunk stores
@@ -26,11 +29,7 @@
 //   have read it.  So the stores of up to two units and the loads of
 //   ring - 1 are in flight in each block;
 // - the thread reads starts[t] when it loads a unit of tile t, unless the
-//   unit before it in that block lay in the same tile;
-// - the last block to finish sets the counter back to 0 for the next
-//   launch.  So two launches of this kernel on one device must not run at
-//   the same time (the wrapper launches on the caller's stream; nothing in
-//   the port launches it on two streams).
+//   unit before it in that block lay in the same tile.
 // Bulk copies need 16-byte aligned addresses and sizes: a row is 4w bytes,
 // and units, chunks and starts are multiples of 32 rows.  The plan comes
 // from kernels/tile_copy.py copy_plan; the entry below repeats its refusals.
@@ -40,9 +39,7 @@ namespace {
 
 constexpr int MAX_RING = 16;           // kernels/tile_copy.py MAX_RING
 constexpr int RING_BYTES = 232448 - 1024;  // kernels/tile_copy.py RING_BYTES
-
-__device__ unsigned long long k11_next_unit;  // the units taken (and one past the end a block)
-__device__ unsigned int k11_blocks_done;
+constexpr int COUNTER_BYTES = 16;          // kernels/tile_copy.py COUNTER_BYTES
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -68,14 +65,16 @@ __device__ __forceinline__ void wait_full(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ int64_t take_unit() {
-  return (int64_t)atomicAdd(&k11_next_unit, 1ull);
+// the next unit of the launch: the units taken so far (one past the end a
+// block, at its last take)
+__device__ __forceinline__ int64_t take_unit(unsigned long long* next_unit) {
+  return (int64_t)atomicAdd(next_unit, 1ull);
 }
 
 __global__ void __launch_bounds__(1)
 tile_copy_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ starts,
                  uint8_t* __restrict__ out, int64_t units, int tile, int w, int g, int unit_rows,
-                 int ring) {
+                 int ring, unsigned long long* __restrict__ next_unit) {
   extern __shared__ __align__(128) uint8_t buf[];
   __shared__ __align__(8) uint64_t full[MAX_RING];
   __shared__ int64_t held[MAX_RING];  // the unit in each buffer
@@ -103,8 +102,8 @@ tile_copy_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ star
               x + u * unit_rows * row_bytes, unit_bytes);
     ++loaded;
   };
-  int64_t next = take_unit();  // the unit this block loads next, if < units
-  for (; loaded < ring && next < units; next = take_unit()) load(next);
+  int64_t next = take_unit(next_unit);  // the unit this block loads next, if < units
+  for (; loaded < ring && next < units; next = take_unit(next_unit)) load(next);
   for (int64_t k = 0; k < loaded; ++k) {
     const int b = (int)(k % ring);
     wait_full(full_a + 8 * b, (uint32_t)((k / ring) & 1));
@@ -123,17 +122,10 @@ tile_copy_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ star
     if (k >= 1 && next < units) {  // the buffer of unit k - 1 takes the next unit
       asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
       load(next);
-      next = take_unit();
+      next = take_unit(next_unit);
     }
   }
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-  // every block took its last unit before it counts itself done, so the
-  // last one to count may set the counters back for the next launch
-  __threadfence();
-  if (atomicAdd(&k11_blocks_done, 1u) == gridDim.x - 1) {
-    atomicExch(&k11_next_unit, 0ull);
-    atomicExch(&k11_blocks_done, 0u);
-  }
 }
 
 }  // namespace
@@ -142,24 +134,31 @@ tile_copy_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ star
 // out u32[n, w]; the wrapper checks the divisibility and that the tiles land
 // disjoint inside [0, n).  The plan: unit_rows a unit, `ring` buffers a
 // block, `blocks` blocks (all resident: kernels/tile_copy.py copy_grid).
+// counter: COUNTER_BYTES on the device, 8-byte aligned, zeroed here on the
+// stream before the launch.
 DBT_API int dbt_tile_copy(const void* x, const void* starts, void* out, int64_t ntiles, int tile,
-                          int w, int g, int unit_rows, int ring, int64_t blocks, void* stream) {
+                          int w, int g, int unit_rows, int ring, int64_t blocks, void* counter,
+                          void* stream) {
   if (ntiles <= 0) return 0;
   const int64_t unit_bytes = (int64_t)unit_rows * w * 4;
   if (w < 1 || tile < 1 || g < 32 || g % 32 || tile % g || unit_rows < 32 || unit_rows % 32 ||
       tile % unit_rows || ring < 2 || ring > MAX_RING || ring * unit_bytes > RING_BYTES ||
       blocks < 1 || blocks > INT32_MAX ||
-      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(counter) % 8)
     return (int)cudaErrorInvalidValue;
   const int64_t units = ntiles * (tile / unit_rows);
   if (blocks > units) blocks = units;
   const int smem = (int)(ring * unit_bytes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
       tile_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, COUNTER_BYTES, st);
   if (err != cudaSuccess) return (int)err;
-  tile_copy_kernel<<<(unsigned)blocks, 1, smem, static_cast<cudaStream_t>(stream)>>>(
+  tile_copy_kernel<<<(unsigned)blocks, 1, smem, st>>>(
       static_cast<const uint8_t*>(x), static_cast<const int32_t*>(starts),
-      static_cast<uint8_t*>(out), units, tile, w, g, unit_rows, ring);
+      static_cast<uint8_t*>(out), units, tile, w, g, unit_rows, ring,
+      static_cast<unsigned long long*>(counter));
   DBT_CHECK_LAUNCH();
   return 0;
 }

@@ -133,9 +133,9 @@ _SIGNATURES = {
                          _P, _I64, _I64, _I, _P], _I),
     "dbt_member_mult": ([_PP, _PI64, _PP, _PI64, _I, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P,
                          _I64, _I64, _I, _P], _I),
-    "dbt_tile_copy": ([_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P], _I),
+    "dbt_tile_copy": ([_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P], _I),
     "dbt_row_move": ([_P, _P, _P, _I64, _I, _I64, _I, _P, _I64, _I, _I, _P], _I),
-    "dbt_run_aggregate": ([_P, _P, _PP, _I, _I64, _P, _P, _P], _I),
+    "dbt_run_aggregate": ([_P, _P, _PP, _I, _I64, _P, _P, _P, _I64, _P], _I),
     "dbt_expand_sources": ([_P, _I64, _P, _I64, _P, _P], _I),
     "dbt_sorted_probe": ([_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P], _I),
     "dbt_hash_set_build": ([_P, _I64, _P, _I64, _P, _I64, _I, _P, _P], _I),

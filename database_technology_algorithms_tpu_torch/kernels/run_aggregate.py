@@ -3,6 +3,18 @@ version.
 
 Replaces the scans, compaction and differences of the JAX package's
 ``_run_aggregates`` (``ops/aggregate.py:46-75``).
+
+The kernel's plan: tiles of ``TILE_ROWS`` rows, ``THREADS`` threads a
+block, ``ITEMS`` consecutive rows a thread; one pass that derives the run
+starts from ``active_s`` and ``adj`` itself and finds each tile's group
+offset and the aggregate of the group still open at its start by decoupled
+look-back over the earlier tiles' records (``scan_plan.WINDOW`` at a time,
+back to the first inclusive prefix); the row that ends a group stores its
+four words, and a tile without an active row reads no measure.  A second
+launch writes the identities to the rows past ``n_groups``.  The scratch
+(``agg_scratch_words``): the tile counter and a state word a tile, zeroed
+by one memset, then two payloads of ``PART_WORDS`` a tile.
+``tests/test_torch_aggregate.py`` emulates the plan on the CPU.
 """
 
 from __future__ import annotations
@@ -10,11 +22,14 @@ from __future__ import annotations
 import torch
 
 from ..batch import U32_MASK, as_u32, u32_bits
-from . import _lib
+from . import _lib, scan_plan
 from .compact import compact_words_plain
-from .seg_scan import seg_scan, seg_scan_plain
+from .seg_scan import seg_scan_plain
 
-SPAN_ROWS = 256  # rows a warp walks (csrc/run_aggregate.cu: SPAN)
+THREADS = 256  # a block (THREADS in csrc/run_aggregate.cu)
+ITEMS = 16  # consecutive rows a thread (ITEMS)
+TILE_ROWS = THREADS * ITEMS  # rows a block (TILE)
+PART_WORDS = 8  # a tile's payload: starts, count, sum, min, max, 3 unused (PART_WORDS)
 MAX_ROWS = (1 << 31) - 1  # group ids are int32
 AGG_NAMES = ("count", "sum", "min", "max")
 _IDENTITY = (0, 0, -1, 0)  # count, sum, U32_MAX as int32 bits, 0
@@ -24,6 +39,14 @@ def _measures(vals: tuple) -> tuple:
     if len(vals) not in (1, 4):
         raise ValueError(f"run_aggregate: 1 measure (num) or 4 partials, got {len(vals)}")
     return vals
+
+
+def agg_scratch_words(n: int) -> int:
+    """K13's scratch in 32-bit words: the tile counter and a state word a
+    tile, padded to 8 words, then an aggregate and an inclusive prefix of
+    ``PART_WORDS`` a tile."""
+    t = scan_plan.tiles(n, TILE_ROWS)
+    return -(-(1 + t) // 8) * 8 + 2 * PART_WORDS * t
 
 
 def run_aggregate(active_s: torch.Tensor, adj: torch.Tensor, vals: tuple
@@ -39,8 +62,9 @@ def run_aggregate(active_s: torch.Tensor, adj: torch.Tensor, vals: tuple
     columns, group-major, holding 0, 0, U32_MAX and 0 past ``n_groups``, a
     0-d int32 tensor on the device.
 
-    CPU tensors take the plain version; CUDA tensors launch K2 (the group
-    ids) and the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (a
+    memset of its scratch's head, the pass over the rows, the identities
+    past ``n_groups``).
     """
     vals = _measures(tuple(vals))
     if active_s.device.type == "cpu":
@@ -55,14 +79,16 @@ def run_aggregate(active_s: torch.Tensor, adj: torch.Tensor, vals: tuple
         raise ValueError("run_aggregate: adj and vals must be [N] like active_s")
     if n > MAX_ROWS:
         raise ValueError(f"run_aggregate: {n} rows; group ids are int32 (at most 2^31 - 1)")
-    incl = seg_scan(None, active_s & ~adj, "add")
     out = torch.empty((4, n), dtype=torch.int32, device=dev)
     n_groups = torch.empty((), dtype=torch.int32, device=dev)
+    words = agg_scratch_words(n)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_run_aggregate(
-            active_s.data_ptr(), incl.data_ptr(), _lib.ptr_array(vals), len(vals), n,
-            out.data_ptr(), n_groups.data_ptr(), _lib.stream_of(active_s),
+            active_s.data_ptr(), adj.data_ptr(), _lib.ptr_array(vals), len(vals), n,
+            out.data_ptr(), n_groups.data_ptr(), scratch.data_ptr(), words,
+            _lib.stream_of(active_s),
         )
     _lib.raise_on_error(err, "run_aggregate")
     _lib.LAUNCHES["run_aggregate"] += 1

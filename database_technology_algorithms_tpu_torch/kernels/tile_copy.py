@@ -12,7 +12,10 @@ The kernel's plan (``copy_plan``): the rows are cut into units of
 the units one at a time from a counter the blocks share; a block keeps a
 ring of ``ring`` unit buffers in shared memory, and its one thread reloads
 the buffer of its unit k - 1 as soon as the stores of unit k are issued and
-those of unit k - 1 have read it.  ``tools/copy_sweep.py`` times the unit,
+those of unit k - 1 have read it.  The counter is ``COUNTER_BYTES`` that
+the wrapper allocates for each call and the C entry zeroes on the call's
+stream before the launch, so calls on two streams, or one after a launch
+that failed midway, share nothing.  ``tools/copy_sweep.py`` times the unit,
 ring and blocks an SM on the card, by setting the constants below around
 ``tile_copy`` calls; ``PERF.md`` has the readings that chose them.
 """
@@ -34,6 +37,7 @@ RING_BYTES = 232448 - 1024  # a block's dynamic shared memory, its barriers asid
 SM_SHARED_BYTES = 233472  # an SM's shared memory
 BLOCK_SHARED_BYTES = 1024 + 8 * 3 * MAX_RING  # reserved a block, and the kernel's static arrays
 MAX_BLOCKS_PER_SM = 32
+COUNTER_BYTES = 16  # the launch's unit counter (COUNTER_BYTES in csrc/tile_copy.cu)
 H100_SMS = 132
 
 
@@ -155,10 +159,12 @@ def tile_copy(x: torch.Tensor, starts: torch.Tensor, G: int, T: int = 2048,
         return out
     plan = copy_plan(T, W)
     blocks = copy_grid(n, plan, torch.cuda.get_device_properties(dev).multi_processor_count)
+    counter = torch.empty(COUNTER_BYTES // 8, dtype=torch.int64, device=dev)
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_tile_copy(x.data_ptr(), st.data_ptr(), out.data_ptr(), n // T, T, W, G,
-                                plan.unit_rows, plan.ring, blocks, _lib.stream_of(x))
+                                plan.unit_rows, plan.ring, blocks, counter.data_ptr(),
+                                _lib.stream_of(x))
     _lib.raise_on_error(err, "tile_copy")
     _lib.LAUNCHES["tile_copy"] += 1
     return out

@@ -25,8 +25,9 @@ def topk_runs(hs: torch.Tensor, nact, k: int) -> tuple[torch.Tensor, torch.Tenso
     the lower position first on ties) and their counts; with fewer than k
     runs the zero-count positions follow, lowest first.  1 <= k <= N.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (two
-    passes: the tiles' top k, then the top k of those).
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    launch and a memset of its done counter: the tiles' top k, then, in
+    the last block to finish, the top k of those; ``dist_plan``).
     """
     n = hs.shape[0]
     dist_plan.check_topk("topk_runs", n, k)

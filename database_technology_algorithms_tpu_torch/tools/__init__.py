@@ -9,8 +9,8 @@ span and place warps and K10's shared table, and ``perm_sweep`` K6's rows a
 lane and key stages and the rows a thread and grid of K7's scatter and
 gather, and ``copy_sweep`` K11's unit, ring and blocks an SM, on the
 card only; ``checkout_ab`` times named sets of calls (the tiled join; K6 and
-K7's scatter; the ``pipeline`` command's K6 and K7 by field; K11 and K22)
-of several checkouts in turn."""
+K7's scatter; the ``pipeline`` command's K6 and K7 by field; K11 and K22;
+K19 and K13 by launch) of several checkouts in turn."""
 
 from __future__ import annotations
 

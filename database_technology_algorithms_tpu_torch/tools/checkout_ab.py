@@ -26,6 +26,16 @@ arguments are the same in every checkout.  The sets:
   each table, ``join_sorted_distinct``, ``hash_join``) on the same tables,
   device-resident, by field 0-3: the device time of K6's and K7's kernels
   and of all kernels in a profiled run (mean of 5 runs), and the counters.
+- ``copy_range``: K11 at every G of the probe and beside ``copy_`` in
+  turns; K22 on one word and on field 3's key, and beside
+  ``torch.searchsorted`` in turns.
+- ``topk_agg``: K19 on the first shard's sorted probe hashes of the 4-shard
+  skew join (``chip_smoke.dist_cols``, 4M + 4M rows, Zipf 1.2 and
+  uniform keys), at k = 16, 33 and 1024; K13's wrapper on the inputs of
+  ``group_aggregate`` at field 1 over the filtered 16,777,200-row uniform
+  and Zipf 1.2 tables (``chip_smoke.agg_table``) and of the two-phase
+  combine.  Each call's device time (torch.profiler, mean of 10 calls)
+  and its time by kernel and memset, and checksums of the results.
 
 Printed a line a checkout; the results (checksums, counters, nres) must be
 equal across checkouts, or the tool fails.
@@ -36,6 +46,7 @@ equal across checkouts, or the tool fails.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -176,8 +187,8 @@ def copy_range(cs, dev) -> tuple[dict, dict]:
     st = pin["starts"]["identity"]
     alt = cs.profile_device(lambda: (tile_copy(x, st, 32), into.copy_(x)), reps=20)
     ms["K11 G=32 in turns"] = named(alt, "tile_copy")
-    ms["copy_ in turns"] = sum(us for n, us in alt["top"]
-                               if "tile_copy" not in n and "HtoD" not in n) / 1e3
+    ms["copy_ in turns"] = sum(us for n, us in alt["top"] if "tile_copy" not in n
+                               and "HtoD" not in n and "Memset" not in n) / 1e3
     n = 1 << 20
     num = torch.from_numpy(g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
                            .view(np.int32)).to(dev)
@@ -201,7 +212,75 @@ def copy_range(cs, dev) -> tuple[dict, dict]:
     return {"ms": ms}, sums
 
 
-SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range}
+def short_name(name: str) -> str:
+    return re.sub(r"^void |[(]anonymous namespace[)]::|dbt::", "", name).split("(")[0]
+
+
+def topk_agg(cs, dev) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from database_technology_algorithms_tpu_torch.kernels.run_aggregate import run_aggregate
+    from database_technology_algorithms_tpu_torch.kernels.topk_runs import topk_runs
+    from database_technology_algorithms_tpu_torch.ops import filter as F
+    from database_technology_algorithms_tpu_torch.ops.aggregate import group_aggregate
+    from database_technology_algorithms_tpu_torch.parallel import dist_ops, skew
+    from database_technology_algorithms_tpu_torch.parallel.mesh import make_mesh
+
+    ms, sums = {}, {}
+
+    def timed(what, fn):
+        prof = cs.profile_device(fn, reps=10)
+        ms[what] = prof["busy_us"] / 1e3
+        ms[f"{what}, by kernel"] = {short_name(n): us / 1e3 for n, us in prof["top"]}
+
+    def checksum(tensors):
+        return [int((t.to(torch.int64) & 0xFFFFFFFF).sum()) for t in tensors]
+
+    mesh = make_mesh(devices=[dev] * cs.DIST_SHARDS)
+
+    def shards(seed, zipf):  # chip_smoke.phase_dist's tables of BASELINE config 4
+        cols = cs.dist_cols(cs.DIST_ROWS, seed, zipf_a=zipf)
+        cols["valid"][:] = True
+        return dist_ops.distribute(mesh, cols)
+
+    for table, seeds, zipf in (("zipf", (44, 45), 1.2), ("uniform", (46, 47), None)):
+        tb, tp = (shards(s, zipf) for s in seeds)
+        with cs.recorded_calls("topk_runs", "topk_runs") as calls:
+            skew.dist_hash_join_skew(mesh, tb, tp, 1)
+        hs, nact, _ = calls[0][0]
+        del tb, tp, calls
+        for k in (16, 33, 1024):
+            what = f"K19 {table} shard, {hs.shape[0]} hashes, k={k}"
+            sums[what] = checksum(topk_runs(hs, nact, k))
+            timed(what, lambda k=k: topk_runs(hs, nact, k))
+    captured = {}
+    for table, seed, zipf in (("uniform", 71, None), ("zipf", 72, cs.ZIPF_A)):
+        cols = cs.agg_table(cs.AGG_NBLOCKS, seed, zipf)
+        t = cs.to_batch(cols, dev)
+        live_num = np.sort(cols["num"][cols["valid"]])
+        if zipf is None:  # chip_smoke.phase_aggregate's predicates
+            lo, hi = int(live_num[len(live_num) // 4]), int(live_num[3 * len(live_num) // 4])
+        else:
+            lo, hi = 0, int(live_num[len(live_num) // 2]) + 1
+        filtered, n_kept = F.filter_batch(t, F.pred_and(F.pred_valid(),
+                                                        F.pred_num_range(lo, hi)))
+        with cs.recorded_calls("run_aggregate", "run_aggregate") as calls:
+            group_aggregate(filtered, 1, count=n_kept)
+            cs.two_phase(filtered, n_kept, 1)
+        captured[table] = calls[0][0]
+        captured[f"{table} combine"] = calls[-1][0]
+        del t, filtered, calls
+    for what, args in captured.items():
+        aggs, ng = run_aggregate(*args)
+        what = f"K13 {what}, {args[0].shape[0]} rows, {len(args[2])} measure(s)"
+        sums[what] = checksum([aggs[k] for k in cs.AGG_NAMES] + [ng.reshape(1)])
+        timed(what, lambda args=args: run_aggregate(*args))
+    return {"ms": ms}, sums
+
+
+SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range,
+        "topk_agg": topk_agg}
 
 
 def one(sets: list[str], root: str) -> dict:

@@ -7,12 +7,15 @@ four aggregate columns, ``n_groups`` and the representative rows must be
 equal, on the gather route and both placement routes, at fields 0-3.  Keys
 and measures carry bit 31, and groups sum past 2^32.
 
-K13's plain version is also held against a numpy emulation of the kernel's
-own rule (``csrc/run_aggregate.cu``): warps walk spans of rows 32 at a time,
-a group that starts and ends inside a span is stored, the span's first and
-last groups commit by atomics into identity-filled columns.  The emulation
-checks that no stored group is touched by another span, at the span's edges.
-Tolerance everywhere: exact.
+K13's plain version is also held against a numpy emulation of the kernel
+(``csrc/run_aggregate.cu``): tiles of consecutive rows a thread, each
+tile's group offset and open group's aggregate by decoupled look-back over
+the earlier tiles' records in a random interleaving of the blocks, the row
+that ends a group storing its four words (in a tile without an active row
+only its last row, its measures unread), and the identities past n_groups.  The emulation
+checks that every output word is written once and that the tile holding a
+group's last row stores it, at the tile's edges.  Tolerance everywhere:
+exact.
 """
 
 import importlib
@@ -28,6 +31,7 @@ from database_technology_algorithms_tpu_torch.batch import RecordBatch as TBatch
 from database_technology_algorithms_tpu_torch.batch import torch_to_u32, u32_to_torch
 from database_technology_algorithms_tpu_torch.config import EngineConfig as TConfig
 from database_technology_algorithms_tpu_torch.kernels import run_aggregate as k13
+from database_technology_algorithms_tpu_torch.kernels import scan_plan
 from database_technology_algorithms_tpu_torch.ops import aggregate as tagg
 
 jagg = importlib.import_module("database_technology_algorithms_tpu.ops.aggregate")
@@ -261,68 +265,160 @@ def test_group_aggregate_edges_match_jax(case, route):
 
 
 # ---------------------------------------------------------------------------
-# K13's span rule, emulated
+# K13's tiles and look-back, emulated
+
+# (warps, lanes, consecutive rows a thread): the plan's tile (4096 rows) and
+# two small ones, so that a few hundred rows span more tiles than a
+# look-back window
+AGG_GEOMETRIES = {"plan": (k13.THREADS // 32, 32, k13.ITEMS), "128-row": (2, 8, 8),
+                  "16-row": (1, 4, 4)}
+PART_IDENTITY = (0, 0, 0, U32_MAX, 0)  # starts, then the open group's count, sum, min, max
 
 
-def emulate_k13(active, adj, vals, span: int):
-    """The kernel's commits, warp span by warp span and 32 rows at a time
-    (csrc/run_aggregate.cu).  Returns (aggs, n_groups, stored, atomic): the
-    groups committed by store and by atomic, with the spans that did it."""
+def tile_of(geometry: str) -> int:
+    return int(np.prod(AGG_GEOMETRIES[geometry]))
+
+
+def part_combine(a, b):
+    """a, then b: the starts add; the open group's aggregate restarts after
+    a start in b, and combines otherwise (mod 2^32, unsigned min and max)."""
+    if b[0]:
+        return (a[0] + b[0],) + tuple(b[1:])
+    return (a[0], (a[1] + b[1]) % 2**32, (a[2] + b[2]) % 2**32, min(a[3], b[3]),
+            max(a[4], b[4]))
+
+
+def emulate_k13(active, adj, vals, geometry: str, seed: int = 0):
+    """csrc/run_aggregate.cu tile by tile at `geometry`: blocks take tiles in
+    order and run their steps in a random interleaving from `seed`; a tile
+    publishes its aggregate, looks back over the earlier tiles' records
+    (scan_plan.WINDOW at a time, back to the first inclusive prefix, waiting
+    while one up to it has not published) and publishes its inclusive
+    prefix; the row that ends a group stores the group's four words (in a
+    tile without an active row only its last row may), the last tile
+    writes n_groups, and the identity pass fills the rows past it.  Returns
+    (aggs, n_groups, writes: how often each output word was written,
+    writer: the tile that stored each group, windows read, measures read)."""
+    warps, lanes, items = AGG_GEOMETRIES[geometry]
+    tile = tile_of(geometry)
     n = len(active)
-    new_run = active & ~adj
-    incl = np.cumsum(new_run, dtype=np.int64)
+    start = active & ~adj
     if len(vals) == 1:
         vals = (np.ones(n, np.uint32), vals[0], vals[0], vals[0])
     vals = [np.asarray(v, dtype=np.uint64) for v in vals]
-    out = [np.zeros(n, np.uint64), np.zeros(n, np.uint64), np.full(n, U32_MAX, np.uint64),
-           np.zeros(n, np.uint64)]
-    ident = (0, 0, U32_MAX, 0, False)
-    stored, atomic = {}, {}
+    out = np.zeros((4, n), np.uint64)
+    writes = np.zeros((4, n), np.int64)
+    writer = {}
+    ntiles = scan_plan.tiles(n, tile)
+    state, agg, prefix = [0] * ntiles, {}, {}
+    res = {"n_groups": 0, "windows": 0, "measures_read": 0}
 
-    def combine(a, b):
-        return ((a[0] + b[0]) % 2**32, (a[1] + b[1]) % 2**32, min(a[2], b[2]), max(a[3], b[3]),
-                a[4] or b[4])
+    def element(r):
+        if r >= n or not active[r]:
+            return (0,) + PART_IDENTITY[1:]
+        return (int(start[r]), int(vals[0][r]), int(vals[1][r]), int(vals[2][r]),
+                int(vals[3][r]))
 
-    def commit(g, v, is_atomic, s):
-        if not v[4] or g < 0:
-            return
-        if is_atomic:
-            atomic.setdefault(g, []).append(s)
-            out[0][g] = (out[0][g] + v[0]) % 2**32
-            out[1][g] = (out[1][g] + v[1]) % 2**32
-            out[2][g] = min(out[2][g], v[2])
-            out[3][g] = max(out[3][g], v[3])
+    def start_bit(r):  # load_bytes16: 0 past n
+        return r < n and bool(start[r])
+
+    def store(g, run, t):
+        out[:, g] = run[1:]
+        writes[:, g] += 1
+        writer[g] = t
+
+    def block(t):
+        rows = (t * tile + np.arange(tile)).reshape(warps, lanes, items)
+        live = bool(active[t * tile: (t + 1) * tile].any())
+        if live:
+            res["measures_read"] += int((rows < n).sum())
+        # each thread's rows, then the warp's lanes (exclusive), then the warps
+        mine = np.empty((warps, lanes), object)
+        for w in range(warps):
+            for lane in range(lanes):
+                part = PART_IDENTITY
+                for i in range(items):
+                    part = part_combine(part, element(int(rows[w, lane, i])) if live
+                                        else PART_IDENTITY)
+                mine[w, lane] = part
+        excl = np.empty((warps, lanes), object)
+        wtot = []
+        for w in range(warps):
+            run = PART_IDENTITY
+            for lane in range(lanes):
+                excl[w, lane] = run
+                run = part_combine(run, mine[w, lane])
+            wtot.append(run)
+        wex, total = [], PART_IDENTITY
+        for p in wtot:
+            wex.append(total)
+            total = part_combine(total, p)
+        pre = PART_IDENTITY
+        if t == 0:
+            prefix[0], state[0] = total, 2
         else:
-            assert g not in stored, f"group {g} stored twice"
-            stored[g] = s
-            for k in range(4):
-                out[k][g] = v[k]
+            agg[t], state[t] = total, 1
+            yield
+            acc, u = PART_IDENTITY, t - 1
+            while True:
+                window = [u - L for L in range(scan_plan.WINDOW)]
+                st = [state[i] if i >= 0 else 2 for i in window]
+                stops = [L for L, x in enumerate(st) if x == 2]
+                first = stops[0] if stops else scan_plan.WINDOW - 1
+                if any(x == 0 for x in st[:first + 1]):
+                    yield  # spin until they have published
+                    continue
+                res["windows"] += 1
+                p = PART_IDENTITY
+                for L in range(first, -1, -1):  # the farthest first
+                    if window[L] >= 0:
+                        p = part_combine(p, (prefix if st[L] == 2 else agg)[window[L]])
+                acc = part_combine(p, acc)
+                if stops:
+                    break
+                u -= scan_plan.WINDOW
+            pre = acc
+            prefix[t], state[t] = part_combine(pre, total), 2
+        if t == ntiles - 1:
+            res["n_groups"] = part_combine(pre, total)[0]
+        yield
+        last = min((t + 1) * tile, n) - 1
+        for w in range(warps):
+            for lane in range(lanes):
+                run = part_combine(part_combine(pre, wex[w]), excl[w, lane])
+                for i in range(items):
+                    r = int(rows[w, lane, i])
+                    if i < items - 1:  # the row after: the same thread's,
+                        nxt = start_bit(r + 1)
+                    elif lane < lanes - 1:  # the next lane's first,
+                        nxt = start_bit(int(rows[w, lane + 1, 0]))
+                    else:  # or the last lane's load past the warp
+                        nxt = r + 1 >= n or (active[r + 1] and not adj[r + 1])
+                    if not live:  # identities: only the tile's last row may end a group
+                        if r == last and run[0] > 0 and (nxt or r + 1 == n):
+                            store(run[0] - 1, run, t)
+                        continue
+                    run = part_combine(run, element(r))
+                    if r < n and run[0] > 0 and (nxt or r + 1 == n):
+                        store(run[0] - 1, run, t)
 
-    for s0 in range(0, n, span):
-        s1 = min(s0 + span, n)
-        first = incl[s0] - 1
-        cg, carry = first, ident
-        for base in range(s0, s1, 32):
-            rows = np.arange(base, min(base + 32, s1))
-            g = incl[rows] - 1
-            v = [(int(vals[0][i]), int(vals[1][i]), int(vals[2][i]), int(vals[3][i]), True)
-                 if active[i] else ident for i in rows]
-            if g[0] == cg:
-                v[0] = combine(v[0], carry)
-            else:
-                commit(cg, carry, cg == first, s0)
-            for lane in range(1, len(rows)):  # the inclusive segmented scan
-                if g[lane] == g[lane - 1]:
-                    v[lane] = combine(v[lane - 1], v[lane])
-            for lane in range(len(rows) - 1):
-                if g[lane + 1] != g[lane]:
-                    commit(g[lane], v[lane], g[lane] == first, s0)
-            cg, carry = g[-1], v[-1]
-        commit(cg, carry, True, s0)
-    for g in stored:  # a stored group belongs to its span alone
-        assert g not in atomic, f"group {g} stored and committed by atomics"
+    live_blocks, started = [], 0
+    order = np.random.default_rng(seed)
+    while live_blocks or started < ntiles:
+        i = int(order.integers(len(live_blocks) + (started < ntiles)))
+        if i == len(live_blocks):  # the next block takes the next tile
+            live_blocks.append(block(started))
+            started += 1
+            continue
+        try:
+            next(live_blocks[i])
+        except StopIteration:
+            live_blocks.pop(i)
+    ng = res["n_groups"]
+    out[:, ng:] = np.array(PART_IDENTITY[1:], np.uint64)[:, None]  # identity_tail
+    writes[:, ng:] += 1
     aggs = {k: out[j].astype(np.uint32) for j, k in enumerate(AGGS)}
-    return aggs, int(incl[-1]) if n else 0, stored, atomic
+    return aggs, ng, writes, writer, res["windows"], res["measures_read"]
 
 
 def span_case(case: str, span: int, seed: int):
@@ -369,31 +465,41 @@ SPAN_CASES = ["random", "group over several spans", "group starts on a span's la
 
 
 @pytest.mark.parametrize("measures", [1, 4])
-@pytest.mark.parametrize("span", [32, 64, k13.SPAN_ROWS])
+@pytest.mark.parametrize("span", list(AGG_GEOMETRIES))
 @pytest.mark.parametrize("case", SPAN_CASES)
 def test_k13_span_rule_matches_plain(case, span, measures):
-    active, adj = span_case(case, span, seed=len(case) + span)
+    """The emulated kernel at the tile geometry `span`, in the span cases
+    (sizes and groups cut to the tile), against the plain version; every
+    output word written once."""
+    tile = tile_of(span)
+    active, adj = span_case(case, tile, seed=len(case) + tile)
     n = len(active)
-    g = np.random.default_rng(span + measures)
+    g = np.random.default_rng(tile + measures)
     vals = [g.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
             for _ in range(measures)]
     if n:
         vals[0][::3] |= np.uint32(1 << 31)
     want, wn = k13.run_aggregate_plain(
         torch.from_numpy(active), torch.from_numpy(adj), tuple(u32_to_torch(v, CPU) for v in vals))
-    got, gn, stored, atomic = emulate_k13(active, adj, vals, span)
+    got, gn, writes, writer, windows, read = emulate_k13(active, adj, vals, span,
+                                                         seed=n + measures)
     assert gn == int(wn)
     for k in AGGS:
         np.testing.assert_array_equal(got[k], u32(want[k]), err_msg=k)
-    spans_of = {g_: set(s) for g_, s in atomic.items()}
+    assert (writes == 1).all()  # no pre-fill, no atomics: each word once
+    ids = np.cumsum(active & ~adj) - 1
+    if n:  # the tile that holds a group's last row stores it
+        last = {int(i): r for r, i in enumerate(ids) if i >= 0}
+        assert writer == {gid: r // tile for gid, r in last.items()}
     if case == "group over several spans":
-        assert any(len(s) >= 3 for s in spans_of.values())
+        assert any(last[gid] // tile - int(np.argmax(ids == gid)) // tile >= 2 for gid in last)
     if case == "group starts on a span's last row":
-        # the group starting on row span - 1 is its span's last and the next
-        # span's first: two atomic commits
-        gid = int(np.cumsum(active & ~adj)[span - 1]) - 1
-        assert spans_of.get(gid) == {0, span}
-    if case == "every row its own group" and n > 2 * span:
-        assert len(stored) > 0 and all(len(s) == 1 for s in spans_of.values())
+        # the group starting on row tile - 1 is stored by the next tile
+        assert writer[int(ids[tile - 1])] == 1
     if case == "all inactive":
-        assert gn == 0 and not stored and not atomic
+        assert gn == 0 and not writer
+    if scan_plan.tiles(n, tile) > 1:
+        assert windows >= scan_plan.tiles(n, tile) - 1
+    # the measures of a tile without an active row are not read
+    live_tiles = {r // tile for r in np.flatnonzero(active)}
+    assert read == sum(min(tile, n - t * tile) for t in live_tiles)

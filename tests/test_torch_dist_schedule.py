@@ -2,10 +2,14 @@
 against their plain torch versions and the JAX package.
 
 - K19 (``csrc/topk_runs.cu``): each position's key, (run count << 32) |
-  ~position, its run's count found by a binary search for the run's end in
-  the sorted active prefix; each tile's k largest keys by k block-wide
-  maxima; the k largest of the tiles' winners.  At the plan's tile and at
-  small tiles that every long run crosses.
+  ~position, its run's end the next start flag of its warp's steps or of a
+  later warp of the tile, or nact; the tile's last run looks past the tile
+  (32 positions, then a 32-ary search).  Up to 32 picks each warp's list
+  in its lanes, keys entering by a ballot and an insert, and the block's
+  merge of the warps' lists; past 32 (33 and 1024 here) the block's list
+  with its buffer of entrants, sorted whenever it could fill; then the last
+  block's pass over every tile's k keys.  At the plan's tile and at small
+  tiles that every long run crosses.
 - K20 (``csrc/hot_set.cu``): a thread a candidate, the counts of equal
   candidates summed in 32 bits, the first occurrence, the signed threshold.
 - K21 (``csrc/hot_set.cu``): the hot list's non-sentinel entries copied in
@@ -56,41 +60,227 @@ def t32(a) -> torch.Tensor:
 # K19
 
 
-def k19_emulate(hs: np.ndarray, nact: int, k: int, tile: int) -> tuple[np.ndarray, np.ndarray]:
-    """csrc/topk_runs.cu at a tile of `tile` positions."""
+# (warps a block, 32-position steps a warp): the plan's tile (4096) and two
+# small ones that every long run crosses
+K19_GEOMETRIES = {"plan": (dist_plan.TOPK_THREADS // 32, dist_plan.TOPK_WARP_SPAN // 32),
+                  "2x2": (2, 2), "1x1": (1, 1)}
+LANE = np.arange(32)
+
+
+def k19_run_end(hs: np.ndarray, lo: int, nact: int, h: int, probes: list) -> int:
+    """csrc/topk_runs.cu run_end: the first q in [lo, nact] with q == nact or
+    hs[q] != h; the next 32 positions, then a 32-ary search.  Appends each
+    step's probes."""
+    n = len(hs)
+    a, b = lo, nact
+    q = a + LANE
+    past = (q >= b) | (hs[np.minimum(q, n - 1)] != h)
+    probes.append(q[q < b])
+    if past.any():
+        return int(q[np.argmax(past)])
+    a += 32
+    while a < b:
+        w = -(-(b - a) // 32)
+        q = a + (LANE + 1) * w - 1
+        past = (q >= b) | (hs[np.minimum(q, n - 1)] != h)
+        probes.append(q[q < b])
+        if not past.any():
+            return b
+        f = int(np.argmax(past))
+        if f > 0:
+            a = a + f * w
+        b = min(int(q[f]), b)
+    return a
+
+
+def k19_tile_keys(hs: np.ndarray, n: int, nact: int, t0: int, warps: int, chunks: int,
+                  stats: dict) -> np.ndarray:
+    """The keys of one tile, [warp, step, lane], by the kernel's rule: a
+    ballot of start flags a step; a run ends at the next start in its step,
+    a later step, a later warp's first start, or nact; only the warp that
+    holds the tile's last start looks past the tile."""
+    span = 32 * chunks
+    p = t0 + np.arange(warps * span).reshape(warps, chunks, 32)
+    h = np.where(p < n, hs[np.minimum(p, n - 1)], M32)
+    prev = np.where(p > 0, hs[np.clip(p - 1, 0, n - 1)], 0)
+    start = (p < nact) & ((p == 0) | (h != prev))
+    first = [int(p[w][start[w]].min()) if start[w].any() else None for w in range(warps)]
+    keys = np.zeros(p.shape, np.uint64)
+    te = min(t0 + warps * span, n)
+    for w in range(warps):
+        if first[w] is None:
+            keys[w] = np.where(p[w] < n, ~p[w] & M32, 0)
+            continue
+        later = [f for f in first[w + 1:] if f is not None]
+        if later:
+            after = later[0]
+        elif te >= nact:
+            after = nact
+        else:
+            stats["lookaheads"] += 1
+            after = k19_run_end(hs, te, nact, int(hs[te - 1]), stats["probes"])
+        nxt = after
+        for c in reversed(range(chunks)):
+            starts = p[w, c][start[w, c]]
+            for lane in range(32):
+                pos = int(p[w, c, lane])
+                cnt = 0
+                if start[w, c, lane]:
+                    nexts = starts[starts > pos]
+                    cnt = min(int(nexts[0]) if len(nexts) else nxt, nact) - pos
+                keys[w, c, lane] = (cnt << 32) | (~pos & M32) if pos < n else 0
+            if len(starts):
+                nxt = int(starts[0])
+    return keys
+
+
+def k19_warp_sort(x: np.ndarray) -> np.ndarray:
+    """warp_sort_desc: the bitonic network across 32 lanes by xor shuffles."""
+    x = x.copy()
+    lane = LANE
+    size = 2
+    while size <= 32:
+        stride = size // 2
+        while stride:
+            y = x[lane ^ stride]
+            keep_max = ((lane & stride) == 0) == ((lane & size) == 0)
+            x = np.where(keep_max, np.maximum(x, y), np.minimum(x, y))
+            stride //= 2
+        size *= 2
+    return x
+
+
+def k19_warp_merge(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The 32 largest of two lists sorted descending: the larger of a[j] and
+    b[31 - j] (bitonic), sorted by warp_merge_desc's five xor stages."""
+    x = np.maximum(a, b[::-1])
+    stride = 16
+    while stride:
+        y = x[LANE ^ stride]
+        x = np.where((LANE & stride) == 0, np.maximum(x, y), np.minimum(x, y))
+        stride //= 2
+    assert (np.diff(x.astype(np.float64)) <= 0).all()
+    return x
+
+
+def k19_merge_warps(lists: np.ndarray) -> np.ndarray:
+    """merge_warps: levels of pairs, warp w taking warp w + level's list."""
+    lists = lists.copy()
+    level = 1
+    while level < len(lists):
+        for w in range(0, len(lists), 2 * level):
+            if w + level < len(lists):
+                lists[w] = k19_warp_merge(lists[w], lists[w + level])
+        level *= 2
+    return lists[0]
+
+
+def k19_warp_offer(v: np.ndarray, x: np.ndarray, k: int, stats: dict, floor: int = 0) -> None:
+    """warp_offer: lane j of `v` holds the warp's j-th largest key (0 past
+    k); the step's keys `x` that beat the k-th and the floor enter, lowest
+    lane first, by a shuffle insert."""
+    thr = max(floor, int(v[k - 1]))
+    cand = [c for c in range(32) if x[c] > thr]
+    while cand:
+        c = cand.pop(0)
+        y = x[c]
+        at = int((v > y).sum())
+        assert at < k
+        v[at + 1: k] = v[at: k - 1].copy()
+        v[at] = y
+        stats["inserts"] += 1
+        thr = max(floor, int(v[k - 1]))
+        cand = [d for d in cand if x[d] > thr]
+
+
+def k19_block_list(rounds, k: int, threads: int, stats: dict, floor: int = 0,
+                   early: bool = False) -> np.ndarray:
+    """The k > 32 form: a list of k keys and a buffer of entrants in
+    TOPK_BIG_SORT keys; each round TOPK_BIG_ROUND keys a thread enter where
+    they beat the list's k-th and the floor, the buffer sorted into the list
+    (the least power of 2, at least 64, that holds them) whenever the round
+    could overfill it, after the first round where `early`, and once at the
+    end."""
+    s = np.zeros(dist_plan.TOPK_BIG_SORT, np.uint64)
+    cnt, thr = 0, floor
+
+    def flush():
+        nonlocal cnt, thr
+        used = k + cnt
+        size = 64
+        while size < used:
+            size *= 2
+        assert size <= dist_plan.TOPK_BIG_SORT
+        s[used: size] = 0
+        s[:size] = np.sort(s[:size])[::-1]
+        cnt, thr = 0, max(thr, int(s[k - 1]))
+        stats["sorts"] += 1
+        stats["sorted_keys"] += size
+
+    for i, x in enumerate(rounds):
+        assert len(x) == threads * dist_plan.TOPK_BIG_ROUND
+        if cnt + len(x) > dist_plan.TOPK_BIG_SORT - k:
+            flush()
+        entrants = x[x > thr]
+        s[k + cnt: k + cnt + len(entrants)] = entrants
+        cnt += len(entrants)
+        if early and i == 0:
+            flush()
+    flush()
+    return s[:k]
+
+
+def k19_emulate(hs: np.ndarray, nact: int, k: int, geometry: str) -> tuple[np.ndarray, np.ndarray,
+                                                                           dict]:
+    """csrc/topk_runs.cu at `geometry`: each tile's keys, its k largest (per
+    warp and then the block's bitonic merge up to TOPK_WARP_K, the block's
+    list past it), then the last block's pass over every tile's k keys."""
+    warps, chunks = K19_GEOMETRIES[geometry]
+    threads, tile = 32 * warps, warps * 32 * chunks
     hs = np.asarray(hs, np.uint64)
     n = len(hs)
     nact = min(max(nact, 0), n)
-
-    def key(i):
-        cnt = 0
-        if i < nact and (i == 0 or hs[i - 1] != hs[i]):
-            lo, hi = i + 1, nact  # the first position past the run
-            while lo < hi:
-                mid = lo + (hi - lo) // 2
-                if hs[mid] == hs[i]:
-                    lo = mid + 1
-                else:
-                    hi = mid
-            cnt = lo - i
-        return (cnt << 32) | (~i & M32)
-
+    small = k <= dist_plan.TOPK_WARP_K
+    stats = {"lookaheads": 0, "probes": [], "inserts": 0, "sorts": 0, "sorted_keys": 0}
     winners = []
     for t0 in range(0, n, tile):
-        keys = [key(i) for i in range(t0, min(t0 + tile, n))]
-        keys += [0] * (tile - len(keys))  # no position: below every key
-        for _ in range(k):
-            best = max(keys)
-            if best:
-                keys[keys.index(best)] = 0
-            winners.append(best)
-    out_h, out_c = [], []
-    for _ in range(k):
-        best = max(winners)
-        winners[winners.index(best)] = 0
-        out_h.append(hs[~best & M32])
-        out_c.append(best >> 32)
-    return np.array(out_h, np.uint32), np.array(out_c, np.int32)
+        keys = k19_tile_keys(hs, n, nact, t0, warps, chunks, stats)
+        if small:  # the first step sorted, then inserts, then the pairwise merge
+            lists = np.zeros((warps, 32), np.uint64)
+            for w in range(warps):
+                lists[w] = np.where(LANE < k, k19_warp_sort(keys[w, 0]), 0)
+                for c in range(1, chunks):
+                    k19_warp_offer(lists[w], keys[w, c], k, stats)
+            winners.append(k19_merge_warps(lists)[:k])
+        else:  # a round: every thread's keys of TOPK_BIG_ROUND steps
+            rnd = dist_plan.TOPK_BIG_ROUND
+            steps = np.concatenate([keys, np.zeros((warps, -chunks % rnd, 32), np.uint64)], 1)
+            winners.append(k19_block_list(
+                [steps[:, c: c + rnd].reshape(-1) for c in range(0, steps.shape[1], rnd)], k,
+                threads, stats, early=True))
+    cand = np.concatenate(winners)
+    m = len(cand)
+    # merge_floor: no key at or under the largest tile's k-th key less one wins
+    floor = max(int(max(w[k - 1] for w in winners)) - 1, 0)
+    stats["floor"] = floor
+    if small:  # the last block's warps stream over the keys, 4 steps at a time
+        lists = np.zeros((warps, 32), np.uint64)
+        for base in range(0, m, 4 * threads):
+            for w in range(warps):
+                for r in range(4):
+                    j = base + r * threads + 32 * w + LANE
+                    k19_warp_offer(lists[w], np.where(j < m, cand[np.minimum(j, m - 1)], 0),
+                                   k, stats, floor)
+        best = k19_merge_warps(lists)[:k]
+    else:
+        per = threads * dist_plan.TOPK_BIG_ROUND
+        best = k19_block_list([np.where(j < m, cand[np.minimum(j, m - 1)], 0).astype(np.uint64)
+                               for j in (b + np.arange(per) for b in range(0, m, per))],
+                              k, threads, stats, floor=floor)
+    assert (best > 0).all()  # k <= n real keys
+    stats["best"] = best
+    pos = (~best) & M32
+    return hs[pos].astype(np.uint32), (best >> np.uint64(32)).astype(np.int32), stats
 
 
 def topk_input(case: str, g) -> tuple[np.ndarray, int, int]:
@@ -122,23 +312,41 @@ TOPK_CASES = ["zipf", "random", "single run", "all dead", "n < k", "run crossing
               "ties at the k-th place", "live 0xFFFFFFFF"]
 
 
-@pytest.mark.parametrize("tile", [dist_plan.TOPK_TILE, 256, 33])
+@pytest.mark.parametrize("k", ["the case's", 33, 1024])
+@pytest.mark.parametrize("geometry", list(K19_GEOMETRIES))
 @pytest.mark.parametrize("case", TOPK_CASES)
-def test_k19_emulation_matches_plain_and_jax(case, tile):
+def test_k19_emulation_matches_plain_and_jax(case, geometry, k):
     g = np.random.default_rng(len(case))
-    hs, nact, k = topk_input(case, g)
-    emu = k19_emulate(hs, nact, k, tile)
+    hs, nact, k0 = topk_input(case, g)
+    n = len(hs)
+    k = k0 if k == "the case's" else min(k, n)  # local_topk_hashes clamps k to n
+    emu_h, emu_c, stats = k19_emulate(hs, nact, k, geometry)
     got = topk_runs_plain(t32(hs), nact, k)
-    np.testing.assert_array_equal(torch_to_u32(got[0]), emu[0])
-    np.testing.assert_array_equal(got[1].numpy(), emu[1])
+    np.testing.assert_array_equal(torch_to_u32(got[0]), emu_h)
+    np.testing.assert_array_equal(got[1].numpy(), emu_c)
     # the JAX package sorts the masked hashes itself: any order of the live
     # rows with the dead ones anywhere gives the same arrays
-    n = len(hs)
     perm = g.permutation(n)
     active = np.arange(n)[perm] < nact
     wh, wc = jskew.local_topk_hashes(jnp.asarray(hs[perm]), jnp.asarray(active), k)
-    np.testing.assert_array_equal(np.asarray(wh), emu[0])
-    np.testing.assert_array_equal(np.asarray(wc), emu[1])
+    np.testing.assert_array_equal(np.asarray(wh), emu_h)
+    np.testing.assert_array_equal(np.asarray(wc), emu_c)
+    # at most one look-ahead a tile, and a look-ahead reads only live rows
+    tile = 32 * int(np.prod(K19_GEOMETRIES[geometry]))
+    assert stats["lookaheads"] <= -(-n // tile)
+    assert all((q < max(nact, 0)).all() for q in stats["probes"])
+    if case == "run crossing every tile" and geometry != "plan":
+        # the long run's start looks ahead once; the tiles inside it have no
+        # start and look ahead not at all
+        inside = 2500 // tile - 1
+        assert stats["lookaheads"] <= -(-n // tile) - inside
+        assert len(stats["probes"]) <= 1 + 3 * stats["lookaheads"]
+    if k <= dist_plan.TOPK_WARP_K:
+        assert stats["sorts"] == 0
+    else:
+        assert stats["inserts"] == 0 and stats["sorts"] >= 1
+    # the merge's floor lies below the k-th key of all
+    assert stats["floor"] < int(stats["best"][-1])
 
 
 def test_k19_count_on_the_device_and_refusals():
@@ -146,7 +354,9 @@ def test_k19_count_on_the_device_and_refusals():
     a = topk_runs(t32(hs), torch.tensor(nact, dtype=torch.int32), k)
     b = topk_runs(t32(hs), nact, k)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert dist_plan.topk_scratch_words(len(hs), k) == 2 * k * dist_plan.topk_tiles(len(hs))
+    assert dist_plan.topk_scratch_words(len(hs), k) == 2 + 2 * k * dist_plan.topk_tiles(len(hs))
+    assert dist_plan.TOPK_TILE == 4096 and dist_plan.TOPK_MAX_K + (
+        dist_plan.TOPK_BIG_ROUND * dist_plan.TOPK_THREADS) <= dist_plan.TOPK_BIG_SORT
     for bad in (0, len(hs) + 1, dist_plan.TOPK_MAX_K + 1):
         with pytest.raises(ValueError, match="K19"):
             topk_runs(t32(hs), nact, bad)

@@ -11,14 +11,15 @@ gather) and the argument checks of K11 are held against numpy.
 
 K11's kernel (``csrc/tile_copy.cu``) is emulated under its plan
 (``kernels/tile_copy.py``): a persistent grid whose blocks take units from
-one shared counter, interleaved in a seeded random order; each block's ring
-of unit buffers and their barriers' phases, the chunk parts of a unit
-stored as one bulk group, a buffer reloaded only once ``wait_group.read 1``
-has retired the stores that read it, a tile's start read again only when a
-block's unit lies in another tile than its last, and the counter set back
-to 0 by the last block.  A store copies its buffer when it retires, so a
-buffer reloaded too early gives a wrong result, not only a failed
-assertion.
+the call's own counter (zeroed by the entry before the launch), interleaved
+in a seeded random order; each block's ring of unit buffers and their
+barriers' phases, the chunk parts of a unit stored as one bulk group, a
+buffer reloaded only once ``wait_group.read 1`` has retired the stores that
+read it, and a tile's start read again only when a block's unit lies in
+another tile than its last.  Two calls' blocks interleaved (two streams)
+and a call after a launch that stopped midway each copy every unit.  A
+store copies its buffer when it retires, so a buffer reloaded too early
+gives a wrong result, not only a failed assertion.
 """
 
 import importlib.util
@@ -63,24 +64,26 @@ def t32(a) -> torch.Tensor:
     return u32_to_torch(np.asarray(a).astype(np.uint32), CPU)
 
 
-def k11_emulate(x: np.ndarray, starts: np.ndarray, G: int, T: int, W: int, plan: k11.CopyPlan,
-                sms: int, seed: int = 0) -> tuple[np.ndarray, dict]:
-    """csrc/tile_copy.cu under `plan` on `sms` SMs' worth of blocks, the
-    blocks' steps interleaved in a random order from `seed`: the output
-    rows and what the blocks did (bulk copies, ring reloads, starts read,
+def k11_launch(x: np.ndarray, starts: np.ndarray, G: int, T: int, W: int, plan: k11.CopyPlan,
+               sms: int, counter: np.ndarray, out: np.ndarray) -> tuple[list, dict]:
+    """csrc/tile_copy.cu's launch under `plan` on `sms` SMs' worth of blocks:
+    the entry zeroes the call's `counter` (``k11.COUNTER_BYTES``) and each
+    block is a generator that yields between its steps.  The blocks take
+    units from counter[0] and store into `out` (rows of W words).  Returns
+    (the blocks, what they did: bulk copies, ring reloads, starts read,
     blocks whose units lay in more than one tile)."""
     rows = np.asarray(x).reshape(-1, W)
     n, S, R = len(rows), plan.unit_rows, plan.ring
     units, per_tile = n // S, T // S
-    out = np.zeros_like(rows)
     blocks = k11.copy_grid(n, plan, sms)
     stats = {"loads": 0, "stores": 0, "reloads": 0, "starts_read": 0, "multi_tile": 0,
              "blocks": blocks, "taken": 0}
-    counters = {"next": 0, "done": 0}
+    assert counter.dtype == np.int64 and counter.nbytes == k11.COUNTER_BYTES
+    counter[:] = 0  # cudaMemsetAsync on the call's stream, before the launch
 
-    def take_unit():  # atomicAdd(&k11_next_unit, 1)
-        u = counters["next"]
-        counters["next"] += 1
+    def take_unit():  # atomicAdd(next_unit, 1)
+        u = int(counter[0])
+        counter[0] += 1
         stats["taken"] += 1
         return u
 
@@ -137,20 +140,38 @@ def k11_emulate(x: np.ndarray, starts: np.ndarray, G: int, T: int, W: int, plan:
             k += 1
         retire(0)
         stats["multi_tile"] += len(tiles) > 1
-        counters["done"] += 1  # the last block sets the counters back
-        if counters["done"] == blocks:
-            assert counters["next"] == units + blocks  # one failed take a block
-            counters["next"] = counters["done"] = 0
 
-    live = [block() for _ in range(blocks)]
+    return [block() for _ in range(blocks)], stats
+
+
+def run_interleaved(live: list, seed: int, stop_after=None) -> None:
+    """Step the blocks (of one launch or several) in a random order from
+    `seed` until all have ended, or `stop_after` steps (a launch that
+    dies midway)."""
     order = np.random.default_rng(seed)
-    while live:
+    steps = 0
+    while live and (stop_after is None or steps < stop_after):
         i = int(order.integers(len(live)))
         try:
             next(live[i])
         except StopIteration:
             live.pop(i)
-    assert counters == {"next": 0, "done": 0}
+        steps += 1
+
+
+def k11_emulate(x: np.ndarray, starts: np.ndarray, G: int, T: int, W: int, plan: k11.CopyPlan,
+                sms: int, seed: int = 0,
+                counter: np.ndarray | None = None) -> tuple[np.ndarray, dict]:
+    """One launch of csrc/tile_copy.cu alone, its blocks' steps interleaved
+    in a random order from `seed`, with the call's counter (a fresh one if
+    None): the output rows and what the blocks did."""
+    counter = np.zeros(k11.COUNTER_BYTES // 8, np.int64) if counter is None else counter
+    out = np.zeros_like(np.asarray(x).reshape(-1, W))
+    blocks, stats = k11_launch(x, starts, G, T, W, plan, sms, counter, out)
+    run_interleaved(blocks, seed)
+    n = out.shape[0]
+    # every block's last take finds the units gone: one failed take a block
+    assert counter[0] == n // plan.unit_rows + stats["blocks"]
     return out.reshape(np.asarray(x).shape), stats
 
 
@@ -246,6 +267,40 @@ def test_tile_copy_emulation_at_other_widths(W, T, G):
     emu, _ = k11_emulate(x, starts, G, T, W, p, 2, seed=W)
     want = torch_to_u32(tile_copy_plain(t32(x), torch.from_numpy(starts), G, T, W))
     np.testing.assert_array_equal(emu, want)
+
+
+@pytest.mark.parametrize("plan", ["default", "64/8/1", "512/2/1"])
+def test_tile_copy_emulation_two_streams_and_a_failed_launch(monkeypatch, plan):
+    """Two calls at once, as on two streams, their blocks' steps
+    interleaved, each with the counter its wrapper allocated: each equals
+    the plain version.  A launch that stops midway leaves its counter past
+    0; the next call that gets the same memory zeroes it in its own entry
+    and copies every unit."""
+    n, T, W, G = 16384, 2048, 32, 32
+    g = np.random.default_rng(16)
+    plan_constants(monkeypatch, plan, W)
+    p = k11.copy_plan(T, W)
+    calls, blocks = [], []
+    for _ in range(2):
+        x = g.integers(0, 2**32, size=(n, W), dtype=np.uint64).astype(np.uint32)
+        starts = (g.permutation(n // T) * T).astype(np.int32)
+        out = np.zeros_like(x)
+        counter = np.full(k11.COUNTER_BYTES // 8, -12345, np.int64)  # torch.empty's bits
+        b, stats = k11_launch(x, starts, G, T, W, p, 3, counter, out)
+        calls.append((x, starts, out, counter, stats))
+        blocks += b
+    run_interleaved(blocks, seed=len(plan))
+    for x, starts, out, counter, stats in calls:
+        want = torch_to_u32(tile_copy_plain(t32(x), torch.from_numpy(starts), G, T, W))
+        np.testing.assert_array_equal(out, want)
+        assert counter[0] == n // p.unit_rows + stats["blocks"]
+    x, starts = calls[0][:2]
+    counter = np.zeros(k11.COUNTER_BYTES // 8, np.int64)
+    dead, _ = k11_launch(x, starts, G, T, W, p, 3, counter, np.zeros_like(x))
+    run_interleaved(dead, seed=3, stop_after=2 * len(dead) + 5)
+    assert 0 < counter[0] < n // p.unit_rows
+    emu, _ = k11_emulate(x, starts, G, T, W, p, 3, seed=4, counter=counter)
+    np.testing.assert_array_equal(emu, calls[0][2])
 
 
 def test_tile_copy_plan_refusals(monkeypatch):
