@@ -129,8 +129,10 @@ Phases (any failure raises and the script exits non-zero):
      the live keys; the forced fallbacks (all build keys equal for
      "bucketed", 100 keys on one home slot for "table") taken once each and
      still exact, and the key whose mix is the table's EMPTY answered
-     exactly; K15-K18 against their plain versions at their edges and on
-     the 1M runs' own inputs (``[engines]`` lines);
+     exactly; K15-K18 against their plain versions at their edges (K15
+     also past one index tree's reach, K18 on sparse and all-inactive
+     sides) and on the 1M runs' own inputs, K15 and K18 also on the 8M
+     run's, timed there too, each launch alone (``[engines]`` lines);
  11. the distributed plan on a mesh of four shards on the one card
      (``parallel/``, ``make_dist_pipeline``): K19 (top-k runs), K20 (hot
      list), K21 (hot-set membership), K22 (range destination: its vector
@@ -3669,25 +3671,51 @@ def engine_runs(tag: str, build, probe, field: int, bc, pc, want: np.ndarray, ca
 def k15_edges(g, dev) -> list:
     """(what, args) of K15 at its edges: an empty build, a count of 0,
     keys with bit 31 set, a live 0xFFFFFFFF, sizes of 16 * 2^k +- 1, the
-    counts on the host and on the card."""
+    counts on the host and on the card; and build columns past one index's
+    reach (2^20 + 1 and 8,388,609 rows) with counts on the card at S * E +- 1,
+    E the index tree's keys and S its stride (``engines_plan.probe_plan``)."""
+    from database_technology_algorithms_tpu_torch.kernels import engines_plan
+
+    def on_card(c):
+        return torch.tensor(c, dtype=torch.int32, device=dev)
+
+    def case(keys, n_live, probes):
+        nb = len(keys)
+        skey = np.concatenate([np.sort(keys[:n_live]),
+                               np.full(nb - n_live, 0xFFFFFFFF, np.uint32)])
+        if n_live:
+            skey[n_live - 1] = 0xFFFFFFFF  # a live U32_MAX at count - 1
+        probe = np.concatenate([g.choice(np.append(keys, 0xFFFFFFFF), probes) if nb else
+                                np.full(probes, 0xFFFFFFFF),
+                                g.integers(0, 2**32, probes + 1, dtype=np.uint64)]).astype(
+            np.uint32)
+        return u32_dev(skey, dev), u32_dev(probe, dev)
+
     cases = []
     for nb in (0, 1, 15, 17, 1023, 1025, 65535, 65537):
         keys = g.integers(0, 2**32, size=nb, dtype=np.uint64).astype(np.uint32)
         keys[::3] = keys[::3] % 512 | np.uint32(1 << 31)
         for live, where in ((nb, "host"), (nb // 2, "card"), (0, "host"), (None, "none")):
-            n_live = nb if live is None else live
-            skey = np.concatenate([np.sort(keys[:n_live]),
-                                   np.full(nb - n_live, 0xFFFFFFFF, np.uint32)])
-            if n_live:
-                skey[n_live - 1] = 0xFFFFFFFF  # a live U32_MAX at count - 1
-            probe = np.concatenate([g.choice(np.append(keys, 0xFFFFFFFF), 2048) if nb else
-                                    np.full(2048, 0xFFFFFFFF),
-                                    g.integers(0, 2**32, 2049, dtype=np.uint64)]).astype(np.uint32)
-            bc = live if where != "card" else torch.tensor(live, dtype=torch.int32, device=dev)
-            for pc in (None, 4000, torch.tensor(3001, dtype=torch.int32, device=dev)):
+            skey, probe = case(keys, nb if live is None else live, 2048)
+            bc = live if where != "card" else on_card(live)
+            for pc in (None, 4000, on_card(3001)):
                 cases.append((f"nb={nb} count={live} ({where}) probe_count="
                               f"{pc if not isinstance(pc, torch.Tensor) else int(pc)}",
-                              (u32_dev(skey, dev), bc, u32_dev(probe, dev), pc)))
+                              (skey, bc, probe, pc)))
+    for nb in ((1 << 20) + 1, 8_388_609):
+        keys = g.integers(0, 2**32, size=nb, dtype=np.uint64).astype(np.uint32)
+        keys[::3] = keys[::3] % 512 | np.uint32(1 << 31)
+        E = (1 << engines_plan.probe_plan(nb).levels) - 1
+        S = nb // E
+        for live, where in ((S * E - 1, "card"), (S * E + 1, "card"), (nb, "host")):
+            skey, probe = case(keys, live, 1 << 15)
+            bc = live if where == "host" else on_card(live)
+            stride, entries = engines_plan.probe_stride(live, engines_plan.probe_plan(nb).levels)
+            for pc in (None, on_card(3001)):
+                cases.append((f"nb={nb} count={live} ({where}; S={stride}, {entries} index "
+                              f"keys) probe_count="
+                              f"{pc if not isinstance(pc, torch.Tensor) else int(pc)}",
+                              (skey, bc, probe, pc)))
     return cases
 
 
@@ -3736,7 +3764,8 @@ def k16_edges(g, dev) -> list:
 
 def k18_edges(g, dev) -> list:
     """(what, args) of K18 at its edges: overflow on either side, an
-    inactive tail, empty sides, one bucket, keys with bit 31 set."""
+    inactive tail, empty sides, one bucket, keys with bit 31 set, a sparse
+    case (65,536 buckets, 1,000 + 1,000 rows) and a side all inactive."""
     cases = []
     for nbuckets, nb, npr, kind, cap in ((1, 100, 100, "one bucket", 128),
                                          (16, 300, 400, "build overflow", 4),
@@ -3745,15 +3774,24 @@ def k18_edges(g, dev) -> list:
                                          (16, 300, 0, "empty probe", 128),
                                          (4096, 70_000, 65_000, "inactive tail", 128),
                                          (65536, 1 << 20, 1 << 20, "uniform", 128),
-                                         (65536, 1 << 20, 1 << 20, "heavy buckets", 128)):
+                                         (65536, 1 << 20, 1 << 20, "heavy buckets", 128),
+                                         (65536, 1000, 1000, "sparse", 128),
+                                         (65536, 1 << 20, 1 << 20, "build inactive", 128),
+                                         (65536, 1 << 20, 1 << 20, "probe inactive", 128)):
         sides = []
-        for n, heavy in ((nb, kind in ("build overflow", "heavy buckets")),
-                         (npr, kind in ("probe overflow", "heavy buckets"))):
+        for n, heavy, inactive in ((nb, kind in ("build overflow", "heavy buckets"),
+                                    kind == "build inactive"),
+                                   (npr, kind in ("probe overflow", "heavy buckets"),
+                                    kind == "probe inactive")):
             b = g.integers(0, nbuckets, size=n)
             if heavy and n:
                 b[: 3 * cap] = g.integers(0, 3, size=3 * cap)
             if kind == "inactive tail":
                 b[n - n // 4:] = nbuckets
+            if kind == "sparse":  # most buckets empty, the first live one above 0
+                b = g.integers(1000, nbuckets, size=n)
+            if inactive:
+                b[:] = nbuckets
             keys = (g.integers(0, 64, size=n) | np.where(g.random(n) < 0.5, 1 << 31, 0)).astype(
                 np.uint32)
             sides += [torch.from_numpy(np.sort(b).astype(np.int32)).to(dev), u32_dev(keys, dev)]
@@ -3790,10 +3828,12 @@ def check_engine_kernels_at_edges(g, dev) -> dict:
             f"K18 {what}", bucket_probe(*args), bucket_probe_plain(*args)))
     torch.cuda.synchronize()
     log("[kernels] K15-K18 equal their plain versions at their edges (K15: empty build, count "
-        "0, bit 31, a live 0xFFFFFFFF, 16*2^k +- 1 rows, counts on the host and the card; K16: "
+        "0, bit 31, a live 0xFFFFFFFF, 16*2^k +- 1 rows, counts on the host and the card, "
+        "2^20 + 1 and 8,388,609 rows with counts on the card at S*E +- 1; K16: "
         "the stored set, flag and failures, with duplicates, the EMPTY pair, 100 keys on one "
         "home slot, limits 64 and 8; K17 on K16's tables, max_probe 1, the limit and 200; "
-        "K18: overflow on either side, inactive tails, empty sides, 1-65536 buckets)")
+        "K18: overflow on either side, inactive tails, empty sides, 1-65536 buckets, a sparse "
+        "case, a side all inactive)")
     return errs
 
 
@@ -3812,6 +3852,9 @@ def phase_engines(dev, card: str) -> dict:
     from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join, hash_join_count
     from database_technology_algorithms_tpu_torch.ops.hash_table import table_size_for
     from database_technology_algorithms_tpu_torch.ops.merge_join import merge_join
+    # the engines' modules bind the kernels' wrappers when first imported:
+    # import them before any recorder swaps a wrapper
+    from database_technology_algorithms_tpu_torch.ops import bucket_join, fastpath  # noqa: F401
 
     t_phase = time.time()
     g = np.random.default_rng(13)
@@ -3925,30 +3968,35 @@ def phase_engines(dev, card: str) -> dict:
             f"{held:#x} and not its pair: {res[0][:2].tolist()} == numpy and the generic engine")
     del build, probe, res
     # ---- K15-K18 on the 1M field-1 run's own inputs ----------------------------------
-    own = check_engine_kernels_on(captured)
+    own = check_engine_kernels_on(captured, f"{ROWS} field-1")
     for k, e in own.items():
         errs[k] = max(errs[k], e)
     # ---- 8M + 8M, field 1, the budget's edge -----------------------------------------
     del r, s
     r_cols, s_cols = gen_pair(BIG_ROWS)
     r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
-    engine_runs(f"field 1, {BIG_ROWS} + {BIG_ROWS} rows", s, r, 1, None, None,
-                membership_oracle(s_cols["num"], BIG_ROWS, r_cols["num"], BIG_ROWS), card, True,
-                runs)
+    with contextlib.ExitStack() as stack:
+        calls = {n: stack.enter_context(recorded_calls(n, n)) for n in BIG_RECORDED}
+        engine_runs(f"field 1, {BIG_ROWS} + {BIG_ROWS} rows", s, r, 1, None, None,
+                    membership_oracle(s_cols["num"], BIG_ROWS, r_cols["num"], BIG_ROWS), card,
+                    True, runs)
+    captured_big = {n: c[0][0] for n, c in calls.items()}
+    for name, e in check_engine_kernels_on(captured_big, f"{BIG_ROWS} field-1").items():
+        errs[name] = max(errs[name], e)
     both = RecordBatch.concat([r, s])
     fastpath_runs(f"field 1, {2 * BIG_ROWS} rows (merge_join {BIG_ROWS} + {BIG_ROWS})", both,
                   r, s, len(np.unique(np.concatenate([r_cols["num"], s_cols["num"]]))),
                   len(np.intersect1d(r_cols["num"], s_cols["num"])))
     del both, r, s
-    recs = engine_records(captured, runs, errs, card)
+    recs = engine_records(captured, captured_big, runs, errs, card)
     log(f"[engines] the phase took {time.time() - t_phase:.1f} s")
     return {"recs": recs, "runs": runs}
 
 
-def check_engine_kernels_on(captured: dict) -> dict:
-    """K15-K18 against their plain versions on the arguments the 1M field-1
-    runs gave them (K16 by the parts its atomics' order leaves fixed; K17 on
-    the kernel's own table)."""
+def check_engine_kernels_on(captured: dict, run: str) -> dict:
+    """The kernels in `captured` (of K15-K18) against their plain versions
+    on the arguments the `run` runs gave them (K16 by the parts its atomics'
+    order leaves fixed; K17 on the kernel's own table)."""
     from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
         bucket_probe, bucket_probe_plain)
     from database_technology_algorithms_tpu_torch.kernels.hash_set import (
@@ -3961,36 +4009,82 @@ def check_engine_kernels_on(captured: dict) -> dict:
                                 lambda a: hash_set_parts(hash_set_build_plain(*a))),
              "hash_set_probe": (lambda a: hash_set_probe(*a), lambda a: hash_set_probe_plain(*a)),
              "bucket_probe": (lambda a: bucket_probe(*a), lambda a: bucket_probe_plain(*a))}
-    errs = {k: assert_same(f"{k} on the 1M field-1 run's inputs", kern(captured[k]),
-                           plain(captured[k])) for k, (kern, plain) in pairs.items()}
+    errs = {k: assert_same(f"{k} on the {run} run's inputs", kern(captured[k]),
+                           plain(captured[k]))
+            for k, (kern, plain) in pairs.items() if k in captured}
     torch.cuda.synchronize()
-    log(f"[kernels] K15-K18 equal their plain versions on the 1M field-1 runs' own inputs; "
+    log(f"[kernels] {', '.join(errs)} equal their plain versions on the {run} runs' own inputs; "
         f"max abs err {errs}")
     return errs
 
 
-def engine_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict]:
-    """The kernels line's entries of K15-K18, at the 1M field-1 run's shapes."""
+BIG_RECORDED = ("sorted_probe", "bucket_probe")  # K15 and K18 at 8M + 8M as well
+
+
+def probe_specs(captured: dict) -> dict:
+    """K15's and K18's calls of one run: their wrappers, plain versions,
+    PyTorch yardstick, bytes and operations, shape."""
     from database_technology_algorithms_tpu_torch.batch import as_u32
     from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
         bucket_probe, bucket_probe_plain)
-    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
-        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
     from database_technology_algorithms_tpu_torch.kernels.sorted_probe import (
         sorted_probe, sorted_probe_plain)
 
-    tag = f"field 1, {ROWS} + {ROWS} rows"
-    recs = []
-    skey, bc, pkey, pc = captured["sorted_probe"]
+    args = captured["sorted_probe"]
+    skey, pkey = args[0], args[2]
     nb, npr = skey.shape[0], pkey.shape[0]
     s64, p64 = as_u32(skey), as_u32(pkey)
-    nbytes = 4 * nb + 4 * npr + 5 * npr  # build and probe keys in; hit and mult out
-    recs.append(("sorted_probe", "searchsorted", "csrc/sorted_probe.cu", "ops/fastpath.py:101",
-                 lambda: sorted_probe(*captured["sorted_probe"]),
-                 lambda: sorted_probe_plain(*captured["sorted_probe"]),
-                 lambda: torch.searchsorted(s64, p64), "torch.searchsorted of the u32 values",
-                 nbytes, npr * max(nb, 1).bit_length(),
-                 f"{nb} sorted build keys, {npr} probe keys"))
+    out = {"sorted_probe": dict(
+        kern=lambda: sorted_probe(*args), plain=lambda: sorted_probe_plain(*args),
+        lib=lambda: torch.searchsorted(s64, p64), lib_name="torch.searchsorted of the u32 values",
+        nbytes=4 * nb + 4 * npr + 5 * npr,  # build and probe keys in; hit and mult out
+        nops=npr * max(nb, 1).bit_length(), shape=f"{nb} sorted build keys, {npr} probe keys")}
+    bargs = captured["bucket_probe"]
+    bb, pb, nbuckets, cap = bargs[0], bargs[2], bargs[4], bargs[5]
+    cb = torch.bincount(bb.long(), minlength=nbuckets + 1)[:nbuckets]
+    cp = torch.bincount(pb.long(), minlength=nbuckets + 1)[:nbuckets]
+    ok = (cb <= cap) & (cp <= cap)
+    compares = int((cb * cp * ok).sum())
+    searches = 4 * (nbuckets + 1) * max(bb.shape[0], pb.shape[0], 1).bit_length()
+    out["bucket_probe"] = dict(
+        kern=lambda: bucket_probe(*bargs), plain=lambda: bucket_probe_plain(*bargs), lib=None,
+        lib_name=None, nbytes=8 * bb.shape[0] + 9 * pb.shape[0] + 4, nops=compares + searches,
+        shape=f"{nbuckets} buckets of cap {cap}, {bb.shape[0]} + {pb.shape[0]} rows, "
+              f"{compares} key compares")
+    return out
+
+
+def probe_readings(name: str, sp: dict, card: str, what: str) -> dict:
+    """One K15 or K18 shape: device ms of a wrapper call, of its plain
+    version and yardstick, its bound, and its launches' own times (each
+    kernel and memset of one call)."""
+    bound, by = bound_of(sp["nbytes"], sp["nops"])
+    r = {"ms": device_ms(sp["kern"]), "plain_ms": device_ms(sp["plain"]), "bound_ms": bound,
+         "bound_by": by,
+         "library_ms": device_ms(sp["lib"]) if sp["lib"] is not None else None,
+         "shape": sp["shape"]}
+    prof = profile_device(sp["kern"], reps=10)
+    r["by_launch"] = {launch_name(k): us / 1e3 for k, us in prof["top"]}
+    log(f"[timing] {card}: {name} ({what}: {sp['shape']}): device time per call: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        + (f"{sp['lib_name']} {r['library_ms']:.4f} ms" if sp["lib"] is not None else "none")
+        + f", bound {bound:.4f} ms ({sp['nbytes']} B, {sp['nops']} ops, by {by}); by launch: "
+        f"{device_parts(prof, top=4)}")
+    return r
+
+
+def engine_records(captured: dict, captured_big: dict, runs: dict, errs: dict,
+                   card: str) -> list[dict]:
+    """The kernels line's entries of K15-K18, at the 1M field-1 run's shapes;
+    K15 and K18 also at the 8M + 8M run's (``at_8m``), each with its
+    launches' own times."""
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
+
+    tag = f"field 1, {ROWS} + {ROWS} rows"
+    big_tag = f"field 1, {BIG_ROWS} + {BIG_ROWS} rows"
+    specs, big = probe_specs(captured), probe_specs(captured_big)
+    recs = []
     keys, size, count, limit = captured["hash_set_build"]
     n = keys.shape[0]
     recs.append(("hash_set_build", "table", "csrc/hash_set.cu", "ops/hash_table.py:50",
@@ -4004,19 +4098,18 @@ def engine_records(captured: dict, runs: dict, errs: dict, card: str) -> list[di
                  lambda: hash_set_probe_plain(hs, pkeys, pcount, max_probe), None, None,
                  4 * size + 4 + 4 * npk + 5 * npk, 12 * npk,
                  f"{npk} probe keys against {size} slots"))
-    bb, bk, pb, pk, nbuckets, cap = captured["bucket_probe"]
-    cb = torch.bincount(bb.long(), minlength=nbuckets + 1)[:nbuckets]
-    cp = torch.bincount(pb.long(), minlength=nbuckets + 1)[:nbuckets]
-    ok = (cb <= cap) & (cp <= cap)
-    compares = int((cb * cp * ok).sum())
-    searches = 4 * (nbuckets + 1) * max(bb.shape[0], pb.shape[0], 1).bit_length()
-    recs.append(("bucket_probe", "bucketed", "csrc/bucket_probe.cu", "ops/bucket_join.py:59",
-                 lambda: bucket_probe(*captured["bucket_probe"]),
-                 lambda: bucket_probe_plain(*captured["bucket_probe"]), None, None,
-                 8 * bb.shape[0] + 9 * pb.shape[0] + 4, compares + searches,
-                 f"{nbuckets} buckets of cap {cap}, {bb.shape[0]} + {pb.shape[0]} rows, "
-                 f"{compares} key compares"))
     out = []
+    for name, engine, src, repl in (
+            ("sorted_probe", "searchsorted", "csrc/sorted_probe.cu", "ops/fastpath.py:101"),
+            ("bucket_probe", "bucketed", "csrc/bucket_probe.cu", "ops/bucket_join.py:59")):
+        rec = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+               "replaces": f"{JAX_PKG}/{repl}",
+               "launches": runs[(tag, engine)]["launches"].get(name, 0),
+               "max_abs_err": errs[name]}
+        rec.update(probe_readings(name, specs[name], card, tag))
+        rec["at_8m"] = probe_readings(name, big[name], card, big_tag)
+        rec["at_8m"]["launches"] = runs[(big_tag, engine)]["launches"].get(name, 0)
+        out.append(rec)
     for name, engine, src, repl, kern, plain, lib, lib_name, nbytes, nops, shape in recs:
         bound, by = bound_of(nbytes, nops)
         rec = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
@@ -4031,7 +4124,8 @@ def engine_records(captured: dict, runs: dict, errs: dict, card: str) -> list[di
             + f", bound {bound:.4f} ms ({nbytes} B, {nops} ops, by {by}); launches a run "
             f"{rec['launches']}")
         out.append(rec)
-    return out
+    order = ("sorted_probe", "hash_set_build", "hash_set_probe", "bucket_probe")
+    return sorted(out, key=lambda r: order.index(r["name"]))
 
 
 # ---------------------------------------------------------------------------
@@ -4052,7 +4146,8 @@ DIST_ENGINE_KERNELS = {"sorted": ("seg_scan",), "skew": ("seg_scan", "words_sort
                                                          "hot_hashes", "in_hot_set"),
                        "overlap": ("words_sort",)}
 DIST_RECORDED = (("topk_runs", "topk_runs"), ("hot_set", "hot_hashes"), ("hot_set", "in_hot_set"),
-                 ("range_dest", "range_dest"), ("stage_cells", "stage_to_cells"))
+                 ("range_dest", "range_dest"), ("stage_cells", "stage_to_cells"),
+                 ("sorted_probe", "sorted_probe"))  # K15: the overlap engine's one-word probe
 
 
 def dist_key_ids(cols: dict, field: int) -> np.ndarray:
@@ -4271,12 +4366,15 @@ def torch_host_pick(t: torch.Tensor, g, m: int) -> np.ndarray:
 
 
 def dist_kernels_on(captured: dict) -> dict:
-    """K19-K22 and K9's fill against their plain versions on the arguments
-    the runs gave them (captured[run][kernel])."""
+    """K19-K22, K9's fill and K15 (the overlap engine's probe) against their
+    plain versions on the arguments the runs gave them
+    (captured[run][kernel])."""
     from database_technology_algorithms_tpu_torch.kernels import hot_set, range_dest, stage_cells
+    from database_technology_algorithms_tpu_torch.kernels import sorted_probe as k15
     from database_technology_algorithms_tpu_torch.kernels import topk_runs as k19
 
-    pairs = {"topk_runs": (k19.topk_runs, k19.topk_runs_plain),
+    pairs = {"sorted_probe": (k15.sorted_probe, k15.sorted_probe_plain),
+             "topk_runs": (k19.topk_runs, k19.topk_runs_plain),
              "hot_hashes": (hot_set.hot_hashes, hot_set.hot_hashes_plain),
              "in_hot_set": (hot_set.in_hot_set, hot_set.in_hot_set_plain),
              "range_dest": (range_dest.range_dest, range_dest.range_dest_plain),
@@ -4291,7 +4389,7 @@ def dist_kernels_on(captured: dict) -> dict:
                 f"{name} on the inputs of the dist run '{run}'", flat_tensors(kern(*args, **kw)),
                 flat_tensors(plain(*args, **kw))))
     torch.cuda.synchronize()
-    log(f"[kernels] K19-K22 and K9's fill equal their plain versions on the inputs of "
+    log(f"[kernels] K19-K22, K9's fill and K15 equal their plain versions on the inputs of "
         f"{len(captured)} dist runs (each kernel's first call in each); max abs err {errs}")
     return errs
 
@@ -4487,7 +4585,7 @@ def phase_dist(dev, card: str) -> dict:
     # ---- K19-K22 and K9's fill on the runs' own inputs -------------------------------
     for k, e in dist_kernels_on(captured).items():
         key = "stage_cells" if k == "stage_to_cells" else k
-        errs[key] = max(errs[key], e)
+        errs[key] = max(errs.get(key, 0), e)
     mark("own inputs")
     # ---- the timed run: 16M + 16M, field 1, sorted, by stage -------------------------
     big_r, big_s = dist_cols(DIST_BIG_ROWS, 48), dist_cols(DIST_BIG_ROWS, 49)

@@ -40,7 +40,7 @@ pass schedule ``radix_plan`` builds; K4 and K12 on one row-move engine
 one tile layout (``csrc/scan.cuh``), whose tile and scratch ``scan_plan``
 holds; K9's span and place warps and K10's tables follow ``cells_plan``;
 K6's rows a lane and key stages and the rows a thread and grid of K7's
-gather follow ``perm_plan``; K15-K18's limits are in ``engines_plan``,
+gather follow ``perm_plan``; K15-K18's plans and limits are in ``engines_plan``,
 K19-K22's in ``dist_plan``.  The distributed plan's shuffle packs with K9
 (``stage_to_cells``; with a fill value for the key-only pack).
 Each wrapper runs its plain torch version for CPU tensors and launches its

@@ -3,7 +3,9 @@
 
 Replaces the padded bucket table, the broadcast compare and the overflow
 rule of the JAX package's ``_bucket_table`` and ``_bucketed_matched``
-(``ops/bucket_join.py:59-158``).
+(``ops/bucket_join.py:59-158``).  The kernel's two launches, the first row
+of every bucket of both sides, then a block a span of consecutive buckets,
+follow ``engines_plan.bucket_plan``.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ def bucket_probe(
     overflow and one of its build keys equals the row's key; overflow
     counts the rows past `cap` of every bucket, both sides.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (after a memset of the overflow count).
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    starts and compare launches (after a memset of the overflow count).
     """
     nbuckets, cap = int(nbuckets), int(cap)
     engines_plan.check_buckets("bucket_probe", nbuckets, cap)
@@ -42,13 +44,17 @@ def bucket_probe(
         if t.shape != (n,):
             raise ValueError(f"bucket_probe: {name} of shape {tuple(t.shape)}, expected ({n},)")
     engines_plan.check_rows("bucket_probe", nb, npr)
+    plan = engines_plan.bucket_plan()
     hit = torch.empty(npr, dtype=torch.bool, device=dev)
     ovf = torch.empty((), dtype=torch.int32, device=dev)
+    starts = torch.empty(engines_plan.bucket_starts_words(nbuckets), dtype=torch.int32,
+                         device=dev)
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_bucket_probe(
             b_bucket.data_ptr(), b_key.data_ptr(), nb, p_bucket.data_ptr(), p_key.data_ptr(),
-            npr, nbuckets, cap, hit.data_ptr(), ovf.data_ptr(), _lib.stream_of(p_key),
+            npr, nbuckets, cap, plan.span, plan.threads, starts.data_ptr(), hit.data_ptr(),
+            ovf.data_ptr(), _lib.stream_of(p_key),
         )
     _lib.raise_on_error(err, "bucket_probe")
     _lib.LAUNCHES["bucket_probe"] += 1

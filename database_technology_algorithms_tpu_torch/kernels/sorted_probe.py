@@ -2,7 +2,10 @@
 version.
 
 Replaces the probe of the JAX package's ``hash_join_count_u32``
-(``ops/fastpath.py:101-104``).
+(``ops/fastpath.py:101-104``).  The kernel's two launches, an index of every
+S-th live build key as a search tree, then a persistent grid that holds the
+tree in shared memory and searches at most S - 1 keys in device memory a
+probe row, follow ``engines_plan.probe_plan``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ def sorted_probe(
     tensor on the device.  Returns (hit bool[P], mult int32[P]): hit is True
     where the row is live and its key equals a live build key.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    index and search launches (``engines_plan.probe_plan``).
     """
     if pkey.device.type == "cpu":
         return sorted_probe_plain(skey, build_count, pkey, probe_count)
@@ -35,18 +39,23 @@ def sorted_probe(
     if skey.dim() != 1 or pkey.dim() != 1:
         raise ValueError("sorted_probe: skey and pkey must be 1-D")
     nb, npr = skey.shape[0], pkey.shape[0]
-    engines_plan.check_rows("sorted_probe", nb, npr)
+    engines_plan.check_rows("sorted_probe", npr)
+    plan = engines_plan.probe_plan(nb)
     hit = torch.empty(npr, dtype=torch.bool, device=dev)
     mult = torch.empty(npr, dtype=torch.int32, device=dev)
     if npr == 0:
         return hit, mult
     bcnt, bcnt_host = rowmove_plan.count_arg(build_count, nb, dev)
     pcnt, pcnt_host = rowmove_plan.count_arg(probe_count, npr, dev)
+    tree = torch.empty(1 << plan.levels, dtype=torch.int32, device=dev)
+    blocks = engines_plan.probe_grid(
+        npr, plan, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_sorted_probe(
             skey.data_ptr(), nb, None if bcnt is None else bcnt.data_ptr(), bcnt_host,
             pkey.data_ptr(), npr, None if pcnt is None else pcnt.data_ptr(), pcnt_host,
+            tree.data_ptr(), plan.levels, plan.threads, blocks,
             hit.data_ptr(), mult.data_ptr(), _lib.stream_of(pkey),
         )
     _lib.raise_on_error(err, "sorted_probe")

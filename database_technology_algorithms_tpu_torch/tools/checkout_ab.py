@@ -36,6 +36,11 @@ arguments are the same in every checkout.  The sets:
   and Zipf 1.2 tables (``chip_smoke.agg_table``) and of the two-phase
   combine.  Each call's device time (torch.profiler, mean of 10 calls)
   and its time by kernel and memset, and checksums of the results.
+- ``probe``: K15 and K18 on the inputs ``hash_join_count`` gives them at
+  field 1 on ``chip_smoke.gen_pair``'s tables of 1M + 1M and 8M + 8M rows
+  (under "searchsorted" and "bucketed"), and ``hash_join_count`` itself
+  under both engines: each call's device time (torch.profiler, mean of 10
+  calls) and its time by launch, and checksums of the results.
 
 Printed a line a checkout; the results (checksums, counters, nres) must be
 equal across checkouts, or the tool fails.
@@ -279,8 +284,44 @@ def topk_agg(cs, dev) -> tuple[dict, dict]:
     return {"ms": ms}, sums
 
 
+def probe(cs, dev) -> tuple[dict, dict]:
+    import torch
+
+    from database_technology_algorithms_tpu_torch.kernels.bucket_probe import bucket_probe
+    from database_technology_algorithms_tpu_torch.kernels.sorted_probe import sorted_probe
+    # bound to the wrappers when first imported: before any recorder swaps one
+    from database_technology_algorithms_tpu_torch.ops import bucket_join, fastpath  # noqa: F401
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join_count
+
+    ms, sums = {}, {}
+
+    def timed(what, fn):
+        prof = cs.profile_device(fn, reps=10)
+        ms[what] = prof["busy_us"] / 1e3
+        ms[f"{what}, by launch"] = {short_name(n): us / 1e3 for n, us in prof["top"]}
+
+    for rows in (cs.ROWS, cs.BIG_ROWS):
+        r_cols, s_cols = cs.gen_pair(rows)
+        r, s = cs.to_batch(r_cols, dev), cs.to_batch(s_cols, dev)
+        for name, engine, wrapper in (("sorted_probe", "searchsorted", sorted_probe),
+                                      ("bucket_probe", "bucketed", bucket_probe)):
+            cfg = cs.engine_cfg(engine)
+            with cs.recorded_calls(name, name) as calls:
+                matched, _, nres = hash_join_count(s, r, 1, cfg)
+            args = calls[0][0]
+            what = f"{rows} + {rows}"
+            sums[f"hash_join_count {engine} {what}"] = [int(nres),
+                                                       int(matched.to(torch.int64).sum())]
+            sums[f"{name} {what}"] = [int(t.to(torch.int64).sum()) for t in wrapper(*args)]
+            timed(f"{name} {what}", lambda a=args, w=wrapper: w(*a))
+            timed(f"hash_join_count {engine} {what}",
+                  lambda c=cfg: hash_join_count(s, r, 1, c))
+        del r, s, args, calls
+    return {"ms": ms}, sums
+
+
 SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range,
-        "topk_agg": topk_agg}
+        "topk_agg": topk_agg, "probe": probe}
 
 
 def one(sets: list[str], root: str) -> dict:

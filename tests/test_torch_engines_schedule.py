@@ -2,15 +2,19 @@
 runs them, against their plain torch versions (and, for the bucket rule,
 the JAX package).
 
-- K15 (``csrc/sorted_probe.cu``): one thread a probe row, a lower-bound
-  search in the unsigned order over the live prefix of the masked keys.
+- K15 (``csrc/sorted_probe.cu``): the index launch (every S-th live key
+  as a search tree in breadth-first order), then one thread a probe row:
+  the tree's walk and a lower-bound search in the unsigned order of at most
+  S - 1 live keys; the plan is made small through ``engines_plan`` so that
+  both run at CPU sizes, and no row past the live count is read.
 - K16 (``csrc/hash_set.cu``): one thread a build key, linear probing with
   one compare-and-swap a slot, in random interleavings of the threads'
   steps; every stored key is found by K17, and a key fails exactly when it
   has tried ``engines_plan.insert_limit(max_probe)`` slots.
-- K18 (``csrc/bucket_probe.cu``): one warp a bucket, its two ranges by
-  binary searches of the sorted bucket columns, the overflow rule (more
-  than ``cap`` rows on either side) and the compare.
+- K18 (``csrc/bucket_probe.cu``): the starts launch (each bucket's first
+  row on both sides, every entry written once), then a block a span of
+  buckets: the overflow rule (more than ``cap`` rows on either side), the
+  span's build keys staged, the compare, the inactive rows.
 
 Every value is an integer or a bool, so every comparison is exact.
 """
@@ -64,24 +68,67 @@ def inverse_mix(h) -> np.ndarray:
 # K15
 
 
-def k15_emulate(skey: np.ndarray, bc, pkey: np.ndarray, pc) -> np.ndarray:
-    """csrc/sorted_probe.cu, a thread a probe row: the count clamped to [0,
-    nb], lower_bound over [0, count) in the u32 order, a hit where it lands
-    on an equal key."""
+def k15_tree(skey: np.ndarray, bc: int, levels: int) -> tuple:
+    """csrc/sorted_probe.cu's index launch: slot j of 2^levels words holds
+    the live key at row tree_rank(j) * S, or U32_MAX past the index (and in
+    slot 0).  Returns (tree, S, entries)."""
+    stride, entries = engines_plan.probe_stride(bc, levels)
+    tree = np.full(1 << levels, M32, np.uint64)
+    for j in range(1, 1 << levels):
+        r = engines_plan.tree_rank(j, levels)
+        if r < entries:
+            assert r * stride < bc  # never the padding
+            tree[j] = skey[r * stride]
+    return tree, stride, entries
+
+
+def trailing_ones(j: np.ndarray) -> np.ndarray:
+    t = np.zeros_like(j)
+    x = j.copy()
+    while (x & 1).any():
+        t += x & 1
+        x = np.where(x & 1, x >> 1, 0)
+    return t
+
+
+def k15_emulate(skey: np.ndarray, bc, pkey: np.ndarray, pc, levels=None) -> np.ndarray:
+    """csrc/sorted_probe.cu as the card runs it, a thread a probe row: the
+    count clamped to [0, nb]; the walk of the index tree (``levels`` from
+    ``probe_plan``); a hit where the first index key not below the probe
+    key equals it, else a lower-bound search in the u32 order of the rows
+    strictly between index keys e - 1 and e, a hit where a row it reads
+    equals the key (no read after the search).  Asserts that no row at or
+    past the count is read."""
     nb = len(skey)
     bc = min(max(int(bc), 0), nb)
-    hit = np.zeros(len(pkey), bool)
-    for i, p in enumerate(pkey.astype(np.uint64)):
-        if i >= pc:
-            continue
-        lo, hi = 0, bc
-        while lo < hi:
-            mid = lo + (hi - lo) // 2
-            if int(skey[mid]) < p:
-                lo = mid + 1
-            else:
-                hi = mid
-        hit[i] = lo < bc and int(skey[lo]) == p
+    levels = engines_plan.probe_plan(nb).levels if levels is None else levels
+    tree, stride, entries = k15_tree(skey, bc, levels)
+    s64 = skey.astype(np.uint64)
+    p = pkey.astype(np.uint64)
+    j = np.ones(len(p), np.int64)
+    for _ in range(levels):
+        j = 2 * j + (tree[j] < p)
+    e = j - (1 << levels)
+    k = j >> (trailing_ones(j) + 1)
+    hit = (e < entries) & (tree[k] == p)
+    assert ((k >= 1) | (e >= entries)).all()
+    seg = ~hit & (e > 0)
+    lo = np.where(seg, (e - 1) * stride + 1, 0)
+    hi = np.where(seg, np.where(e < entries, e * stride, bc), 0)
+    assert (hi - lo <= stride - 1).all()  # at most S - 1 rows
+    n = hi - lo
+    # the lower-bound search; a row read equal to p hits
+    while (n > 0).any():
+        step = n > 0
+        half = n >> 1
+        at = np.where(step, lo + half, 0)
+        assert (at[step] < bc).all()  # never the padding
+        v = s64[at] if nb else np.zeros(len(p), np.uint64)
+        hit |= step & (v == p)
+        less = step & (v < p)
+        lo = np.where(less, lo + half + 1, lo)
+        n = np.where(less, n - half - 1, np.where(step, half, n))
+    hit &= np.arange(len(p)) < pc
     return hit
 
 
@@ -107,6 +154,107 @@ def test_k15_emulation_matches_plain(nb, count):
     np.testing.assert_array_equal(mult.numpy(), want.astype(np.int32))
     # the set semantics: a live probe row hits iff a live build key equals it
     np.testing.assert_array_equal(want, np.isin(pkey, skey[:nlive]) & (np.arange(40) < pc))
+    # with a tree of one and two levels, the search in device memory runs
+    for levels in (1, 2):
+        np.testing.assert_array_equal(k15_emulate(skey, live, pkey, pc, levels), want)
+
+
+def k15_case(g, nb: int, count: int):
+    """Sorted live keys on both sides of 2^31 with runs of equal keys, a
+    live U32_MAX at count - 1, the U32_MAX tail; probes: every live key,
+    its neighbours, keys past the count and random ones."""
+    keys = g.integers(0, 2**32, size=nb, dtype=np.uint64).astype(np.uint32)
+    keys[::5] = keys[::5] % 64 | np.uint32(1 << 31)
+    keys[1::5] = keys[1::5] % 64
+    live = np.sort(keys[:count])
+    if count:
+        live[-1] = 0xFFFFFFFF
+    skey = np.concatenate([live, np.full(nb - count, 0xFFFFFFFF, np.uint32)])
+    near = np.concatenate([live, live - np.uint32(1), live + np.uint32(1), keys[count:],
+                           g.integers(0, 2**32, size=64, dtype=np.uint64).astype(np.uint32),
+                           np.array([0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)])
+    return skey, g.permutation(near.astype(np.uint32))
+
+
+@pytest.mark.parametrize("S", [4, 40, 100])
+@pytest.mark.parametrize("levels", [1, 2, 3, 5])
+@pytest.mark.parametrize("at", ["0", "1", "S - 1", "S", "S + 1", "E*S - 1", "E*S", "E*S + 1"])
+def test_k15_two_level_search_at_the_stride_edges(levels, at, S, monkeypatch):
+    """The plan made small through the module (a tree of 2^levels - 1 keys),
+    so that both the tree and the search in device memory run at CPU sizes:
+    counts at the stride's edges, for S and the next stride, given on the
+    host and as a 0-d tensor (on the card in the kernel's callers)."""
+    monkeypatch.setattr(engines_plan, "PROBE_LEVELS", levels)
+    E = (1 << levels) - 1
+    count = {"0": 0, "1": 1, "S - 1": S - 1, "S": S, "S + 1": S + 1, "E*S - 1": E * S - 1,
+             "E*S": E * S, "E*S + 1": E * S + 1}[at]
+    nb = E * S + 7
+    assert engines_plan.probe_plan(nb).levels == levels
+    g = np.random.default_rng(levels * 100 + count + S)
+    skey, pkey = k15_case(g, nb, count)
+    stride, entries = engines_plan.probe_stride(count, levels)
+    assert entries <= E and (stride == 1 or -(-count // (stride - 1)) > E)
+    pc = len(pkey) - 3
+    want = k15_emulate(skey, count, pkey, pc)
+    np.testing.assert_array_equal(want, np.isin(pkey, skey[:count]) & (np.arange(len(pkey)) < pc))
+    for bc in (count, torch.tensor(count, dtype=torch.int32)):
+        hit, mult = sorted_probe_plain(t32(skey), bc, t32(pkey), torch.tensor(pc))
+        np.testing.assert_array_equal(hit.numpy(), want)
+        np.testing.assert_array_equal(mult.numpy(), want.astype(np.int32))
+
+
+@pytest.mark.parametrize("nb", [32767 * 4 - 1, 32767 * 4 + 1, 32767 * 40 + 1])
+def test_k15_default_plan_past_one_index(nb):
+    """The default tree (2^15 - 1 keys) over more keys than it holds: S of
+    4, 5 and 41, every live key found, its neighbours not (unless live)."""
+    g = np.random.default_rng(nb)
+    skey, pkey = k15_case(g, nb, nb)
+    plan = engines_plan.probe_plan(nb)
+    assert plan.levels == engines_plan.PROBE_LEVELS
+    pkey = pkey[:20_000]
+    want = k15_emulate(skey, nb, pkey, len(pkey))
+    np.testing.assert_array_equal(want, np.isin(pkey, skey))
+    hit, _ = sorted_probe_plain(t32(skey), None, t32(pkey))
+    np.testing.assert_array_equal(hit.numpy(), want)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 14])
+def test_k15_tree_holds_the_index_in_order(levels):
+    """tree_rank maps the 2^levels - 1 slots onto the sorted ranks once
+    each, and an in-order walk of the tree reads the index in order."""
+    n = (1 << levels) - 1
+    ranks = [engines_plan.tree_rank(j, levels) for j in range(1, n + 1)]
+    assert sorted(ranks) == list(range(n))
+    order = []
+
+    def walk(j):
+        if j <= n:
+            walk(2 * j)
+            order.append(ranks[j - 1])
+            walk(2 * j + 1)
+
+    if levels <= 10:
+        walk(1)
+        assert order == list(range(n))
+
+
+def test_k15_probe_plan(monkeypatch):
+    plan = engines_plan.probe_plan(1 << 20)
+    assert plan == (15, 512, 1)
+    assert engines_plan.probe_grid(1 << 20, plan, 132) == 132
+    monkeypatch.setattr(engines_plan, "PROBE_LEVELS", 14)
+    monkeypatch.setattr(engines_plan, "PROBE_BLOCKS_PER_SM", 4)
+    plan = engines_plan.probe_plan(1 << 20)
+    assert (plan.levels, plan.blocks_per_sm) == (14, 3)
+    assert engines_plan.probe_plan(0).levels == 1 and engines_plan.probe_plan(5).levels == 3
+    assert engines_plan.probe_stride(0, 14) == (1, 0)
+    assert engines_plan.probe_stride(1 << 20, 14) == (65, 16132)
+    assert engines_plan.probe_stride(16383 * 64, 14) == (64, 16383)
+    assert engines_plan.probe_stride(16383 * 64 + 1, 14) == (65, 16131)
+    assert engines_plan.probe_stride(1 << 23, 14) == (513, 16353)
+    assert engines_plan.probe_stride((1 << 31) - 1, 14)[1] <= 16383
+    assert engines_plan.probe_grid(10, plan, 132) == 1
+    assert engines_plan.probe_grid(1 << 20, plan, 132) == 3 * 132
 
 
 # ---------------------------------------------------------------------------
@@ -282,20 +430,65 @@ def test_build_and_probe_hash_set_match_jax(case):
 # K18
 
 
-def k18_emulate(b_bucket, b_key, p_bucket, p_key, nbuckets: int, cap: int) -> tuple:
-    """csrc/bucket_probe.cu, a warp a bucket b in [0, nbuckets]: its two
-    ranges by lower bounds of b and b + 1, the overflow rule, the compare."""
-    hit = np.zeros(len(p_key), bool)
+def k18_starts(col: np.ndarray, nbuckets: int) -> np.ndarray:
+    """csrc/bucket_probe.cu's starts launch on one side: row i (and the row
+    past the end) writes every bucket in (col[i-1], col[i]] (the end: up to
+    nbuckets + 1).  Asserts that each entry is written exactly once."""
+    n = len(col)
+    c = col.astype(np.int64)
+    lo = np.concatenate([[0], c + 1])
+    hi = np.concatenate([c, [nbuckets + 1]])
+    lo, hi = np.maximum(lo, 0), np.minimum(hi, nbuckets + 1)
+    width = np.maximum(hi - lo + 1, 0)
+    bucket = np.repeat(lo, width) + (np.arange(width.sum()) - np.repeat(np.cumsum(width) - width,
+                                                                        width))
+    row = np.repeat(np.arange(n + 1), width)
+    assert np.array_equal(np.sort(bucket), np.arange(nbuckets + 2))  # each entry once
+    starts = np.empty(nbuckets + 2, np.int64)
+    starts[bucket] = row
+    return starts
+
+
+def k18_emulate(b_bucket, b_key, p_bucket, p_key, nbuckets: int, cap: int,
+                span=None) -> tuple:
+    """csrc/bucket_probe.cu as the card runs it: the starts launch on both
+    sides, then a block a span of ``span`` buckets (``bucket_plan``'s):
+    the overflow rule a bucket (one add a bucket that overflows), the kept
+    build keys staged (one range when none of the span overflows, else
+    bucket by bucket), each probe row of the span compared with its own
+    bucket's keys, the inactive rows' hits written by the blocks in turn.
+    Asserts that every hit is written exactly once and that no block holds
+    more than span * cap keys."""
+    span = engines_plan.bucket_plan().span if span is None else span
+    nb, npr = len(b_bucket), len(p_bucket)
+    st_b, st_p = k18_starts(b_bucket, nbuckets), k18_starts(p_bucket, nbuckets)
+    hit = np.zeros(npr, bool)
+    writes = np.zeros(npr, np.int64)
     ovf = 0
-    for b in range(nbuckets + 1):
-        lb, hb = np.searchsorted(b_bucket, [b, b + 1], side="left")
-        lp, hp = np.searchsorted(p_bucket, [b, b + 1], side="left")
+    for b0 in range(0, nbuckets, span):
+        nspan = min(span, nbuckets - b0)
+        lb, hb = st_b[b0:b0 + nspan], st_b[b0 + 1:b0 + nspan + 1]
+        lp, hp = st_p[b0:b0 + nspan], st_p[b0 + 1:b0 + nspan + 1]
         cb, cp = hb - lb, hp - lp
-        if b == nbuckets or cb > cap or cp > cap:
-            if b < nbuckets:
-                ovf += max(cb - cap, 0) + max(cp - cap, 0)
-            continue
-        hit[lp:hp] = np.isin(p_key[lp:hp], b_key[lb:hb])
+        over = (cb > cap) | (cp > cap)
+        ovf += int((np.maximum(cb - cap, 0) + np.maximum(cp - cap, 0))[over].sum())
+        kept = np.where(over, 0, cb)
+        off = np.cumsum(kept) - kept
+        total = int(kept.sum())
+        assert total <= span * max(cap, 1)
+        if not over.any():
+            keys = b_key[lb[0]:lb[0] + total]
+        else:
+            keys = np.zeros(total, b_key.dtype)
+            for k in np.flatnonzero(~over):
+                keys[off[k]:off[k] + cb[k]] = b_key[lb[k]:hb[k]]
+        for i in range(lp[0], hp[-1]):
+            k = p_bucket[i] - b0
+            h = not over[k] and bool((keys[off[k]:off[k] + cb[k]] == p_key[i]).any())
+            hit[i] = h
+            writes[i] += 1
+    writes[st_p[nbuckets]:] += 1  # bucket nbuckets: no hit
+    assert (writes == 1).all()
     return hit, ovf
 
 
@@ -334,6 +527,84 @@ def test_k18_emulation_matches_plain(case, cap):
     assert int(ovf) == want_ovf
     if case in ("build overflow", "probe overflow", "both"):
         assert want_ovf > 0
+    for span in (1, 3, engines_plan.BUCKET_MAX_SPAN):  # spans that cut the buckets otherwise
+        got_hit, got_ovf = k18_emulate(b_bucket, b_key, p_bucket, p_key, nbuckets, cap, span)
+        np.testing.assert_array_equal(got_hit, want_hit)
+        assert got_ovf == want_ovf
+
+
+def k18_side(g, n: int, nbuckets: int, kind: str) -> tuple:
+    """A sorted bucket column and its keys: ``sparse`` (n rows over many
+    buckets, most empty, the first live one above 0), ``inactive`` (every
+    row in bucket nbuckets), ``empty``, ``dense``."""
+    if kind == "empty":
+        b = np.zeros(0, np.int64)
+    elif kind == "inactive":
+        b = np.full(n, nbuckets)
+    elif kind == "sparse":
+        b = np.sort(g.integers(nbuckets // 3, nbuckets, size=n))
+        b[-n // 10:] = nbuckets
+    else:
+        b = np.sort(g.integers(0, nbuckets, size=n))
+    keys = (g.integers(0, 32, size=len(b)) | np.where(g.random(len(b)) < 0.5, 1 << 31, 0))
+    return np.sort(b).astype(np.int32), keys.astype(np.uint32)
+
+
+@pytest.mark.parametrize("build", ["sparse", "inactive", "empty", "dense"])
+@pytest.mark.parametrize("probe", ["sparse", "inactive", "empty", "dense"])
+def test_k18_starts_and_compare_on_sparse_columns(build, probe):
+    """The starts launch over sparse columns (most buckets empty, the first
+    live one above 0, a run of empty buckets longer than a warp), all rows
+    inactive and an empty side: each entry written once and equal to the
+    bucket's first row; the compare against the plain version."""
+    g = np.random.default_rng(len(build) * 31 + len(probe))
+    nbuckets = 4096
+    b_bucket, b_key = k18_side(g, 700, nbuckets, build)
+    p_bucket, p_key = k18_side(g, 900, nbuckets, probe)
+    for col in (b_bucket, p_bucket):
+        np.testing.assert_array_equal(k18_starts(col, nbuckets),
+                                      np.searchsorted(col, np.arange(nbuckets + 2)))
+    want_hit, want_ovf = k18_emulate(b_bucket, b_key, p_bucket, p_key, nbuckets, 128)
+    hit, ovf = bucket_probe_plain(torch.from_numpy(b_bucket), t32(b_key),
+                                  torch.from_numpy(p_bucket), t32(p_key), nbuckets, 128)
+    np.testing.assert_array_equal(hit.numpy(), want_hit)
+    assert int(ovf) == want_ovf == 0
+
+
+@pytest.mark.parametrize("side", ["build", "probe", "both"])
+@pytest.mark.parametrize("where", ["span's first bucket", "mid-span", "span's last bucket",
+                                   "two in a span"])
+def test_k18_overflow_inside_a_span(side, where):
+    """A bucket past cap among buckets that are not: it adds its rows past
+    cap once, its probe rows get no hit, and the span's kept build keys are
+    staged bucket by bucket around it."""
+    g = np.random.default_rng(len(side) * 7 + len(where))
+    nbuckets, cap, span = 64, 8, 16
+    heavy = {"span's first bucket": [16], "mid-span": [21], "span's last bucket": [31],
+             "two in a span": [17, 30]}[where]
+    cols = []
+    for s_name in ("build", "probe"):
+        b = g.integers(0, nbuckets, size=200)
+        if side in (s_name, "both"):
+            b = np.concatenate([b] + [np.full(cap + 3 + h % 5, h) for h in heavy])
+        cols.append((np.sort(b).astype(np.int32),
+                     g.integers(0, 12, size=len(b)).astype(np.uint32)))
+    (b_bucket, b_key), (p_bucket, p_key) = cols
+    want_hit, want_ovf = k18_emulate(b_bucket, b_key, p_bucket, p_key, nbuckets, cap, span)
+    hit, ovf = bucket_probe_plain(torch.from_numpy(b_bucket), t32(b_key),
+                                  torch.from_numpy(p_bucket), t32(p_key), nbuckets, cap)
+    np.testing.assert_array_equal(hit.numpy(), want_hit)
+    assert int(ovf) == want_ovf > 0
+    got_hit, got_ovf = k18_emulate(b_bucket, b_key, p_bucket, p_key, nbuckets, cap)
+    np.testing.assert_array_equal(got_hit, want_hit)  # the plan's span, 32
+    assert got_ovf == want_ovf
+    for h in heavy:  # the overflowing bucket's probe rows: no hit
+        assert not want_hit[p_bucket == h].any()
+
+
+def test_k18_bucket_plan():
+    assert engines_plan.bucket_plan() == (32, 128)
+    assert engines_plan.bucket_starts_words(65536) == 2 * 65538
 
 
 @pytest.mark.parametrize("n", [1, 16, 17, 255, 256, 257, 1000])
