@@ -3734,13 +3734,19 @@ def hash_set_parts(hs) -> list:
 
 
 def k16_edges(g, dev) -> list:
-    """(what, keys, size, count, limit) of K16 and K17 at their edges."""
+    """(what, keys, size, count, limit) of K16 and K17 at their edges: n % 4
+    of 0-3 (the vector path's tail), a view one word in (the scalar path),
+    duplicates, the EMPTY pair, keys on one home slot (failing at limit 8,
+    also 20 keys of 5 copies each), 1M keys all equal."""
     from database_technology_algorithms_tpu_torch.ops.hash_table import table_size_for
 
     cases = []
     for n, kind in ((0, "empty"), (1, "random"), (17, "random"), (1025, "random"),
-                    (65537, "random"), (65537, "duplicates"), (4097, "empty pair"),
-                    (CLUSTER_KEYS, "one home slot"), (5000, "bit 31")):
+                    (65536, "random"), (65537, "random"), (65538, "random"),
+                    (65539, "random"), (65537, "duplicates"), (65541, "one word in"),
+                    (4097, "empty pair"), (CLUSTER_KEYS, "one home slot"),
+                    (CLUSTER_KEYS, "one home slot, 5 copies"), (5000, "bit 31"),
+                    (ROWS, "all equal")):
         size = table_size_for(n)
         keys = g.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
         if kind == "duplicates":
@@ -3749,13 +3755,22 @@ def k16_edges(g, dev) -> list:
             keys[::100], keys[1::100] = EMPTY_PAIR
         elif kind == "one home slot":
             keys = inverse_mix(11 + size * np.arange(n, dtype=np.uint64))
+        elif kind == "one home slot, 5 copies":  # 20 apart: a live prefix of 60 holds 3 each
+            keys = np.tile(inverse_mix(11 + size * np.arange(n // 5, dtype=np.uint64)), 5)
         elif kind == "bit 31":
             keys |= np.uint32(1 << 31)
+        elif kind == "all equal":
+            keys[:] = 77
         t = u32_dev(keys, dev)
+        if kind == "one word in":
+            t = t[1:]
+            n, size = n - 1, table_size_for(n - 1)
         # a limit below 64 only where no other key is near: elsewhere which
         # keys fail would hang on the atomics' order
-        short = 8 if kind == "one home slot" else 64
-        on_card = torch.tensor(n - n // 3, dtype=torch.int32, device=dev)
+        short = 8 if kind.startswith("one home slot") else 64
+        # which keys fail hangs on the order too, so every key has as many live copies
+        live = 3 * n // 5 if kind.endswith("copies") else n - n // 3
+        on_card = torch.tensor(live, dtype=torch.int32, device=dev)
         for count, limit in ((None, 64), (n // 2, 64), (on_card, short)):
             shown = int(count) if isinstance(count, torch.Tensor) else count
             cases.append((f"n={n} {kind} count={shown} limit={limit}", t, size, count, limit))
@@ -3801,6 +3816,7 @@ def k18_edges(g, dev) -> list:
 
 
 def check_engine_kernels_at_edges(g, dev) -> dict:
+    from database_technology_algorithms_tpu_torch.kernels import engines_plan
     from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
         bucket_probe, bucket_probe_plain)
     from database_technology_algorithms_tpu_torch.kernels.hash_set import (
@@ -3817,6 +3833,14 @@ def check_engine_kernels_at_edges(g, dev) -> dict:
         errs["hash_set_build"] = max(errs["hash_set_build"], assert_same(
             f"K16 {what}", hash_set_parts(hs),
             hash_set_parts(hash_set_build_plain(keys, size, count, limit))))
+        if what.split()[1] in ("random", "one"):  # 4 keys a thread: the tail, the scalar path
+            saved, engines_plan.HASH_KEYS = engines_plan.HASH_KEYS, 4
+            try:
+                assert_same(f"K16 {what}, 4 keys a thread", hash_set_parts(
+                    hash_set_build(keys, size, count, limit)), hash_set_parts(
+                    hash_set_build_plain(keys, size, count, limit)))
+            finally:
+                engines_plan.HASH_KEYS = saved
         probe = torch.cat([keys, u32_dev(np.array(EMPTY_PAIR + (7,), np.uint32), dev)])
         for pc, max_probe in ((None, limit), (probe.shape[0] - 2, 200), (None, 1)):
             errs["hash_set_probe"] = max(errs["hash_set_probe"], assert_same(
@@ -3831,7 +3855,9 @@ def check_engine_kernels_at_edges(g, dev) -> dict:
         "0, bit 31, a live 0xFFFFFFFF, 16*2^k +- 1 rows, counts on the host and the card, "
         "2^20 + 1 and 8,388,609 rows with counts on the card at S*E +- 1; K16: "
         "the stored set, flag and failures, with duplicates, the EMPTY pair, 100 keys on one "
-        "home slot, limits 64 and 8; K17 on K16's tables, max_probe 1, the limit and 200; "
+        "home slot (and 20 of 5 copies each), limits 64 and 8, n % 4 of 0-3, a view one word "
+        "in, 1M keys all equal, the random keys and the view also at 4 keys a thread; K17 on "
+        "K16's tables, max_probe 1, the limit and 200; "
         "K18: overflow on either side, inactive tails, empty sides, 1-65536 buckets, a sparse "
         "case, a side all inactive)")
     return errs
@@ -3841,7 +3867,8 @@ def phase_engines(dev, card: str) -> dict:
     """The alternative u32 engines at the bench's shape: hash_join_count and
     hash_join under "searchsorted", "table" and "bucketed" at fields 0 and 1
     on 1M + 1M rows (raw tables, and the dedup'd sides with live counts),
-    field 1 at 8M + 8M; ``distinct`` and ``merge_join`` under "fastpath" at
+    field 1 at 8M + 8M (and ``hash_join`` under "table" there);
+    ``distinct`` and ``merge_join`` under "fastpath" at
     1M and 16M rows; each against numpy and the generic engine, with the
     launch counters set to 0 around each run, times beside the generic
     engine's and ``torch.isin``; the three forced fallbacks; K15-K18 against
@@ -3976,13 +4003,22 @@ def phase_engines(dev, card: str) -> dict:
     r_cols, s_cols = gen_pair(BIG_ROWS)
     r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
     with contextlib.ExitStack() as stack:
-        calls = {n: stack.enter_context(recorded_calls(n, n)) for n in BIG_RECORDED}
+        calls = {n: stack.enter_context(recorded_calls(m, n)) for m, n in BIG_RECORDED}
         engine_runs(f"field 1, {BIG_ROWS} + {BIG_ROWS} rows", s, r, 1, None, None,
                     membership_oracle(s_cols["num"], BIG_ROWS, r_cols["num"], BIG_ROWS), card,
                     True, runs)
     captured_big = {n: c[0][0] for n, c in calls.items()}
     for name, e in check_engine_kernels_on(captured_big, f"{BIG_ROWS} field-1").items():
         errs[name] = max(errs[name], e)
+    hit = np.isin(r_cols["num"], s_cols["num"])
+    out, n_out = hash_join(s, r, 1, engine_cfg("table"))
+    if int(n_out) != int(hit.sum()) or not np.array_equal(
+            u32_host(out.recid[: int(hit.sum())]), r_cols["recid"][hit]):
+        raise AssertionError(f"[engines] hash_join table, {BIG_ROWS} + {BIG_ROWS}: rows differ "
+                             f"from numpy")
+    log(f"[engines] hash_join table, field 1, {BIG_ROWS} + {BIG_ROWS} rows: {int(hit.sum())} "
+        f"probe rows emitted, == numpy")
+    del out, hit
     both = RecordBatch.concat([r, s])
     fastpath_runs(f"field 1, {2 * BIG_ROWS} rows (merge_join {BIG_ROWS} + {BIG_ROWS})", both,
                   r, s, len(np.unique(np.concatenate([r_cols["num"], s_cols["num"]]))),
@@ -4018,15 +4054,20 @@ def check_engine_kernels_on(captured: dict, run: str) -> dict:
     return errs
 
 
-BIG_RECORDED = ("sorted_probe", "bucket_probe")  # K15 and K18 at 8M + 8M as well
+# K15-K18 at 8M + 8M as well
+BIG_RECORDED = (("sorted_probe", "sorted_probe"), ("bucket_probe", "bucket_probe"),
+                ("hash_set", "hash_set_build"), ("hash_set", "hash_set_probe"))
 
 
 def probe_specs(captured: dict) -> dict:
-    """K15's and K18's calls of one run: their wrappers, plain versions,
-    PyTorch yardstick, bytes and operations, shape."""
+    """K15-K18's calls of one run: their wrappers, plain versions, PyTorch
+    yardstick, bytes and operations, shape (K16 by the parts of its result
+    that the order of its atomics leaves fixed)."""
     from database_technology_algorithms_tpu_torch.batch import as_u32
     from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
         bucket_probe, bucket_probe_plain)
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
     from database_technology_algorithms_tpu_torch.kernels.sorted_probe import (
         sorted_probe, sorted_probe_plain)
 
@@ -4051,11 +4092,24 @@ def probe_specs(captured: dict) -> dict:
         lib_name=None, nbytes=8 * bb.shape[0] + 9 * pb.shape[0] + 4, nops=compares + searches,
         shape=f"{nbuckets} buckets of cap {cap}, {bb.shape[0]} + {pb.shape[0]} rows, "
               f"{compares} key compares")
+    keys, size, count, limit = captured["hash_set_build"]
+    n = keys.shape[0]
+    out["hash_set_build"] = dict(
+        kern=lambda: hash_set_build(keys, size, count, limit),
+        plain=lambda: hash_set_build_plain(keys, size, count, limit), lib=None, lib_name=None,
+        nbytes=4 * n + 4 * size + 8, nops=12 * n, shape=f"{n} build keys into {size} slots")
+    hs, pkeys, pcount, max_probe = captured["hash_set_probe"]
+    npk = pkeys.shape[0]
+    out["hash_set_probe"] = dict(
+        kern=lambda: hash_set_probe(hs, pkeys, pcount, max_probe),
+        plain=lambda: hash_set_probe_plain(hs, pkeys, pcount, max_probe), lib=None,
+        lib_name=None, nbytes=4 * size + 4 + 4 * npk + 5 * npk, nops=12 * npk,
+        shape=f"{npk} probe keys against {size} slots")
     return out
 
 
 def probe_readings(name: str, sp: dict, card: str, what: str) -> dict:
-    """One K15 or K18 shape: device ms of a wrapper call, of its plain
+    """One K15-K18 shape: device ms of a wrapper call, of its plain
     version and yardstick, its bound, and its launches' own times (each
     kernel and memset of one call)."""
     bound, by = bound_of(sp["nbytes"], sp["nops"])
@@ -4063,45 +4117,43 @@ def probe_readings(name: str, sp: dict, card: str, what: str) -> dict:
          "bound_by": by,
          "library_ms": device_ms(sp["lib"]) if sp["lib"] is not None else None,
          "shape": sp["shape"]}
-    prof = profile_device(sp["kern"], reps=10)
-    r["by_launch"] = {launch_name(k): us / 1e3 for k, us in prof["top"]}
+    r["by_launch"] = launches_in_order(sp["kern"])
     log(f"[timing] {card}: {name} ({what}: {sp['shape']}): device time per call: kernel "
         f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
         + (f"{sp['lib_name']} {r['library_ms']:.4f} ms" if sp["lib"] is not None else "none")
         + f", bound {bound:.4f} ms ({sp['nbytes']} B, {sp['nops']} ops, by {by}); by launch: "
-        f"{device_parts(prof, top=4)}")
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in r["by_launch"]))
     return r
+
+
+def launches_in_order(fn, reps: int = 10) -> list:
+    """[name, ms] of each launch of one call of fn in the order they ran (two
+    memsets of one call stay apart), each a mean over the whole calls of a
+    fenced trace (``_profile_calls``)."""
+    for _ in range(PROFILE_ATTEMPTS):
+        calls, lost = _profile_calls(fn, reps)
+        if calls:
+            return [[launch_name(calls[-1][i].name),
+                     sum(c[i].device_time for c in calls) / len(calls) / 1e3]
+                    for i in range(len(calls[0]))]
+    raise RuntimeError(f"torch.profiler lost device events inside the work: {lost}")
 
 
 def engine_records(captured: dict, captured_big: dict, runs: dict, errs: dict,
                    card: str) -> list[dict]:
-    """The kernels line's entries of K15-K18, at the 1M field-1 run's shapes;
-    K15 and K18 also at the 8M + 8M run's (``at_8m``), each with its
-    launches' own times."""
-    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
-        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
+    """The kernels line's entries of K15-K18, at the 1M field-1 run's shapes
+    and at the 8M + 8M run's (``at_8m``), each with its launches' own times
+    in the order they ran (K16's two memsets apart)."""
 
     tag = f"field 1, {ROWS} + {ROWS} rows"
     big_tag = f"field 1, {BIG_ROWS} + {BIG_ROWS} rows"
     specs, big = probe_specs(captured), probe_specs(captured_big)
-    recs = []
-    keys, size, count, limit = captured["hash_set_build"]
-    n = keys.shape[0]
-    recs.append(("hash_set_build", "table", "csrc/hash_set.cu", "ops/hash_table.py:50",
-                 lambda: hash_set_build(keys, size, count, limit),
-                 lambda: hash_set_build_plain(keys, size, count, limit), None, None,
-                 4 * n + 4 * size + 8, 12 * n, f"{n} build keys into {size} slots"))
-    hs, pkeys, pcount, max_probe = captured["hash_set_probe"]
-    npk = pkeys.shape[0]
-    recs.append(("hash_set_probe", "table", "csrc/hash_set.cu", "ops/hash_table.py:108",
-                 lambda: hash_set_probe(hs, pkeys, pcount, max_probe),
-                 lambda: hash_set_probe_plain(hs, pkeys, pcount, max_probe), None, None,
-                 4 * size + 4 + 4 * npk + 5 * npk, 12 * npk,
-                 f"{npk} probe keys against {size} slots"))
     out = []
     for name, engine, src, repl in (
             ("sorted_probe", "searchsorted", "csrc/sorted_probe.cu", "ops/fastpath.py:101"),
-            ("bucket_probe", "bucketed", "csrc/bucket_probe.cu", "ops/bucket_join.py:59")):
+            ("bucket_probe", "bucketed", "csrc/bucket_probe.cu", "ops/bucket_join.py:59"),
+            ("hash_set_build", "table", "csrc/hash_set.cu", "ops/hash_table.py:50"),
+            ("hash_set_probe", "table", "csrc/hash_set.cu", "ops/hash_table.py:108")):
         rec = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
                "replaces": f"{JAX_PKG}/{repl}",
                "launches": runs[(tag, engine)]["launches"].get(name, 0),
@@ -4109,20 +4161,6 @@ def engine_records(captured: dict, captured_big: dict, runs: dict, errs: dict,
         rec.update(probe_readings(name, specs[name], card, tag))
         rec["at_8m"] = probe_readings(name, big[name], card, big_tag)
         rec["at_8m"]["launches"] = runs[(big_tag, engine)]["launches"].get(name, 0)
-        out.append(rec)
-    for name, engine, src, repl, kern, plain, lib, lib_name, nbytes, nops, shape in recs:
-        bound, by = bound_of(nbytes, nops)
-        rec = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
-               "replaces": f"{JAX_PKG}/{repl}",
-               "launches": runs[(tag, engine)]["launches"].get(name, 0),
-               "max_abs_err": errs[name], "ms": device_ms(kern), "plain_ms": device_ms(plain),
-               "bound_ms": bound, "bound_by": by,
-               "library_ms": device_ms(lib) if lib is not None else None, "shape": shape}
-        log(f"[timing] {card}: {name} ({shape}): device time per call: kernel {rec['ms']:.4f} ms, "
-            f"plain {rec['plain_ms']:.4f} ms, library "
-            + (f"{lib_name} {rec['library_ms']:.4f} ms" if lib is not None else "none")
-            + f", bound {bound:.4f} ms ({nbytes} B, {nops} ops, by {by}); launches a run "
-            f"{rec['launches']}")
         out.append(rec)
     order = ("sorted_probe", "hash_set_build", "hash_set_probe", "bucket_probe")
     return sorted(out, key=lambda r: order.index(r["name"]))
@@ -4298,14 +4336,37 @@ def dist_kernel_edges(g, dev) -> dict:
             errs["hot_hashes"] = max(errs["hot_hashes"], assert_same(
                 f"K20 {what} m={m} threshold {thr}", (hot_hashes(u32_dev(gh, dev), gc, thr),),
                 (hot_hashes_plain(u32_dev(gh, dev), gc, thr),)))
-    # K21: an empty hot list, none at all, a mixed one
-    hashes = u32_dev(g.integers(0, 2**32, 2 * ROWS, dtype=np.uint64), dev)
-    for what, hot in (("empty hot list", np.full(128, m32)), ("no entries", np.zeros(0)),
-                      ("mixed", np.where(np.arange(128) % 9 == 0,
-                                         torch_host_pick(hashes, g, 128), m32))):
+    # K21: an empty hot list, none at all, a mixed one, duplicate entries, one entry, a
+    # list past the scan (search mode) and a full one with many live; on 2M rows, 2M + 1
+    # and 2M + 3 (the vector path's tail) and a view one word in (the scalar path), rows
+    # of 0xFFFFFFFF among them
+    base = g.integers(0, 2**32, 2 * ROWS + 4, dtype=np.uint64)
+    base[::1000] = m32
+    hashes = u32_dev(base, dev)
+    views = {"2M rows": hashes[:2 * ROWS], "2M + 1": hashes[:2 * ROWS + 1],
+             "2M + 3": hashes[:2 * ROWS + 3], "one word in": hashes[1:2 * ROWS + 1]}
+    full = torch_host_pick(hashes, g, dist_plan.IN_SET_MAX_HOT)
+    full[g.random(full.shape[0]) < 0.5] = m32
+    lists = (("empty hot list", np.full(128, m32)), ("no entries", np.zeros(0)),
+             ("mixed", np.where(np.arange(128) % 9 == 0, torch_host_pick(hashes, g, 128), m32)),
+             ("duplicate entries", np.repeat(torch_host_pick(hashes, g, 8), 16)),
+             ("one entry", torch_host_pick(hashes, g, 1)),
+             ("past the scan", np.where(np.arange(dist_plan.IN_SET_SCAN_MAX + 44) % 3 == 0,
+                                        torch_host_pick(hashes, g, dist_plan.IN_SET_SCAN_MAX + 44),
+                                        m32)),
+             (f"full, {int((full != m32).sum())} live", full))
+    modes = set()
+    for what, hot in lists:
         hot_t = u32_dev(hot, dev)
-        errs["in_hot_set"] = max(errs["in_hot_set"], assert_same(
-            f"K21 {what}", (in_hot_set(hashes, hot_t),), (in_hot_set_plain(hashes, hot_t),)))
+        for view, hh in views.items():
+            if what.startswith("full") and view not in ("2M rows", "one word in"):
+                continue
+            plan = dist_plan.in_set_plan(hh.shape[0], hot_t.shape[0], hh.data_ptr(), 0)
+            modes.add((plan.vec, plan.search))
+            errs["in_hot_set"] = max(errs["in_hot_set"], assert_same(
+                f"K21 {what}, {view}", (in_hot_set(hh, hot_t),), (in_hot_set_plain(hh, hot_t),)))
+    if len(modes) != 4:
+        raise AssertionError(f"K21's edges took {sorted(modes)} of its (vector, search) forms")
     # K22: 1 and 3 splitters, keys equal to a splitter, on both sides of 2^31, 1-4 words;
     # strided words (the scalar path), contiguous aligned ones (the vector path) with
     # n % 4 = 0-3 rows of tail, misaligned ones (a view one row in: the scalar path),
@@ -4351,7 +4412,10 @@ def dist_kernel_edges(g, dev) -> dict:
     log("[kernels] K19-K22 and K9's fill equal their plain versions at their edges (K19: n < k, "
         "one run, all dead, ties at the k-th place, a run across 16 tiles, 1M Zipf hashes, the "
         "count on the host and the card, each at k = 16, 33 and 1024 where n allows; K20: every candidate a sentinel, all equal, mixed, "
-        "thresholds -1, 1, 50000; K21: an empty hot list, no entries, a mixed one over 2M rows; "
+        "thresholds -1, 1, 50000; K21: an empty hot list, no entries, a mixed one, duplicate "
+        "entries, one entry, a list past the scan and a full one (IN_SET_MAX_HOT, half live) over "
+        "2M rows, 2M + 1, 2M + 3 and a view one word in, rows of 0xFFFFFFFF among them, both "
+        "paths in both modes; "
         f"K22: 1-4 words, 1 and 3 splitters, keys equal to a splitter and on both sides of "
         f"2^31, strided ({paths[False]} calls on the scalar path, with the views one row in) "
         f"and contiguous with 0-3 rows of tail ({paths[True]} on the vector path), strided "
@@ -4721,6 +4785,8 @@ def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict
             f"a run {rec['launches']}")
         recs.append(rec)
     recs[0].update(dist_k19_readings(hs, nact, k, sel, card))
+    (uh, uhot), _ = captured["field 1, skew, nchunks 1"]["in_hot_set"]
+    recs[2].update(dist_k21_readings(hh, hot, uh, uhot, card))
     recs[-1].update(dist_k22_readings(words, spl, lib, card))
     # K9 at the shuffle's pack and with the overlap join's fill (their own rows in PERF.md)
     for what, run, key in (
@@ -4774,6 +4840,49 @@ def dist_k19_readings(hs: torch.Tensor, nact, k: int, sel: torch.Tensor, card: s
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library torch.topk of the "
             f"(count, position) keys {r['library_ms']:.4f} ms, bound {bound:.4f} ms (by {by}); "
             f"equal to the plain version")
+    return out
+
+
+def dist_k21_readings(hh: torch.Tensor, hot: torch.Tensor, uh: torch.Tensor,
+                      uhot: torch.Tensor, card: str) -> dict:
+    """K21's wrapper on the Zipf shard launches one kernel and nothing else;
+    K21 on the uniform shard of the field-1 skew run, and on a full list
+    (``IN_SET_MAX_HOT`` entries of hashes that occur, a third live: the
+    list sorted in shared memory and searched), each against its plain
+    version, timed beside torch.isin of the live entries."""
+    from database_technology_algorithms_tpu_torch.kernels import dist_plan, hot_set
+
+    alone = profile_device(lambda: hot_set.in_hot_set(hh, hot), reps=10, cpu=False)
+    if len(alone["per_call"]) != 1 or "in_hot_set_kernel" not in alone["per_call"][0]:
+        raise AssertionError(f"K21's wrapper launched {alone['per_call']}, not one kernel")
+    g = np.random.default_rng(21)
+    full = hh[torch.from_numpy(g.integers(0, hh.shape[0], dist_plan.IN_SET_MAX_HOT)).to(
+        hh.device)]
+    full[torch.from_numpy(g.random(full.shape[0]) < 2 / 3).to(hh.device)] = -1
+    out = {}
+    for what, h, lst in (("uniform", uh, uhot), ("full_list", hh, full)):
+        err = assert_same(f"K21 {what}", (hot_set.in_hot_set(h, lst),),
+                          (hot_set.in_hot_set_plain(h, lst),))
+        live = lst[lst != -1]
+        plan = dist_plan.in_set_plan(h.shape[0], lst.shape[0], h.data_ptr(), 0)
+        nops = h.shape[0] * max(live.shape[0], 1)
+        if plan.search:  # one sort of the live entries and a search of them a row
+            p = 1 << max(live.shape[0] - 1, 0).bit_length()
+            stages = p.bit_length() - 1
+            nops = (h.shape[0] * max(live.shape[0] - 1, 0).bit_length()
+                    + p // 2 * stages * (stages + 1) // 2)
+        bound, by = bound_of(5 * h.shape[0] + 4 * lst.shape[0], nops)
+        r = {"ms": device_ms(lambda: hot_set.in_hot_set(h, lst), cpu=False),
+             "plain_ms": device_ms(lambda: hot_set.in_hot_set_plain(h, lst), cpu=False),
+             "library_ms": device_ms(lambda: torch.isin(h, live), cpu=False),
+             "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+             "shape": f"{h.shape[0]} row hashes, {lst.shape[0]} entries ({live.shape[0]} live), "
+                      f"{'search' if plan.search else 'scan'} mode"}
+        out[what] = r
+        log(f"[timing] {card}: in_hot_set, {what} ({r['shape']}): device time per call: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library torch.isin of the live "
+            f"entries {r['library_ms']:.4f} ms, bound {bound:.4f} ms (by {by}); equal to the "
+            f"plain version")
     return out
 
 

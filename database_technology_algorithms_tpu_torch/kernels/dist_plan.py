@@ -18,6 +18,19 @@ K22, the distributed sort's range destination (``csrc/range_dest.cu``).
 - K20 holds the all-gathered candidates (hash and count, 8 bytes each) in
   shared memory, K21 the hot list (4 bytes an entry), K22 the splitters
   (4 bytes a word of each), each at most ``SHARED_BYTES``.
+- K21 takes one of two paths and one of two modes (``in_set_plan``).  A
+  thread takes ``IN_SET_ROWS`` = 8 rows a step: where the hashes are
+  contiguous and 16-byte aligned (the vector path) by two 16-byte loads
+  and one 8-byte store of the 8 bools, the thread just past the last whole
+  group taking the ``n % 8`` rows of the tail one by one; otherwise (a view
+  off 16 bytes) ``IN_SET_ROWS`` rows a thread, a block's width apart.  A
+  list of at most ``IN_SET_SCAN_MAX`` entries (the path's ``2 * ndev *
+  hh_topk`` up to 8 shards) is staged as its live entries, by warp ballots,
+  and scanned, in a grid of ``IN_SET_THREADS`` that covers the rows once;
+  a longer one's live entries (all its entries where the warps' counts do
+  not fit beside them) are sorted in each block's shared memory and
+  searched, in a persistent grid of ``IN_SET_SEARCH_THREADS`` whose blocks
+  fit an SM beside their copy of the list.
 - K22 takes one of two paths (``range_plan``).  Where every key column is
   contiguous and 16-byte aligned, as num and recid are, and so is the
   output, a thread reads ``RANGE_ROWS`` = 4 rows by one 16-byte load a
@@ -33,6 +46,10 @@ emulates the four kernels with them on the CPU.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+from .engines_plan import BLOCK_RESERVED_BYTES, H100_SMS, SM_SHARED_BYTES, SM_THREADS
+
 SHARED_BYTES = 232448  # dynamic shared memory a block may use on the H100
 MAX_ROWS = (1 << 31) - 1  # rows and positions are 32-bit on the card
 TOPK_THREADS = 256  # K19's block (THREADS in csrc/topk_runs.cu)
@@ -43,7 +60,12 @@ TOPK_BIG_SORT = 4096  # K19: keys of a block's list and buffer past TOPK_WARP_K 
 TOPK_BIG_ROUND = 4  # K19: keys a thread offers the block's list a round (BIG_ROUND)
 TOPK_MAX_K = 1024  # K19: picks (MAX_K): the list and a round's entrants fit TOPK_BIG_SORT
 HOT_MAX_CANDIDATES = SHARED_BYTES // 8  # K20
-IN_SET_MAX_HOT = (SHARED_BYTES - 16) // 4  # K21 (16 bytes for the block's count)
+IN_SET_MAX_HOT = (SHARED_BYTES - 16) // 4  # K21: the list in shared memory, 4 bytes an entry
+IN_SET_ROWS = 8  # K21's rows a thread a step (1, 2, 4 or 8): two 16-byte loads at 8
+IN_SET_THREADS = 128  # K21's block in scan mode
+IN_SET_SEARCH_THREADS = 1024  # K21's block in search mode (IN_MAX_THREADS in csrc/hot_set.cu)
+IN_SET_SCAN_MAX = 256  # K21: entries up to which it scans the live ones; past it, it searches
+IN_SET_BLOCKS = 0  # K21: a cap on the grid (0: none), so that a thread takes several steps
 RANGE_MAX_WORDS = 4  # K22's key words (MAX_WORDS in csrc/range_dest.cu)
 RANGE_THREADS = 256  # K22's block (THREADS in csrc/range_dest.cu)
 RANGE_ROWS = 4  # K22's rows a thread (ROWS in csrc/range_dest.cu): one 16-byte load a word
@@ -101,3 +123,37 @@ def range_plan(n: int, ptrs, strides, dest_ptr: int) -> tuple[bool, int]:
     vec = (all(s == 1 for s in strides) and all(p % 16 == 0 for p in ptrs)
            and dest_ptr % 16 == 0)
     return vec, max(-(-n // (RANGE_THREADS * RANGE_ROWS)), 1)
+
+
+class InSetPlan(NamedTuple):
+    rows: int  # rows a thread a step
+    vec: bool  # R rows by one load of 4R bytes (two of 16 at R = 8), one R-byte store
+    search: bool  # the list sorted in shared memory and searched, else its live entries scanned
+    threads: int
+    blocks: int
+
+
+def in_set_plan(n: int, mh: int, hashes_ptr: int, out_ptr: int) -> InSetPlan:
+    """K21's plan over n rows and a list of mh entries, from the ``IN_SET_*``
+    constants.  The vector path takes the hashes aligned to ``4 * rows``
+    bytes (16 at most) and the output to ``rows``; scan mode covers the rows
+    once, search mode takes the blocks that fit the SMs beside their list
+    (at most one a row chunk); ``IN_SET_BLOCKS`` caps either.  Raises
+    ValueError on what the kernel refuses."""
+    rows = IN_SET_ROWS
+    if rows not in (1, 2, 4, 8):
+        raise ValueError(f"in_hot_set: {rows} rows a thread; the kernel takes 1, 2, 4 or 8")
+    search = mh > IN_SET_SCAN_MAX
+    threads = IN_SET_SEARCH_THREADS if search else IN_SET_THREADS
+    if threads < 32 or threads > 1024 or threads % 32:
+        raise ValueError(f"in_hot_set: {threads} threads a block; the kernel takes whole "
+                         f"warps, at most 1024")
+    vec = hashes_ptr % min(4 * rows, 16) == 0 and out_ptr % rows == 0
+    blocks = max(-(-n // (threads * rows)), 1)
+    if search:
+        fit = min(SM_SHARED_BYTES // (4 * max(mh, 1) + BLOCK_RESERVED_BYTES),
+                  SM_THREADS // threads)
+        blocks = min(blocks, max(fit, 1) * H100_SMS)
+    if IN_SET_BLOCKS:
+        blocks = min(blocks, IN_SET_BLOCKS)
+    return InSetPlan(rows, vec, search, threads, blocks)

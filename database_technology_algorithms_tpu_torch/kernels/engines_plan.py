@@ -11,9 +11,15 @@ open-addressing hash set (``csrc/hash_set.cu``), and K18, the bucket compare
   device memory.  S is the least stride for which the live count's index
   fits the tree (``probe_stride``); the count may lie on the card, so the
   kernels derive S themselves.
-- K16 and K17 run one thread a key.  K16 inserts a key into at most
-  ``insert_limit(max_probe)`` slots, the bound under which K17 finds every
-  stored key; a key that passes it fails.
+- K16 (``hash_plan``): after one fill launch (the table to EMPTY), a
+  thread takes ``HASH_KEYS`` keys (at 4 and 8 by 16-byte loads where the
+  keys are contiguous and aligned, the tail and other layouts key by key),
+  issues their home trips together, then their compare-and-swaps together,
+  and reads a taken slot's successors ``HASH_WINDOW`` slots (one aligned
+  16-byte window) a trip.  The plan is the one ``tools/hash_sweep.py``
+  chose: one key a thread, a window of 4.  It inserts a key into at most
+  ``insert_limit(max_probe)`` slots, the bound under which K17, one thread a
+  key, finds every stored key; a key that passes it fails.
 - K18 (``bucket_plan``): one launch writes the first row of every bucket
   on both sides (``bucket_starts_words``), the next gives a block a span of
   ``span`` consecutive buckets, whose build keys it holds in shared memory,
@@ -40,6 +46,10 @@ SM_SHARED_BYTES = 233472  # an SM's shared memory
 BLOCK_RESERVED_BYTES = 1024  # what the card reserves of it a block
 SM_THREADS = 2048
 H100_SMS = 132
+
+HASH_KEYS = 1  # K16's keys a thread: 1, 2, 4 or 8 (4 and 8 read by 16-byte loads)
+HASH_THREADS = 256  # K16's insert block
+HASH_WINDOW = 4  # K16's slots a read: 1, or 4 (one 16-byte window)
 
 BUCKET_SPAN = 32  # buckets a block of K18's compare
 BUCKET_MAX_SPAN = 32  # MAX_SPAN in csrc/bucket_probe.cu: a warp scans the span's counts
@@ -120,6 +130,32 @@ def probe_grid(npr: int, plan: ProbePlan, sms: int = H100_SMS) -> int:
     """The search launch's blocks: blocks_per_sm an SM, at most one a
     block's probe rows."""
     return max(min(plan.blocks_per_sm * sms, -(-npr // plan.threads)), 1)
+
+
+class HashPlan(NamedTuple):
+    keys: int  # keys a thread
+    threads: int
+    window: int  # slots a read
+    vec: bool  # the keys read `keys` a load
+    blocks: int  # the insert's grid: it covers the keys once
+
+
+def hash_plan(n: int, size: int, keys_ptr: int) -> HashPlan:
+    """K16's plan for n keys into `size` slots, from the ``HASH_*``
+    constants: the vector path takes the keys aligned to ``4 * keys`` bytes
+    (16 at most), a window of 4 slots a table of at least 4.  Raises
+    ValueError on what the kernel refuses."""
+    keys, threads, window = HASH_KEYS, HASH_THREADS, HASH_WINDOW
+    if keys not in (1, 2, 4, 8):
+        raise ValueError(f"hash_set_build: {keys} keys a thread; the kernel takes 1, 2, 4 or 8")
+    if threads < 32 or threads > 1024 or threads % 32:
+        raise ValueError(f"hash_set_build: {threads} threads a block; the kernel takes whole "
+                         f"warps, at most 1024")
+    if window not in (1, 4):
+        raise ValueError(f"hash_set_build: a window of {window} slots; the kernel takes 1 or 4")
+    window = window if size >= window else 1
+    vec = keys_ptr % min(4 * keys, 16) == 0
+    return HashPlan(keys, threads, window, vec, max(-(-n // (threads * keys)), 1))
 
 
 class BucketPlan(NamedTuple):

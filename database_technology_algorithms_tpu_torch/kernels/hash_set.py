@@ -46,7 +46,8 @@ def hash_set_build(keys: torch.Tensor, size: int, count=None, limit: int = 64) -
     slots a key.  A count is an int or a 0-d integer tensor on the device.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (after two memsets: the slots to EMPTY, the flag and failure count to 0).
+    under ``engines_plan.hash_plan`` (after one fill launch: the slots to
+    EMPTY, the flag and failure count to 0).
     """
     size, limit = int(size), int(limit)
     engines_plan.check_table("hash_set_build", size)
@@ -61,11 +62,13 @@ def hash_set_build(keys: torch.Tensor, size: int, count=None, limit: int = 64) -
     slots = torch.empty(size, dtype=torch.int32, device=dev)
     meta = torch.empty(2, dtype=torch.int32, device=dev)
     cnt, cnt_host = rowmove_plan.count_arg(count, n, dev)
+    plan = engines_plan.hash_plan(n, size, keys.data_ptr())
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_hash_set_build(
             keys.data_ptr(), n, None if cnt is None else cnt.data_ptr(), cnt_host,
-            slots.data_ptr(), size, limit, meta.data_ptr(), _lib.stream_of(keys),
+            slots.data_ptr(), size, limit, meta.data_ptr(), plan.keys, plan.threads,
+            plan.window, int(plan.vec), plan.blocks, _lib.stream_of(keys),
         )
     _lib.raise_on_error(err, "hash_set_build")
     _lib.LAUNCHES["hash_set_build"] += 1

@@ -71,7 +71,9 @@ def hot_hashes_plain(gh: torch.Tensor, gc: torch.Tensor, threshold) -> torch.Ten
 
 def in_hot_set(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
     """bool[N]: the row's hash equals an entry of `hot` (int32[mh] of u32
-    hashes) that is not ``SENTINEL``.
+    hashes) that is not ``SENTINEL``.  ``dist_plan.in_set_plan`` picks K21's
+    path (16-byte loads of an aligned column, 4-byte ones otherwise) and
+    mode (the live entries scanned, or a long list sorted and searched).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -85,10 +87,12 @@ def in_hot_set(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out
+    plan = dist_plan.in_set_plan(n, mh, hashes.data_ptr(), out.data_ptr())
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_in_hot_set(hashes.data_ptr(), n, hot.data_ptr(), mh, out.data_ptr(),
-                                 _lib.stream_of(hashes))
+                                 plan.rows, int(plan.vec), int(plan.search), plan.threads,
+                                 plan.blocks, _lib.stream_of(hashes))
     _lib.raise_on_error(err, "in_hot_set")
     _lib.LAUNCHES["in_hot_set"] += 1
     return out
@@ -96,6 +100,10 @@ def in_hot_set(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
 
 def in_hot_set_plain(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
     """The JAX package's broadcast compare, against the non-sentinel
-    entries only (the same answer; a sentinel never matches)."""
+    entries only (the same answer; a sentinel never matches), a slice of
+    the rows at a time so that the [rows, live] matrix stays under 2^26."""
     live = hot[hot != SENTINEL]
-    return (hashes[:, None] == live[None, :]).any(1)
+    step = max((1 << 26) // max(live.shape[0], 1), 1)
+    return torch.cat([(hashes[i:i + step, None] == live[None, :]).any(1)
+                      for i in range(0, hashes.shape[0], step)]
+                     + [torch.zeros(0, dtype=torch.bool, device=hashes.device)])

@@ -41,6 +41,16 @@ arguments are the same in every checkout.  The sets:
   (under "searchsorted" and "bucketed"), and ``hash_join_count`` itself
   under both engines: each call's device time (torch.profiler, mean of 10
   calls) and its time by launch, and checksums of the results.
+- ``hash_hot``: K16 and K17 on the inputs ``hash_join_count`` gives them
+  under "table" at field 1 on ``chip_smoke.gen_pair``'s tables of 1M + 1M
+  and 8M + 8M rows, and that ``hash_join_count``; K21 on shard 0's build
+  and probe hashes of the 4-shard skew join on BASELINE config 4's Zipf
+  1.2 tables (4M + 4M, ``chip_smoke.dist_cols``), on shard 0's build
+  hashes of the same join on uniform tables, and on a full list
+  (``IN_SET_MAX_HOT`` entries, a third live), and the Zipf skew step.
+  Each call's device time (torch.profiler, mean of 10 calls) with each
+  launch's own in the order they ran, the step's host wall (median of 5),
+  and checksums of the results (K16's stored set, flag and failures).
 
 Printed a line a checkout; the results (checksums, counters, nres) must be
 equal across checkouts, or the tool fails.
@@ -320,8 +330,110 @@ def probe(cs, dev) -> tuple[dict, dict]:
     return {"ms": ms}, sums
 
 
+def in_order(cs, fn, reps: int = 10) -> list:
+    """[name, ms] of each launch of one call of fn, in the order they ran
+    (two memsets of one call stay apart), each a mean over the whole calls
+    of one profiled window.  Kept here, apart from
+    ``chip_smoke.launches_in_order``, because a checkout's ``chip_smoke.py``
+    may be older than that function."""
+    calls, lost = cs._profile_calls(fn, reps)
+    if not calls:
+        raise RuntimeError(f"checkout_ab: the trace lost events: {lost}")
+    return [[short_name(calls[-1][i].name),
+             sum(c[i].device_time for c in calls) / len(calls) / 1e3]
+            for i in range(len(calls[0]))]
+
+
+def hash_hot(cs, dev) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from database_technology_algorithms_tpu_torch.kernels import dist_plan
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        hash_set_build, hash_set_probe)
+    from database_technology_algorithms_tpu_torch.kernels.hot_set import in_hot_set
+    # bound to the wrappers when first imported: before any recorder swaps one
+    from database_technology_algorithms_tpu_torch.ops import hash_table  # noqa: F401
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join_count
+    from database_technology_algorithms_tpu_torch.parallel import dist_ops, skew
+    from database_technology_algorithms_tpu_torch.parallel.mesh import make_mesh
+
+    ms, sums = {}, {}
+
+    def timed(what, fn):
+        launches = in_order(cs, fn)
+        ms[what] = sum(t for _, t in launches)
+        ms[f"{what}, by launch"] = launches
+
+    def u64sum(t):
+        return int((t.to(torch.int64) & 0xFFFFFFFF).sum())
+
+    cfg = cs.engine_cfg("table")
+    for rows in (cs.ROWS, cs.BIG_ROWS):
+        r_cols, s_cols = cs.gen_pair(rows)
+        r, s = cs.to_batch(r_cols, dev), cs.to_batch(s_cols, dev)
+        with cs.recorded_calls("hash_set", "hash_set_build") as b, \
+                cs.recorded_calls("hash_set", "hash_set_probe") as p:
+            matched, _, nres = hash_join_count(s, r, 1, cfg)
+        bargs, pargs = b[0][0], p[0][0]
+        what = f"{rows} + {rows}"
+        hs = hash_set_build(*bargs)
+        stored = hs.slots[hs.slots != -1]
+        sums[f"K16 {what}"] = [stored.numel(), u64sum(stored), int(hs.has_empty_key),
+                               int(hs.n_failed)]
+        sums[f"K17 {what}"] = int(hash_set_probe(*pargs)[0].sum())
+        sums[f"hash_join_count table {what}"] = [int(nres), int(matched.sum())]
+        timed(f"K16 {what}", lambda a=bargs: hash_set_build(*a))
+        timed(f"K17 {what}", lambda a=pargs: hash_set_probe(*a))
+        timed(f"hash_join_count table {what}", lambda: hash_join_count(s, r, 1, cfg))
+        del r, s, b, p, bargs, pargs, hs, stored
+    mesh = make_mesh(devices=[dev] * cs.DIST_SHARDS)
+    zb, zp = cs.dist_cols(cs.DIST_ROWS, 44, zipf_a=1.2), cs.dist_cols(cs.DIST_ROWS, 45, zipf_a=1.2)
+    zb["valid"][:] = True
+    zp["valid"][:] = True
+    tb, tp = dist_ops.distribute(mesh, zb), dist_ops.distribute(mesh, zp)
+
+    def step():
+        return skew.dist_hash_join_skew(mesh, tb, tp, 1)
+
+    with cs.recorded_calls("hot_set", "in_hot_set") as calls:
+        out, nres, ovf, n_hot = step()
+    sums["skew step zipf"] = [int(nres), int(ovf), int(n_hot)]
+    for i, side in ((0, "build"), (cs.DIST_SHARDS, "probe")):
+        hh, hot = calls[i][0]
+        what = f"K21 zipf shard 0 {side}, {hh.shape[0]} hashes, {hot.shape[0]} entries"
+        sums[what] = int(in_hot_set(hh, hot).sum())
+        timed(what, lambda hh=hh, hot=hot: in_hot_set(hh, hot))
+    # the same on a uniform shard (no hot key), then a full list, a third of it
+    # live, of hashes that occur
+    ub, up = cs.dist_cols(cs.DIST_ROWS, 46), cs.dist_cols(cs.DIST_ROWS, 47)
+    ub["valid"][:] = True
+    up["valid"][:] = True
+    tub, tup = dist_ops.distribute(mesh, ub), dist_ops.distribute(mesh, up)
+    with cs.recorded_calls("hot_set", "in_hot_set") as ucalls:
+        skew.dist_hash_join_skew(mesh, tub, tup, 1)
+    uh, uhot = ucalls[0][0]
+    what = f"K21 uniform shard 0 build, {uh.shape[0]} hashes, {uhot.shape[0]} entries"
+    sums[what] = int(in_hot_set(uh, uhot).sum())
+    timed(what, lambda: in_hot_set(uh, uhot))
+    del tub, tup, ucalls
+    g = np.random.default_rng(18)
+    hh = calls[0][0][0]
+    full = hh[torch.from_numpy(g.integers(0, hh.shape[0], dist_plan.IN_SET_MAX_HOT)).to(dev)]
+    full[torch.from_numpy(g.random(full.shape[0]) < 2 / 3).to(dev)] = -1
+    what = f"K21 full list, {hh.shape[0]} hashes, {full.shape[0]} entries"
+    sums[what] = int(in_hot_set(hh, full).sum())
+    timed(what, lambda: in_hot_set(hh, full))
+    del calls
+    prof = cs.profile_device(step, reps=5)
+    ms["skew step zipf"] = prof["busy_us"] / 1e3
+    ms["skew step zipf, in_hot_set"] = sum(us for n, us in prof["top"] if "in_hot_set" in n) / 1e3
+    ms["skew step zipf, host wall"] = cs.wall_ms(step, reps=5)
+    return {"ms": ms}, sums
+
+
 SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range,
-        "topk_agg": topk_agg, "probe": probe}
+        "topk_agg": topk_agg, "probe": probe, "hash_hot": hash_hot}
 
 
 def one(sets: list[str], root: str) -> dict:

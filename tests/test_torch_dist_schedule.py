@@ -12,8 +12,16 @@ against their plain torch versions and the JAX package.
   tiles that every long run crosses.
 - K20 (``csrc/hot_set.cu``): a thread a candidate, the counts of equal
   candidates summed in 32 bits, the first occurrence, the signed threshold.
-- K21 (``csrc/hot_set.cu``): the hot list's non-sentinel entries copied in
-  any order, a row against each.
+- K21 (``csrc/hot_set.cu``) under its plan (``dist_plan.in_set_plan``):
+  the vector path's R rows a thread (one load, one R-byte store) with the
+  tail's n % R rows taken by the thread past the last whole group, the
+  scalar path's R rows a block's width apart, units handed out by a grid
+  that may be capped; scan mode's staging of the live entries by warp
+  ballots and warp counts, in order, then a compare with each; search
+  mode's staging the same way (or of the whole list where the warps'
+  counts do not fit beside it), its bitonic network over the next power of
+  two with the pairs past the staged entries skipped, then a lower-bound
+  search; every row written once.
 - K22 (``csrc/range_dest.cu``): the plan's path and grid
   (``dist_plan.range_plan``); on the vector path a thread's 4 rows by one
   16-byte load a word and the tail's n % 4 rows by the thread past the last
@@ -416,10 +424,121 @@ def test_k20_refuses_past_shared_memory():
                             torch.zeros(0, dtype=torch.int32), 1).numel() == 0
 
 
-def k21_emulate(hashes, hot) -> np.ndarray:
-    live = [int(v) for v in np.asarray(hot, np.uint32) if v != M32]  # any order
-    return np.array([any(int(h) == v for v in live) for h in np.asarray(hashes, np.uint32)],
-                    bool)
+def k21_stage_live(hot: np.ndarray, threads: int) -> np.ndarray:
+    """Scan mode's staging: rounds of `threads` entries, each warp's live
+    entries ranked by its ballot and placed after the earlier warps' counts
+    and the earlier rounds' entries."""
+    staged = np.full(len(hot), M32, np.uint64)
+    live = 0
+    for c in range(0, len(hot), threads):
+        v = np.full(threads, M32, np.uint64)
+        v[: len(hot[c:c + threads])] = hot[c:c + threads]
+        flags = (v != M32).reshape(-1, 32)
+        counts = flags.sum(1)
+        for t in np.flatnonzero(v != M32):
+            w, lane = divmod(int(t), 32)
+            staged[live + counts[:w].sum() + flags[w, :lane].sum()] = v[t]
+        live += int(counts.sum())
+    return staged[:live]
+
+
+def k21_sort(hot: np.ndarray) -> np.ndarray:
+    """Search mode's bitonic network: over p = the next power of two >= mh,
+    every comparator puts the smaller value at the lower index; a stage k
+    pairs each lower-half index with its mirror i ^ (k - 1), then with
+    i + j; a pair whose upper index is past mh is skipped."""
+    a = np.asarray(hot, np.uint64).copy()
+    mh = len(a)
+    p = 1
+    while p < mh:
+        p *= 2
+    k = 2
+    while k <= p:
+        j = k // 2
+        while j:
+            i = np.arange(p // 2)
+            lo = ((i & ~(j - 1)) << 1) | (i & (j - 1))
+            hi = lo ^ (k - 1) if j == k // 2 else lo + j
+            lo, hi = lo[hi < mh], hi[hi < mh]
+            assert len(np.unique(np.concatenate([lo, hi]))) == 2 * len(lo)  # disjoint pairs
+            x, y = a[lo].copy(), a[hi].copy()
+            swap = y < x
+            a[lo[swap]], a[hi[swap]] = y[swap], x[swap]
+            j //= 2
+        k *= 2
+    return a
+
+
+def k21_search(sorted_hot: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """The lower-bound search of each row in the sorted list: steps of the
+    largest power of two <= mh down to 1; found where the row is no sentinel
+    and the entry at its bound equals it."""
+    mh = len(sorted_hot)
+    if mh == 0:
+        return np.zeros(len(h), bool)
+    top = 1
+    while top * 2 <= mh:
+        top *= 2
+    pos, s = np.zeros(len(h), np.int64), top
+    while s:
+        cand = pos + s
+        adv = (cand <= mh) & (sorted_hot[np.minimum(cand, mh) - 1] < h)
+        pos = np.where(adv, cand, pos)
+        s //= 2
+    return (h != M32) & (pos < mh) & (sorted_hot[np.minimum(pos, mh - 1)] == h)
+
+
+def k21_emulate(hashes, hot, plan=None) -> np.ndarray:
+    """csrc/hot_set.cu's K21 under `plan` (``dist_plan.in_set_plan``; by
+    default the one the wrapper makes for a contiguous, aligned column),
+    thread by thread: units u, u + blocks * threads, ... of each thread;
+    every row written once."""
+    h, hot = np.asarray(hashes, np.uint64), np.asarray(hot, np.uint64)
+    n, mh = len(h), len(hot)
+    if plan is None:
+        plan = dist_plan.in_set_plan(n, mh, 0, 0)
+    r, t = plan.rows, plan.threads
+    if plan.search:  # the live entries, or all where the warps' counts do not fit beside them
+        compact = 4 * max(mh, 1) + t // 8 <= dist_plan.SHARED_BYTES
+        staged = k21_stage_live(hot, t) if compact else hot
+        s_hot = k21_sort(staged)
+        np.testing.assert_array_equal(s_hot, np.sort(staged))
+        member = lambda x: k21_search(s_hot, x)  # noqa: E731
+    else:
+        s_hot = k21_stage_live(hot, t)
+        np.testing.assert_array_equal(s_hot, hot[hot != M32])
+        member = lambda x: (x[:, None] == s_hot[None, :]).any(1)  # noqa: E731
+    units = -(-n // r) if plan.vec else -(-n // (t * r)) * t
+    out, written = np.zeros(n, bool), np.zeros(n, np.int64)
+    stores = 0
+    for first in range(plan.blocks * t):
+        for u in range(first, units, plan.blocks * t):
+            if plan.vec:
+                full = n // r
+                rows = np.arange(r * u, r * u + r) if u < full else np.arange(
+                    r * full, n if u == full else r * full)
+                stores += u < full  # one R-byte store
+            else:
+                c, lane = divmod(u, t)
+                rows = c * t * r + lane + t * np.arange(r)
+                rows = rows[rows < n]
+            out[rows] = member(h[rows])
+            written[rows] += 1
+    assert (written == 1).all(), "a row written twice or never"
+    assert stores == (n // r if plan.vec else 0)
+    return out
+
+
+def k21_list(case: str, g, h: np.ndarray, mh: int) -> np.ndarray:
+    hot = np.full(mh, M32, np.uint64)
+    if case == "mixed":
+        hot[g.choice(mh, min(9, mh), replace=False)] = g.choice(h, min(9, mh))
+    elif case == "duplicates":
+        hot[:] = np.repeat(g.choice(h, -(-mh // 8)), 8)[:mh]
+        hot[::5] = M32
+    elif case == "all live":
+        hot[:] = g.choice(h, mh)
+    return hot.astype(np.uint32)
 
 
 @pytest.mark.parametrize("case", ["mixed", "empty hot list", "no list", "every row hot"])
@@ -440,6 +559,128 @@ def test_k21_emulation_matches_plain_and_jax(case):
         np.testing.assert_array_equal(np.asarray(jskew.in_hash_set(jnp.asarray(h),
                                                                    jnp.asarray(hot))), emu)
     assert emu.any() == (case in ("mixed", "every row hot"))
+
+
+def k21_plan_of(h_t: torch.Tensor, mh: int):
+    """K21's plan for this column, as the wrapper makes it (the output a
+    fresh, aligned allocation)."""
+    n = h_t.shape[0]
+    return dist_plan.in_set_plan(n, mh, h_t.data_ptr(),
+                                 torch.empty(max(n, 1), dtype=torch.bool).data_ptr())
+
+
+def check_k21(h: np.ndarray, hot: np.ndarray, offset: int, want_vec=None, want_search=None):
+    """K21's emulation under the wrapper's plan for `h` placed `offset`
+    words into its buffer, against the wrapper (the plain version here),
+    the plain version and the JAX package."""
+    buf = t32(np.concatenate([np.zeros(offset, np.uint32), h]))
+    h_t = buf[offset:]
+    plan = k21_plan_of(h_t, len(hot))
+    if want_vec is not None:
+        assert plan.vec == want_vec
+    if want_search is not None:
+        assert plan.search == want_search
+    emu = k21_emulate(h, hot, plan)
+    np.testing.assert_array_equal(in_hot_set(h_t, t32(hot)).numpy(), emu)
+    np.testing.assert_array_equal(in_hot_set_plain(h_t, t32(hot)).numpy(), emu)
+    if len(hot):
+        np.testing.assert_array_equal(
+            np.asarray(jskew.in_hash_set(jnp.asarray(h), jnp.asarray(hot))), emu)
+    want = np.isin(h, hot[hot != M32])
+    np.testing.assert_array_equal(emu, want)
+    return plan
+
+
+@pytest.mark.parametrize("tail", [0, 1, 2, 3, 5, 7])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case,mh", [("no list", 0), ("mixed", 1), ("mixed", 128),
+                                     ("empty hot list", 128), ("duplicates", 128),
+                                     ("all live", 128)])
+def test_k21_paths_and_tails(case, mh, offset, tail, monkeypatch):
+    """The vector path (aligned, 0-7 rows of tail past the 8-row groups)
+    and the scalar path (one word in) at small blocks, in scan mode, with
+    rows of 0xFFFFFFFF."""
+    monkeypatch.setattr(dist_plan, "IN_SET_THREADS", 64)
+    g = np.random.default_rng(mh * 8 + offset * 4 + tail)
+    h = g.integers(0, 2**32, 8 * 64 * 3 + tail, dtype=np.uint64).astype(np.uint32)
+    h[::11] = M32
+    hot = k21_list(case, g, h, mh)
+    plan = check_k21(h, hot, offset, want_vec=offset == 0, want_search=False)
+    assert plan.blocks * plan.threads * plan.rows >= len(h)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("search", [False, True])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_k21_rows_modes_and_capped_grids(rows, search, blocks, offset, monkeypatch):
+    """Every rows a thread in both modes, the grid covering the rows once or
+    capped at 1 and 3 blocks (a thread takes several units), views 0-2
+    words in: a view whose offset breaks the 4R-byte alignment takes the
+    scalar path."""
+    monkeypatch.setattr(dist_plan, "IN_SET_ROWS", rows)
+    monkeypatch.setattr(dist_plan, "IN_SET_THREADS", 32)
+    monkeypatch.setattr(dist_plan, "IN_SET_SEARCH_THREADS", 64)
+    monkeypatch.setattr(dist_plan, "IN_SET_SCAN_MAX", 16)
+    monkeypatch.setattr(dist_plan, "IN_SET_BLOCKS", blocks)
+    g = np.random.default_rng(rows * 100 + blocks * 10 + offset)
+    h = g.integers(0, 2**20, 1000 + rows + offset, dtype=np.uint64).astype(np.uint32)
+    h[::13] = M32
+    hot = k21_list("all live" if search else "mixed", g, h, 40 if search else 16)
+    hot[::3] = M32
+    plan = check_k21(h, hot, offset, want_vec=(4 * offset) % min(4 * rows, 16) == 0,
+                     want_search=search)
+    monkeypatch.setattr(dist_plan, "IN_SET_BLOCKS", 0)
+    whole = k21_plan_of(t32(h), len(hot)).blocks
+    assert plan.blocks == (min(blocks, whole) if blocks else whole)
+
+
+@pytest.mark.parametrize("mh", [17, 100, 257, 1000, 4097])
+@pytest.mark.parametrize("case", ["mixed", "duplicates", "all live", "empty hot list"])
+def test_k21_search_mode_sorts_and_finds(case, mh, monkeypatch):
+    """Lists past the scan's threshold (here 16 entries): the network sorts
+    any length, powers of two and not, sentinels last; duplicates and rows
+    of 0xFFFFFFFF never mismatch."""
+    monkeypatch.setattr(dist_plan, "IN_SET_SCAN_MAX", 16)
+    monkeypatch.setattr(dist_plan, "IN_SET_SEARCH_THREADS", 128)
+    g = np.random.default_rng(mh)
+    h = g.integers(0, 2**32, 1501, dtype=np.uint64).astype(np.uint32)
+    h[::9] = M32
+    hot = k21_list(case, g, h, mh)
+    check_k21(h, hot, 0, want_vec=True, want_search=True)
+
+
+@pytest.mark.parametrize("mh", [58080, 58081, dist_plan.IN_SET_MAX_HOT])
+def test_k21_full_lists_with_and_without_room_to_compact(mh):
+    """At 1024 threads the warps' counts (128 bytes) fit beside a list of
+    up to 58,080 entries: its live entries are sorted; past that the whole
+    list is, sentinels last."""
+    g = np.random.default_rng(mh)
+    h = g.integers(0, 2**32, 3001, dtype=np.uint64).astype(np.uint32)
+    h[::17] = M32
+    hot = k21_list("all live", g, h, mh)
+    hot[g.random(mh) < 0.5] = M32
+    plan = check_k21(h, hot, 0, want_vec=True, want_search=True)
+    assert plan.threads == 1024
+    assert (4 * mh + plan.threads // 8 <= dist_plan.SHARED_BYTES) == (mh <= 58080)
+
+
+def test_k21_plan_at_the_path_and_past_the_scan():
+    """The path's list (2 * 4 * 16 entries) is scanned by a grid that covers
+    1M rows once at 8 rows a thread; a full list is searched by the blocks
+    that fit 132 SMs beside it (at most one a row chunk); the refusal limit
+    is the shared memory's."""
+    p = dist_plan.in_set_plan(1_000_000, 128, 0, 0)
+    assert p == dist_plan.InSetPlan(8, True, False, 128, 977)
+    p = dist_plan.in_set_plan(1 << 20, dist_plan.IN_SET_MAX_HOT, 4, 0)
+    assert (p.vec, p.search, p.threads, p.blocks) == (False, True, 1024, 128)
+    p = dist_plan.in_set_plan(1 << 22, dist_plan.IN_SET_MAX_HOT, 8, 0)
+    assert (p.vec, p.search, p.blocks) == (False, True, 132)
+    assert dist_plan.in_set_plan(1 << 22, 1000, 0, 0).blocks == 2 * 132
+    assert dist_plan.IN_SET_MAX_HOT == (dist_plan.SHARED_BYTES - 16) // 4
+    with pytest.raises(ValueError, match="K21"):
+        dist_plan.check_hot_list("in_hot_set", 10, dist_plan.IN_SET_MAX_HOT + 1)
+    dist_plan.check_hot_list("in_hot_set", 10, dist_plan.IN_SET_MAX_HOT)
 
 
 # ---------------------------------------------------------------------------

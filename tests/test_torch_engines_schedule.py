@@ -7,10 +7,15 @@ the JAX package).
   the tree's walk and a lower-bound search in the unsigned order of at most
   S - 1 live keys; the plan is made small through ``engines_plan`` so that
   both run at CPU sizes, and no row past the live count is read.
-- K16 (``csrc/hash_set.cu``): one thread a build key, linear probing with
-  one compare-and-swap a slot, in random interleavings of the threads'
-  steps; every stored key is found by K17, and a key fails exactly when it
-  has tried ``engines_plan.insert_limit(max_probe)`` slots.
+- K16 (``csrc/hash_set.cu``) under its plan (``engines_plan.hash_plan``):
+  K keys a thread (the vector path's K consecutive keys and the tail's
+  n % K taken by the thread past the last whole group, the scalar path's K
+  keys a block's width apart), every home window read before any is
+  looked at, a window of W slots a
+  read, a compare-and-swap on a slot that read EMPTY, in random
+  interleavings of the threads' steps (a window read one step, a CAS
+  another); every stored key is found by K17, and a key fails exactly when
+  it has tried ``engines_plan.insert_limit(max_probe)`` slots.
 - K18 (``csrc/bucket_probe.cu``): the starts launch (each bucket's first
   row on both sides, every entry written once), then a block a span of
   buckets: the overflow rule (more than ``cap`` rows on either side), the
@@ -261,34 +266,117 @@ def test_k15_probe_plan(monkeypatch):
 # K16 and K17
 
 
-def k16_emulate(keys: np.ndarray, size: int, count: int, limit: int, g) -> tuple:
-    """csrc/hash_set.cu's build, one thread a live key, the threads' steps
-    (one read-then-CAS of a slot each) interleaved in a random order.
-    Returns (table u32[size], has_empty_key, n_failed, attempts a key)."""
+def k16_threads(n: int, plan) -> list:
+    """The rows of each thread of K16's grid under `plan`, a prefix of its
+    K, by global thread index (an empty list for a thread with none)."""
+    k, t = plan.keys, plan.threads
+    out = []
+    for u in range(plan.blocks * t):
+        if plan.vec:
+            full = n // k
+            rows = list(range(k * u, k * u + k)) if u < full else (
+                list(range(k * full, n)) if u == full else [])
+        else:
+            c, lane = divmod(u, t)
+            rows = [r for r in (c * k * t + lane + j * t for j in range(k)) if r < n]
+        out.append(rows)
+    return out
+
+
+def k16_emulate(keys: np.ndarray, size: int, count: int, limit: int, g, plan=None) -> tuple:
+    """csrc/hash_set.cu's build under `plan` (by default the one the wrapper
+    makes for a contiguous, aligned column), the threads' steps interleaved
+    in a random order: each thread first reads every pending key's home
+    window (a step each), then walks each key's window from its slot, a
+    CAS on a slot that read EMPTY (a step), reading the next window (a
+    step) when one is passed.  Returns (table u32[size], has_empty_key,
+    n_failed, slots tried a live key)."""
+    n = len(keys)
+    if plan is None:
+        plan = engines_plan.hash_plan(n, size, 0)
+    w = plan.window
     table = np.full(size, EMPTY, dtype=np.uint64)
-    h = mix(keys[:count])
-    has_empty = bool((h == EMPTY).any())
-    slot = (h & (size - 1)).astype(np.int64)
-    tries = np.zeros(count, np.int64)
-    pending = [i for i in range(count) if h[i] != EMPTY]
-    failed = 0
-    if limit == 0:  # the loop never runs: every key to store fails
-        failed, pending = len(pending), []
-    while pending:
-        k = int(g.integers(len(pending)))
-        i = pending[k]
-        cur = table[slot[i]]
-        if cur == EMPTY:
-            table[slot[i]] = h[i]  # the CAS succeeds
-        tries[i] += 1
-        if cur == EMPTY or cur == h[i]:
-            pending.pop(k)
-            continue
-        slot[i] = (slot[i] + 1) % size
-        if tries[i] == limit:
-            failed += 1
-            pending.pop(k)
-    return table, has_empty, failed, tries
+    h = mix(keys)
+    live = np.arange(n) < count
+    has_empty = bool((live & (h == EMPTY)).any())
+    tries = np.zeros(n, np.int64)
+    state = {"failed": 0}
+    threads = k16_threads(n, plan)
+    assert sorted(r for rows in threads for r in rows) == list(range(n)), "a key taken twice"
+    inserts = [[r for r in rows if live[r] and h[r] != EMPTY] for rows in threads]
+
+    def settle(r, slot, win):
+        """The walk of key r from `slot` over its window `win`: yields before
+        each CAS; returns (settled, next slot)."""
+        base = slot - slot % w
+        for s in range(slot % w, w):
+            if tries[r] == limit:
+                break
+            cur = win[s]
+            if cur == EMPTY:
+                yield
+                cur = table[base + s]  # the CAS: atomic, on the slot's value now
+                if cur == EMPTY:
+                    table[base + s] = h[r]
+            if cur == EMPTY or cur == h[r]:
+                return True, slot
+            tries[r] += 1
+        if tries[r] == limit:
+            state["failed"] += 1
+            return True, slot
+        return False, (base + w) % size
+
+    def run(rows):
+        wins = {}
+        for r in rows:  # every home window read, in flight together
+            home = int(h[r]) & (size - 1)
+            yield
+            wins[r] = (home, table[home - home % w: home - home % w + w].copy())
+        cas, nxt = {}, {}
+        for r in rows:  # each key's first slot that holds it or reads EMPTY
+            slot, win = wins[r]
+            base = slot - slot % w
+            for s in range(slot % w, w):
+                if tries[r] == limit or win[s] in (h[r], EMPTY):
+                    break
+                tries[r] += 1
+            else:
+                s = w
+            if s < w and tries[r] < limit and win[s] == EMPTY:
+                cas[r] = base + s
+            elif s < w and tries[r] < limit:
+                continue  # found in the window
+            elif tries[r] == limit:
+                state["failed"] += 1
+            else:
+                nxt[r] = (base + w) % size
+        won = {}
+        for r, at in cas.items():  # every CAS in flight together
+            yield
+            won[r] = table[at]
+            if won[r] == EMPTY:
+                table[at] = h[r]
+        for r, at in cas.items():
+            if won[r] not in (EMPTY, h[r]):
+                tries[r] += 1
+                nxt[r] = (at + 1) % size
+        for r in rows:  # the rest walk on, a window a read
+            if r not in nxt:
+                continue
+            done, slot = False, nxt[r]
+            while not done:
+                yield
+                win = table[slot - slot % w: slot - slot % w + w].copy()
+                done, slot = yield from settle(r, slot, win)
+
+    running = [run(rows) for rows in inserts if rows]
+    while running:
+        k = int(g.integers(len(running)))
+        try:
+            next(running[k])
+        except StopIteration:
+            running.pop(k)
+    return table, has_empty, state["failed"], tries[:count]
 
 
 def k17_emulate(table: np.ndarray, has_empty: bool, keys: np.ndarray, count: int,
@@ -369,6 +457,161 @@ def test_k16_fails_exactly_past_the_bound(nkeys, limit):
     plain = hash_set_build_plain(t32(keys), size, None, limit)
     assert int(plain.n_failed) == failed
     assert int((plain.slots != -1).sum()) == min(nkeys, limit)
+
+
+K16_PLANS = [(k, w) for k in (1, 2, 4, 8) for w in (1, 4)]
+
+
+def k16_plan(monkeypatch, keys: int, window: int, threads: int = 64) -> None:
+    monkeypatch.setattr(engines_plan, "HASH_KEYS", keys)
+    monkeypatch.setattr(engines_plan, "HASH_WINDOW", window)
+    monkeypatch.setattr(engines_plan, "HASH_THREADS", threads)
+
+
+def check_k16(keys: np.ndarray, size: int, count: int, limit: int, offset: int, g,
+              want_vec=None, count_on_card: bool = False) -> tuple:
+    """K16's emulation under the wrapper's plan for `keys` placed `offset`
+    words into their buffer, against the plain version (set, flag and
+    failures) and K17's emulation (every stored key found).  Returns the
+    emulation's (table, has_empty, failed, tries)."""
+    buf = t32(np.concatenate([np.zeros(offset, np.uint32), keys]))
+    k_t = buf[offset:]
+    plan = engines_plan.hash_plan(len(keys), size, k_t.data_ptr())
+    if want_vec is not None:
+        assert plan.vec == want_vec
+    table, has_empty, failed, tries = k16_emulate(keys, size, count, limit, g, plan)
+    assert tries.max(initial=0) <= limit
+    cnt = torch.tensor(count, dtype=torch.int32) if count_on_card else count
+    plain = hash_set_build_plain(k_t, size, cnt, limit)
+    assert int(plain.n_failed) == failed and bool(plain.has_empty_key) == has_empty
+    stored = table[table != EMPTY]
+    assert len(np.unique(stored)) == len(stored), "a key stored twice"
+    if failed == 0:
+        np.testing.assert_array_equal(np.sort(torch_to_u32(plain.slots)), np.sort(table))
+        np.testing.assert_array_equal(np.sort(stored), np.unique(
+            mix(keys[:count])[mix(keys[:count]) != EMPTY]))
+    else:
+        assert len(stored) == int((plain.slots != -1).sum())
+    found = k17_emulate(table, has_empty, keys, len(keys), limit)
+    want = np.isin(mix(keys), stored) | ((mix(keys) == EMPTY) & has_empty)
+    np.testing.assert_array_equal(found, want)
+    return table, has_empty, failed, tries
+
+
+@pytest.mark.parametrize("plan", K16_PLANS, ids=lambda p: f"k{p[0]}-w{p[1]}")
+@pytest.mark.parametrize("case", ["uniform", "bench range", "empty key", "all equal",
+                                  "last window"])
+def test_k16_plans_store_the_set_and_k17_finds_it(case, plan, monkeypatch):
+    """Every keys a thread and window: random keys, the bench's
+    duplicates (keys from 3 n / 10 values), the key whose mix is EMPTY and
+    its pair, every key equal, and keys crowding the table's last window so
+    that their walks wrap to slot 0."""
+    k16_plan(monkeypatch, *plan)
+    g = np.random.default_rng(sum(map(ord, case)) + 10 * plan[0] + plan[1])
+    n = 397
+    size = ttable.table_size_for(n)
+    keys = g.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    if case == "bench range":
+        keys = g.integers(0, 3 * n // 10, size=n).astype(np.uint32)
+    elif case == "empty key":
+        keys[::40] = 0x331DA083  # mixes to EMPTY
+        keys[1::40] = 0xDBDF60C1  # mixes to EMPTY ^ 1
+    elif case == "all equal":
+        keys[:] = 12345
+    elif case == "last window":  # homes at the last 3 slots, 2 copies each
+        keys[:60] = np.repeat(inverse_mix(size - 3 + np.arange(30, dtype=np.uint64) % 3
+                                          + size * np.arange(30, dtype=np.uint64)), 2)
+    table, _, failed, tries = check_k16(keys, size, n - 5, 64, 0, g, want_vec=True)
+    assert failed == 0
+    if case == "last window":
+        assert (table[:20] != EMPTY).sum() >= 20 and tries.max() >= 29
+
+
+@pytest.mark.parametrize("keys_a_thread", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["bench range", "empty key", "all equal", "last window",
+                                  "one home slot"])
+def test_k16_warp_blocks(case, keys_a_thread, monkeypatch):
+    """Blocks of one warp, windows of 4, every keys a thread: the same set,
+    flag and failures as the plain version; keys on one home slot, every
+    copy live, fail past 8."""
+    k16_plan(monkeypatch, keys_a_thread, 4, threads=32)
+    g = np.random.default_rng(sum(map(ord, case)) + keys_a_thread)
+    n = 301
+    size = ttable.table_size_for(n)
+    keys = g.integers(0, 3 * n // 10, size=n).astype(np.uint32)
+    limit = 64
+    if case == "empty key":
+        keys[::40] = 0x331DA083
+    elif case == "all equal":
+        keys[:] = 99
+    elif case == "last window":
+        keys[:60] = np.repeat(inverse_mix(size - 2 + np.arange(30, dtype=np.uint64) % 2
+                                          + size * np.arange(30, dtype=np.uint64)), 2)
+    elif case == "one home slot":
+        keys = np.tile(inverse_mix(7 + size * np.arange(20, dtype=np.uint64)), 5)
+        limit = 8
+    count = len(keys) if case == "one home slot" else len(keys) - 1  # every copy live
+    for _ in range(2):
+        _, _, failed, _ = check_k16(keys, size, count, limit, 0, g)
+        assert failed == (5 * 12 if case == "one home slot" else 0)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tail", [0, 1, 2, 3])
+@pytest.mark.parametrize("keys_a_thread", [4, 8])
+def test_k16_vector_path_tails_and_the_scalar_path(keys_a_thread, tail, offset, monkeypatch):
+    """n % 4 of 0-3 on the vector path and a view one word in (the scalar
+    path), with a live count on the host and on the card."""
+    k16_plan(monkeypatch, keys_a_thread, 4, threads=32)
+    g = np.random.default_rng(100 * keys_a_thread + 10 * tail + offset)
+    n = 8 * 32 * 2 + tail
+    size = ttable.table_size_for(n)
+    keys = g.integers(0, 3 * n // 10, size=n).astype(np.uint32)
+    for count, on_card in ((n, False), (n - 7, True), (n // 3, False)):
+        check_k16(keys, size, count, 64, offset, g, want_vec=offset == 0, count_on_card=on_card)
+
+
+@pytest.mark.parametrize("plan", K16_PLANS, ids=lambda p: f"k{p[0]}-w{p[1]}")
+@pytest.mark.parametrize("limit", [8, 64])
+def test_k16_plans_fail_exactly_past_the_bound(plan, limit, monkeypatch):
+    """100 keys on one home slot, then 20 keys of 5 copies each (20 apart, so
+    copies meet in one warp): past `limit` slots a key fails, every copy of
+    it counted, in any order and under every plan."""
+    k16_plan(monkeypatch, *plan, threads=32)
+    g = np.random.default_rng(limit + 10 * plan[0] + plan[1])
+    size = 128
+    distinct = inverse_mix(9 + size * np.arange(100, dtype=np.uint64))
+    copies = np.tile(distinct[:20], 5)
+    for keys, want in ((distinct, max(100 - limit, 0)), (copies, 5 * max(20 - limit, 0))):
+        for _ in range(2):
+            table, _, failed, _ = check_k16(keys, size, len(keys), limit, 0, g)
+            assert failed == want
+            assert (table != EMPTY).sum() == min(limit, len(np.unique(keys)))
+
+
+def test_k16_hash_plan(monkeypatch):
+    plan = engines_plan.hash_plan(1 << 20, 1 << 21, 0)
+    assert plan == engines_plan.HashPlan(1, 256, 4, True, 4096)
+    assert engines_plan.hash_plan(1 << 20, 1 << 21, 4).vec is True  # 4-byte loads
+    assert engines_plan.hash_plan(5, 2, 0).window == 1
+    monkeypatch.setattr(engines_plan, "HASH_KEYS", 4)
+    assert engines_plan.hash_plan(1 << 20, 1 << 21, 4).vec is False
+    assert engines_plan.hash_plan(1 << 20, 1 << 21, 0).blocks == 1024
+    assert engines_plan.hash_plan(0, 16, 0).blocks == 1
+    monkeypatch.setattr(engines_plan, "HASH_KEYS", 2)
+    assert engines_plan.hash_plan(1 << 20, 1 << 21, 8).vec is True
+    assert engines_plan.hash_plan(1 << 20, 1 << 21, 4).vec is False
+    monkeypatch.setattr(engines_plan, "HASH_KEYS", 3)
+    with pytest.raises(ValueError, match="keys a thread"):
+        engines_plan.hash_plan(10, 16, 0)
+    monkeypatch.setattr(engines_plan, "HASH_KEYS", 4)
+    monkeypatch.setattr(engines_plan, "HASH_WINDOW", 2)
+    with pytest.raises(ValueError, match="window"):
+        engines_plan.hash_plan(10, 16, 0)
+    monkeypatch.setattr(engines_plan, "HASH_WINDOW", 4)
+    monkeypatch.setattr(engines_plan, "HASH_THREADS", 48)
+    with pytest.raises(ValueError, match="whole"):
+        engines_plan.hash_plan(10, 16, 0)
 
 
 @pytest.mark.parametrize("max_probe", [0, 1, 3, 64, 100])
