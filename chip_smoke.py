@@ -115,8 +115,10 @@ Phases (any failure raises and the script exits non-zero):
      reach tens, at cap = total and total // 2, against the host
      ``materialize_field3``; the launch counters set to 0 before each run
      and read after it, its host wall and device time; K13 and K14 against
-     their plain versions at their edges and on the runs' own inputs, timed
-     beside their yardsticks;
+     their plain versions at their edges (K14 also at 1M probe rows with one
+     row holding every output and with zero runs longer than a merge block)
+     and on the runs' own inputs, timed beside their yardsticks, K14 also
+     on the heavy row and checked to launch one kernel;
  10. the alternative u32 engines (``EngineConfig.u32_join_engine`` and
      ``u32_distinct_engine``) at the bench's shape: ``hash_join_count`` under
      "generic", "searchsorted" (K15), "table" (K16, K17) and "bucketed"
@@ -135,7 +137,8 @@ Phases (any failure raises and the script exits non-zero):
      run's, timed there too, each launch alone (``[engines]`` lines);
  11. the distributed plan on a mesh of four shards on the one card
      (``parallel/``, ``make_dist_pipeline``): K19 (top-k runs), K20 (hot
-     list), K21 (hot-set membership), K22 (range destination: its vector
+     list; both sides in one launch, in block and grid mode, hot and
+     n_hot), K21 (hot-set membership), K22 (range destination: its vector
      path with 0-3 rows of tail, its scalar path on strided and misaligned
      columns) and K9's fill against their plain versions at their edges;
      the plan at 4M + 4M
@@ -145,7 +148,9 @@ Phases (any failure raises and the script exits non-zero):
      pipeline, its join rows' keys against numpy, overflow 0 and the launch
      counters set to 0 before and read after it; BASELINE config 4 (Zipf
      1.2, 4M + 4M): ``dist_hash_join_skew`` (``n_hot`` printed),
-     ``dist_hash_join`` and ``dist_hash_join_overlapped`` against numpy;
+     ``dist_hash_join`` and ``dist_hash_join_overlapped`` against numpy, the
+     skew join launching K20 once on the one card and its kernels counted
+     by name in the order they ran;
      ``dist_sort``, ``dist_distinct`` and ``dist_aggregate`` on 4M rows; a
      3-shard mesh at 3M + 3M (the unsigned modulo); ``pipeline --dist 4``
      on block files under each engine; K19-K22 and K9's fill again on the
@@ -174,6 +179,7 @@ prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib
 import io
@@ -3283,21 +3289,33 @@ def k13_edges(g, dev) -> list:
 
 
 def k14_edges(g, dev) -> list:
-    """(what, c, total, cap) at K14's edges."""
+    """(what, c, total, cap) at K14's edges: a heavy row's outputs over many
+    merge blocks, zero runs longer than a block, block starts on a row's end
+    and on a tie (c[j] = i) among them."""
+    from database_technology_algorithms_tpu_torch.kernels import scan_plan
+
+    nv = scan_plan.EXPAND_THREADS * scan_plan.EXPAND_ITEMS
     cases = []
     for nprobe, kind in ((0, "none"), (1, "random"), (7, "random"), (1000, "zero at both ends"),
                          (1000, "no output"), (1000, "one row holds all"),
                          (1000, "first row holds all"), (1000, "last row holds all"),
-                         (100_000, "random"), (ROWS, "random")):
+                         (100_000, "random"), (ROWS, "random"), (ROWS, "one row holds all"),
+                         (ROWS, "zero runs longer than a block"), (3 * nv, "every row once")):
         mult = g.integers(0, 4, size=nprobe).astype(np.int32)
-        if kind == "zero at both ends":
+        if kind == "zero runs longer than a block":
+            mult[nprobe // 4:nprobe // 4 + 3 * nv + 1] = 0
+            mult[nprobe // 2:nprobe // 2 + 40 * nv] = 0
+        elif kind == "every row once":  # every block starts on a tie, entry c[j] = i first
+            mult[:] = 1
+        elif kind == "zero at both ends":
             mult[:nprobe // 5] = 0
             mult[-nprobe // 5:] = 0
         elif kind == "no output":
             mult[:] = 0
         elif kind.endswith("holds all"):
             mult[:] = 0
-            mult[{"one": nprobe // 3, "first": 0, "last": -1}[kind.split()[0]]] = 3 * nprobe
+            mult[{"one": nprobe // 3, "first": 0, "last": -1}[kind.split()[0]]] = (
+                3 * nprobe if nprobe < ROWS else nprobe)
         m = torch.from_numpy(mult).to(dev)
         c = torch.cumsum(m, 0, dtype=torch.int32)
         total = c[-1] if nprobe else torch.zeros((), dtype=torch.int32, device=dev)
@@ -3351,7 +3369,9 @@ def phase_aggregate(dev, card: str) -> dict:
     log(f"[kernels] K13 and K14 equal their plain versions at their edges (K13: a warp's "
         f"rows, a tile, 40 tiles, 1 and 4 measures, bit 31 set, also on an output and scratch "
         f"filled with other bits first; one key over {n} rows, {one_ms:.4f} ms; K14: "
-        f"no probe rows, no output, one row holding all, cap 0, total//2, total, total+37)")
+        f"no probe rows, no output, one row holding all (also of {ROWS} outputs over many merge "
+        f"blocks), zero runs longer than a block, every row once (block starts on ties), "
+        f"cap 0, total//2, total, total+37)")
 
     # ---- 16M-row tables at field 1 ----------------------------------------------
     runs, captured = {}, {}
@@ -3513,24 +3533,44 @@ def k14_record(captured: dict, runs: dict, errs: dict, card: str) -> dict:
     from database_technology_algorithms_tpu_torch.kernels.expand_sources import (
         expand_sources, expand_sources_plain)
 
+    def timing(c, total, cap):
+        nprobe = c.shape[0]
+        mult = torch.diff(c, prepend=c.new_zeros(1)).long()
+        rows = torch.arange(nprobe, device=c.device)
+        nbytes = 4 * nprobe + 4 * cap  # c in, src out (the kernel reads no total)
+        # the merge: one compare an item of cap + nprobe
+        bound, by = bound_of(nbytes, cap + nprobe)
+        return {"ms": device_ms(lambda: expand_sources(c, total, cap)),
+                "plain_ms": device_ms(lambda: expand_sources_plain(c, total, cap)),
+                "library_ms": device_ms(
+                    lambda: torch.repeat_interleave(rows, mult, output_size=cap)),
+                "bound_ms": bound, "bound_by": by, "nbytes": nbytes,
+                "shape": f"{nprobe} probe rows -> {cap} output rows"}
+
     c, total, cap = captured["field 3"]
-    nprobe = c.shape[0]
-    mult = torch.diff(c, prepend=c.new_zeros(1)).long()
-    rows = torch.arange(nprobe, device=c.device)
-    nbytes = 4 * nprobe + 4 + 4 * cap  # c and total in, src out
-    bound, by = bound_of(nbytes, 3 * cap * max(nprobe, 1).bit_length())
+    alone = profile_device(lambda: expand_sources(c, total, cap), reps=10)
+    if len(alone["per_call"]) != 1 or "expand_sources_kernel" not in alone["per_call"][0]:
+        raise AssertionError(f"K14's wrapper launched {alone['per_call']}, not one kernel")
     rec = {"name": "expand_sources", "route": "cuda", "source": f"{PKG}/csrc/expand_sources.cu",
            "replaces": f"{JAX_PKG}/ops/hash_join.py:682",
            "launches": runs[("field 3", f"cap {cap}")]["launches"]["expand_sources"],
-           "max_abs_err": errs["expand_sources"],
-           "ms": device_ms(lambda: expand_sources(c, total, cap)),
-           "plain_ms": device_ms(lambda: expand_sources_plain(c, total, cap)),
-           "bound_ms": bound, "bound_by": by,
-           "library_ms": device_ms(lambda: torch.repeat_interleave(rows, mult, output_size=cap)),
-           "shape": f"{nprobe} probe rows -> {cap} output rows (cap = total, field 3)"}
-    log(f"[timing] {card}: expand_sources ({rec['shape']}): device time per call: kernel "
-        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library repeat_interleave "
-        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({nbytes} B)")
+           "max_abs_err": errs["expand_sources"]}
+    main = timing(c, total, cap)
+    main["shape"] += " (cap = total, field 3)"
+    heavy = torch.zeros(ROWS, dtype=torch.int32, device=c.device)
+    heavy[ROWS // 3] = ROWS
+    hc = torch.cumsum(heavy, 0, dtype=torch.int32)
+    err = assert_same("K14 on a heavy row", (expand_sources(hc, hc[-1], ROWS),),
+                      (expand_sources_plain(hc, hc[-1], ROWS),))
+    rec["heavy_row"] = dict(timing(hc, hc[-1], ROWS), max_abs_err=err)
+    rec["heavy_row"]["shape"] += " (one probe row holds every output)"
+    for r in (main, rec["heavy_row"]):
+        log(f"[timing] {card}: expand_sources ({r['shape']}): device time per call (one "
+            f"launch): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"repeat_interleave {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['nbytes']} B, by {r['bound_by']})")
+    rec.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "shape")})
     return rec
 
 
@@ -4183,7 +4223,7 @@ DIST_KERNELS = ("stage_cells", "compact", "take_fill", "run_aggregate")
 DIST_ENGINE_KERNELS = {"sorted": ("seg_scan",), "skew": ("seg_scan", "words_sort", "topk_runs",
                                                          "hot_hashes", "in_hot_set"),
                        "overlap": ("words_sort",)}
-DIST_RECORDED = (("topk_runs", "topk_runs"), ("hot_set", "hot_hashes"), ("hot_set", "in_hot_set"),
+DIST_RECORDED = (("topk_runs", "topk_runs"), ("hot_set", "hot_lists"), ("hot_set", "in_hot_set"),
                  ("range_dest", "range_dest"), ("stage_cells", "stage_to_cells"),
                  ("sorted_probe", "sorted_probe"))  # K15: the overlap engine's one-word probe
 
@@ -4295,7 +4335,7 @@ def dist_kernel_edges(g, dev) -> dict:
     """K19-K22 and K9's fill against their plain versions at their edges."""
     from database_technology_algorithms_tpu_torch.kernels import dist_plan
     from database_technology_algorithms_tpu_torch.kernels.hot_set import (
-        hot_hashes, hot_hashes_plain, in_hot_set, in_hot_set_plain)
+        hot_hashes, hot_hashes_plain, hot_lists, hot_lists_plain, in_hot_set, in_hot_set_plain)
     from database_technology_algorithms_tpu_torch.kernels.range_dest import (
         range_dest, range_dest_plain)
     from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
@@ -4336,6 +4376,37 @@ def dist_kernel_edges(g, dev) -> dict:
             errs["hot_hashes"] = max(errs["hot_hashes"], assert_same(
                 f"K20 {what} m={m} threshold {thr}", (hot_hashes(u32_dev(gh, dev), gc, thr),),
                 (hot_hashes_plain(u32_dev(gh, dev), gc, thr),)))
+    # K20's two-sided launch (the skew join's): m of 0, 1, 64 a side and the limit a side
+    # (grid mode), an all-sentinel side, duplicates across the shards' lists, sums that
+    # wrap, a count whose threshold clamps to 1; hot and n_hot both
+    k20_modes = set()
+    pool = np.array([5, 2**31 + 1, 9, 12, m32], np.uint64)
+    lim = dist_plan.HOT_MAX_CANDIDATES
+    for what, m_p, m_b in (("empty", 0, 0), ("one a side", 1, 1), ("64 a side", 64, 64),
+                           ("all-sentinel build side", 64, 64), ("wrapping sums", 64, 64),
+                           ("64 and 1", 64, 1), ("probe side only", 64, 0),
+                           ("the limit a side", lim, lim)):
+        sides = []
+        for side, m in (("p", m_p), ("b", m_b)):
+            gh = np.resize(g.choice(pool, max(m // 4, 1)), m)  # 4 shards' lists repeat
+            if what.startswith("all-sentinel") and side == "b":
+                gh[:] = m32
+            if what.startswith("the limit"):
+                gh = g.integers(0, 3000, m, dtype=np.uint64) * 2654435761 % 2**32
+            gc = g.integers(0, 400, m).astype(np.int32)
+            if what == "wrapping sums":
+                gc[:] = 2**30
+            sides += [u32_dev(gh, dev), torch.from_numpy(gc).to(dev)]
+        for tot_p, tot_b in ((50_000, 7), (15, 2**31 - 1)):  # 15 // 16 = 0: the clamp to 1
+            args = (sides[0], sides[1], torch.tensor(tot_p, dtype=torch.int32, device=dev),
+                    sides[2], sides[3], torch.tensor(tot_b, dtype=torch.int32, device=dev), 16)
+            k20_modes.add(dist_plan.hot_plan(m_p, m_b).block)
+            errs["hot_hashes"] = max(errs["hot_hashes"], assert_same(
+                f"K20 two-sided, {what} ({m_p} + {m_b}), counts {tot_p}, {tot_b}",
+                [x.reshape(-1) for x in hot_lists(*args)],
+                [x.reshape(-1) for x in hot_lists_plain(*args)]))
+    if k20_modes != {True, False}:
+        raise AssertionError(f"K20's two-sided edges took block mode {sorted(k20_modes)} only")
     # K21: an empty hot list, none at all, a mixed one, duplicate entries, one entry, a
     # list past the scan (search mode) and a full one with many live; on 2M rows, 2M + 1
     # and 2M + 3 (the vector path's tail) and a view one word in (the scalar path), rows
@@ -4412,9 +4483,11 @@ def dist_kernel_edges(g, dev) -> dict:
     log("[kernels] K19-K22 and K9's fill equal their plain versions at their edges (K19: n < k, "
         "one run, all dead, ties at the k-th place, a run across 16 tiles, 1M Zipf hashes, the "
         "count on the host and the card, each at k = 16, 33 and 1024 where n allows; K20: every candidate a sentinel, all equal, mixed, "
-        "thresholds -1, 1, 50000; K21: an empty hot list, no entries, a mixed one, duplicate "
-        "entries, one entry, a list past the scan and a full one (IN_SET_MAX_HOT, half live) over "
-        "2M rows, 2M + 1, 2M + 3 and a view one word in, rows of 0xFFFFFFFF among them, both "
+        "thresholds -1, 1, 50000; K20 two-sided (hot and n_hot) at 0, 1 and 64 candidates a "
+        "side, 64 and 1, one side, the limit a side (grid mode), an all-sentinel side, wrapping "
+        "sums, a threshold clamped to 1, in both modes; K21: an empty hot list, no entries, "
+        "a mixed one, duplicate entries, one entry, a list past the scan and a full one "
+        "(IN_SET_MAX_HOT, half live) over 2M rows, 2M + 1, 2M + 3 and a view one word in, rows of 0xFFFFFFFF among them, both "
         "paths in both modes; "
         f"K22: 1-4 words, 1 and 3 splitters, keys equal to a splitter and on both sides of "
         f"2^31, strided ({paths[False]} calls on the scalar path, with the views one row in) "
@@ -4439,7 +4512,7 @@ def dist_kernels_on(captured: dict) -> dict:
 
     pairs = {"sorted_probe": (k15.sorted_probe, k15.sorted_probe_plain),
              "topk_runs": (k19.topk_runs, k19.topk_runs_plain),
-             "hot_hashes": (hot_set.hot_hashes, hot_set.hot_hashes_plain),
+             "hot_lists": (hot_set.hot_lists, hot_set.hot_lists_plain),
              "in_hot_set": (hot_set.in_hot_set, hot_set.in_hot_set_plain),
              "range_dest": (range_dest.range_dest, range_dest.range_dest_plain),
              "stage_to_cells": (stage_cells.stage_to_cells, stage_cells.stage_to_cells_plain)}
@@ -4577,6 +4650,9 @@ def phase_dist(dev, card: str) -> dict:
             f"{runs[name]['wall_ms']:.1f} ms")
     if "stage_to_cells" not in captured["zipf, dist_hash_join_overlapped"]:
         raise AssertionError("[dist] the overlapped join never called K9 with its fill")
+    # the skew step's launches in the order they ran (dist_records counts them by name)
+    runs["zipf, dist_hash_join_skew"]["in_order"] = launches_in_order(
+        lambda: skew.dist_hash_join_skew(mesh, tb, tp, 1), reps=3)
     del tb, tp
     mark("config 4")
     # ---- dist_sort, dist_distinct, dist_aggregate, 4M rows ---------------------------
@@ -4648,7 +4724,7 @@ def phase_dist(dev, card: str) -> dict:
     mark("cli")
     # ---- K19-K22 and K9's fill on the runs' own inputs -------------------------------
     for k, e in dist_kernels_on(captured).items():
-        key = "stage_cells" if k == "stage_to_cells" else k
+        key = {"stage_to_cells": "stage_cells", "hot_lists": "hot_hashes"}.get(k, k)
         errs[key] = max(errs.get(key, 0), e)
     mark("own inputs")
     # ---- the timed run: 16M + 16M, field 1, sorted, by stage -------------------------
@@ -4739,13 +4815,17 @@ def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict
                     lib=lambda: torch.topk(sel, k), lib_name="torch.topk of the (count, "
                     "position) keys: the selection alone",
                     nbytes=4 * n + 8 * k, nops=2 * n, shape=f"{n} sorted hashes, k = {k}"))
-    (gh, gc, thr), _ = zipf["hot_hashes"]
-    m = gh.shape[0]
+    k20_args, _ = zipf["hot_lists"]
+    m_p, m_b = k20_args[0].shape[0], k20_args[3].shape[0]
+    if skew_run["hot_hashes"] != 1:
+        raise AssertionError(f"[dist] the {DIST_SHARDS}-shard skew join on one card launched K20 "
+                             f"{skew_run['hot_hashes']} times, not once")
     out.append(dict(name="hot_hashes", source="csrc/hot_set.cu", replaces="parallel/skew.py:68",
-                    launches=skew_run["hot_hashes"], kern=lambda: hot_set.hot_hashes(gh, gc, thr),
-                    plain=lambda: hot_set.hot_hashes_plain(gh, gc, thr), lib=None,
-                    lib_name=None, nbytes=12 * m + 4, nops=m * m,
-                    shape=f"{m} gathered candidates"))
+                    launches=skew_run["hot_hashes"], kern=lambda: hot_set.hot_lists(*k20_args),
+                    plain=lambda: hot_set.hot_lists_plain(*k20_args), lib=None,
+                    lib_name=None, nbytes=12 * (m_p + m_b) + 12, nops=m_p * m_p + m_b * m_b,
+                    # candidates and counts in, the list, two counts and n_hot
+                    shape=f"{m_p} + {m_b} gathered candidates, both sides in one launch"))
     (hh, hot), _ = zipf["in_hot_set"]
     nh, mh = hh.shape[0], hot.shape[0]
     live = hot[hot != -1]
@@ -4785,6 +4865,14 @@ def dist_records(captured: dict, runs: dict, errs: dict, card: str) -> list[dict
             f"a run {rec['launches']}")
         recs.append(rec)
     recs[0].update(dist_k19_readings(hs, nact, k, sel, card))
+    steps = runs["zipf, dist_hash_join_skew"]["in_order"]
+    by_name = collections.Counter(name for name, _ in steps).most_common()
+    recs[1]["skew_step"] = {"kernels": len(steps), "device_ms": sum(ms for _, ms in steps),
+                            "by_name": dict(by_name)}
+    log(f"[dist] {card}: the {DIST_SHARDS}-shard Zipf skew step launches {len(steps)} kernels "
+        f"and memsets ({recs[1]['skew_step']['device_ms']:.4f} ms of device time, means of 3 "
+        f"steps), K20 {dict(by_name).get('hot_lists_kernel', 0)} time(s): "
+        + ", ".join(f"{name} x{n}" for name, n in by_name))
     (uh, uhot), _ = captured["field 1, skew, nchunks 1"]["in_hot_set"]
     recs[2].update(dist_k21_readings(hh, hot, uh, uhot, card))
     recs[-1].update(dist_k22_readings(words, spl, lib, card))

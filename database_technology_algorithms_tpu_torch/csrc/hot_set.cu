@@ -1,22 +1,37 @@
 // K20 and K21: the hot-hash list of the skew join and membership in it.
 //
 // K20 replaces the candidate reduction of the JAX package's hot_hash_set
-// (parallel/skew.py:68-88).  Its input is the all-gathered top-k candidates
-// of every shard, m = ndev * k hashes with their run counts.  Candidate i is
-// hot where it is the first occurrence of its hash among the candidates
-// (argmax of the equality row), the counts of all candidates with its hash
-// sum above the threshold (compared signed, as JAX compares its int32 sum),
-// and its hash is not the sentinel 0xFFFFFFFF; hot[i] is its hash, or the
-// sentinel.  The candidates (8 B each) sit in shared memory, one thread a
-// candidate compares its hash with all m: m is ndev * 16 on the path, so one
-// block of 1024 threads holds them up to 64 shards.
+// (parallel/skew.py:68-88).  Its input is a side's all-gathered top-k
+// candidates of every shard, m = ndev * k hashes with their run counts.
+// Candidate i is hot where it is the first occurrence of its hash among its
+// side's candidates (argmax of the equality row), the counts of all of that
+// side's candidates with its hash sum above the threshold (compared signed,
+// as JAX compares its int32 sum), and its hash is not the sentinel
+// 0xFFFFFFFF; hot[i] is its hash, or the sentinel.  One launch takes both
+// sides of the skew join, the probe side's list and then the build side's
+// (hot = cat([hot_p, hot_b]) of the JAX form), each side's threshold
+// max(tot // div, 1) worked out on the card from its psum'd count tot, and
+// writes n_hot, the list's live entries; a one-sided call (hot_hashes)
+// passes its threshold itself (div 0) and no count.  The candidates (8 B
+// each) sit in shared memory, one thread a candidate compares its hash with
+// its side's:
+// - block mode (both sides together at most HOT_THREADS candidates, the
+//   path's 2 * ndev * 16 up to 32 shards): one block stages both lists,
+//   thread i takes candidate i of the concatenated list, and n_hot is the
+//   block's count of live entries, which its last barrier takes
+//   (__syncthreads_count: no atomic, no memset, no shared memory);
+// - grid mode (up to dist_plan.HOT_MAX_CANDIDATES a side, which fill the
+//   227 KB a block may take): a block a chunk of HOT_THREADS candidates of
+//   one side, which it stages whole; each block adds its count to n_hot,
+//   zeroed by a memset first.
+// kernels/dist_plan.py hot_plan chooses the mode, the threads and the grid.
 //
 // K21 replaces in_hash_set (parallel/skew.py:91-96): a row is in the set
 // where its hash equals a hot entry that is not the sentinel.
 //
 // Bound on the H100: K20 is a few hundred bytes and m^2 compares, so launch
-// latency; K21 bytes, 4 B in and 1 B out a row (5 MB at 1M rows, 1.5 us).
-// So K21 keeps each thread's row loads in flight across the block's
+// latency, paid once a device for both sides; K21 bytes, 4 B in and 1 B out
+// a row (5 MB at 1M rows, 1.5 us).  So K21 keeps each thread's row loads in flight across the block's
 // staging of the list, and moves the rows in wide accesses:
 // - a thread takes R rows a step (dist_plan.IN_SET_ROWS = 8).  Where the
 //   hashes are contiguous and aligned to 4R bytes (at most 16) and the
@@ -46,34 +61,82 @@
 
 namespace {
 
-constexpr int HOT_THREADS = 1024;
+constexpr int HOT_THREADS = 1024;  // a block-mode block at most, a grid-mode block
 constexpr int IN_MAX_THREADS = 1024;  // a K21 block, at most
 constexpr uint32_t SENTINEL = 0xFFFFFFFFu;
 
+// Both sides of K20: side 0 (the probe side) is candidates 0 .. m0 - 1 of
+// the concatenated list, side 1 the m1 after them.
+struct HotSides {
+  const uint32_t *gh0, *gh1;
+  const int32_t *gc0, *gc1;
+  const int32_t *tot0, *tot1;
+  int32_t m0, m1;
+  int64_t div;  // the threshold is max(tot // div, 1); at 0, tot itself
+};
+
+__device__ __forceinline__ int32_t side_threshold(const int32_t* tot, int64_t div) {
+  const int64_t t = __ldg(tot);
+  if (div == 0) return (int32_t)t;
+  const int64_t q = t / div - (t % div != 0 && t < 0);  // torch's floor division (div > 0)
+  return (int32_t)(q > 1 ? q : 1);
+}
+
+// Each block stages the candidates [lo, hi) of the concatenated list: both
+// sides in block mode, its side in grid mode, where block k takes chunk k of
+// side 0 and the blocks after side 0's take side 1's chunks.
 __global__ void __launch_bounds__(HOT_THREADS)
-    hot_hashes_kernel(const uint32_t* __restrict__ gh, const int32_t* __restrict__ gc, int32_t m,
-                      const int32_t* __restrict__ threshold, uint32_t* __restrict__ hot) {
+    hot_lists_kernel(HotSides a, uint32_t* __restrict__ hot, int32_t* __restrict__ n_hot,
+                     bool block_mode) {
   extern __shared__ uint32_t s_mem[];
+  const int32_t m = a.m0 + a.m1;
+  int32_t lo = 0, hi = m, g = (int32_t)threadIdx.x;
+  if (!block_mode) {
+    const int32_t blocks0 = (a.m0 + (int32_t)blockDim.x - 1) / (int32_t)blockDim.x;
+    const bool second = (int32_t)blockIdx.x >= blocks0;
+    lo = second ? a.m0 : 0;
+    hi = second ? m : a.m0;
+    g = lo + ((int32_t)blockIdx.x - (second ? blocks0 : 0)) * (int32_t)blockDim.x +
+        (int32_t)threadIdx.x;
+  }
+  const bool mine = g < hi;
+  const bool side1 = g >= a.m0;
+  const int32_t thr = mine ? side_threshold(side1 ? a.tot1 : a.tot0, a.div) : 0;
+  const int32_t n = hi - lo;
   uint32_t* s_h = s_mem;
-  int32_t* s_c = reinterpret_cast<int32_t*>(s_mem + m);
-  for (int32_t j = threadIdx.x; j < m; j += blockDim.x) {
-    s_h[j] = gh[j];
-    s_c[j] = gc[j];
+  int32_t* s_c = reinterpret_cast<int32_t*>(s_mem + n);
+  for (int32_t j = threadIdx.x; j < n; j += blockDim.x) {
+    const int32_t q = lo + j;
+    s_h[j] = q < a.m0 ? __ldg(a.gh0 + q) : __ldg(a.gh1 + (q - a.m0));
+    s_c[j] = q < a.m0 ? __ldg(a.gc0 + q) : __ldg(a.gc1 + (q - a.m0));
   }
   __syncthreads();
-  const int32_t i = (int32_t)(blockIdx.x * blockDim.x + threadIdx.x);
-  if (i >= m) return;
-  const uint32_t h = s_h[i];
-  uint32_t tot = 0u;  // int32 arithmetic, wrapping as JAX's sum does
-  bool first = true;
-  for (int32_t j = 0; j < m; ++j) {
-    if (s_h[j] == h) {
-      tot += (uint32_t)s_c[j];
-      first &= j >= i;
+  uint32_t v = SENTINEL;
+  if (mine) {
+    const int32_t i = g - lo;
+    const int32_t from = (side1 ? a.m0 : 0) - lo, to = (side1 ? m : a.m0) - lo;
+    const uint32_t h = s_h[i];
+    uint32_t tot = 0u;  // int32 arithmetic, wrapping as JAX's sum does
+    bool first = true;
+    for (int32_t j = from; j < to; ++j) {
+      if (s_h[j] == h) {
+        tot += (uint32_t)s_c[j];
+        first &= j >= i;
+      }
     }
+    if (first && (int32_t)tot > thr && h != SENTINEL) v = h;
+    hot[g] = v;
   }
-  const bool is_hot = first && (int32_t)tot > *threshold && h != SENTINEL;
-  hot[i] = is_hot ? h : SENTINEL;
+  if (n_hot == nullptr) return;
+  // the block's live entries, counted by the barrier itself (no shared
+  // memory beside the candidates, which may fill the block's 227 KB)
+  const int32_t live = __syncthreads_count(v != SENTINEL);
+  if (threadIdx.x == 0) {
+    if (block_mode)
+      *n_hot = live;
+    else if (live)
+      atomicAdd(n_hot, live);
+  }
 }
 
 int set_shared(const void* kernel, size_t bytes) {
@@ -315,18 +378,46 @@ int launch_in_hot_set(const uint32_t* hashes, int64_t n, const uint32_t* hot, in
 
 }  // namespace
 
-// gh u32[m], gc i32[m], threshold one i32 on the device; hot u32[m].
-DBT_API int dbt_hot_hashes(const void* gh, const void* gc, int64_t m, const void* threshold,
-                           void* hot, void* stream) {
-  if (m < 0 || (size_t)m * 8u > 232448u) return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
-  const size_t bytes = (size_t)m * 8u;
-  int err = set_shared((const void*)hot_hashes_kernel, bytes);
+// Side s: gh_s u32[m_s], gc_s i32[m_s], tot_s one i32 on the device; hot
+// u32[m_p + m_b]; n_hot one i32 (or null: no count).  div >= 1: each side's
+// threshold is max(tot_s // div, 1); div 0: tot_p is the threshold itself
+// (m_b must be 0).  The plan (kernels/dist_plan.py hot_plan): block mode (one
+// block of threads >= m_p + m_b) or grid mode (blocks = ceil(m_p / threads) +
+// ceil(m_b / threads)).
+DBT_API int dbt_hot_lists(const void* gh_p, const void* gc_p, int64_t m_p, const void* tot_p,
+                          const void* gh_b, const void* gc_b, int64_t m_b, const void* tot_b,
+                          int64_t div, void* hot, void* n_hot, int block_mode, int threads,
+                          int64_t blocks, void* stream) {
+  const int64_t most = 232448 / 8;
+  if (m_p < 0 || m_b < 0 || m_p > most || m_b > most || div < 0 || (div == 0 && m_b) ||
+      threads < 32 || threads > HOT_THREADS || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const int64_t m = m_p + m_b;
+  const int64_t staged = block_mode ? m : (m_p > m_b ? m_p : m_b);
+  if (block_mode ? (m > threads || blocks != 1)
+                 : blocks != (m_p + threads - 1) / threads + (m_b + threads - 1) / threads)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (blocks == 0) return 0;
+  if (!block_mode && n_hot) {
+    const cudaError_t err = cudaMemsetAsync(n_hot, 0, 4, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t bytes = (size_t)staged * 8u;
+  int err = set_shared((const void*)hot_lists_kernel, bytes);
   if (err) return err;
-  hot_hashes_kernel<<<dbt::blocks_for(m, HOT_THREADS), HOT_THREADS, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(gh), static_cast<const int32_t*>(gc), (int32_t)m,
-      static_cast<const int32_t*>(threshold), static_cast<uint32_t*>(hot));
+  HotSides a;
+  a.gh0 = static_cast<const uint32_t*>(gh_p);
+  a.gh1 = static_cast<const uint32_t*>(gh_b);
+  a.gc0 = static_cast<const int32_t*>(gc_p);
+  a.gc1 = static_cast<const int32_t*>(gc_b);
+  a.tot0 = static_cast<const int32_t*>(tot_p);
+  a.tot1 = static_cast<const int32_t*>(tot_b);
+  a.m0 = (int32_t)m_p;
+  a.m1 = (int32_t)m_b;
+  a.div = div;
+  hot_lists_kernel<<<(unsigned)blocks, threads, bytes, st>>>(
+      a, static_cast<uint32_t*>(hot), static_cast<int32_t*>(n_hot), block_mode != 0);
   DBT_CHECK_LAUNCH();
   return 0;
 }

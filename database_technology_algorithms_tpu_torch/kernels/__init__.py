@@ -28,7 +28,9 @@
     K18 bucket_probe.bucket_probe
                                 <- ops/bucket_join.py:59-158 the bucket table and compare
     K19 topk_runs.topk_runs     <- parallel/skew.py:44-65 local_topk_hashes' run counts and top_k
-    K20 hot_set.hot_hashes      <- parallel/skew.py:68-88 hot_hash_set's candidate reduction
+    K20 hot_set.hot_lists, hot_hashes
+                                <- parallel/skew.py:68-88 hot_hash_set's candidate reduction
+                                   (both sides of the skew join in one launch)
     K21 hot_set.in_hot_set      <- parallel/skew.py:91 in_hash_set
     K22 range_dest.range_dest   <- parallel/dist_ops.py:312,380 _lex_ge and its sum
 
@@ -38,7 +40,7 @@ pass schedule ``radix_plan`` builds; K4 and K12 on one row-move engine
 (``csrc/rowmove.cuh``), whose access width and rows a block
 ``rowmove_plan`` chooses; K2 and K3 (and the scan of K9's count matrix) on
 one tile layout (``csrc/scan.cuh``), whose tile and scratch ``scan_plan``
-holds; K9's span and place warps and K10's tables follow ``cells_plan``;
+holds, as it holds K14's merge-path block; K9's span and place warps and K10's tables follow ``cells_plan``;
 K6's rows a lane and key stages and the rows a thread and grid of K7's
 gather follow ``perm_plan``; K15-K18's plans and limits are in ``engines_plan``,
 K19-K22's in ``dist_plan``.  The distributed plan's shuffle packs with K9

@@ -136,14 +136,14 @@ _SIGNATURES = {
     "dbt_tile_copy": ([_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P], _I),
     "dbt_row_move": ([_P, _P, _P, _I64, _I, _I64, _I, _P, _I64, _I, _I, _P], _I),
     "dbt_run_aggregate": ([_P, _P, _PP, _I, _I64, _P, _P, _P, _I64, _P], _I),
-    "dbt_expand_sources": ([_P, _I64, _P, _I64, _P, _P], _I),
+    "dbt_expand_sources": ([_P, _I64, _I64, _P, _I, _I, _I64, _P], _I),
     "dbt_sorted_probe": ([_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _I, _P, _P, _P], _I),
     "dbt_hash_set_build": ([_P, _I64, _P, _I64, _P, _I64, _I, _P, _I, _I, _I, _I, _I64, _P], _I),
     "dbt_hash_set_probe": ([_P, _I64, _P, _P, _I64, _P, _I64, _I, _P, _P, _P], _I),
     "dbt_bucket_probe": ([_P, _P, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P], _I),
     "dbt_topk_runs_scratch_words": ([_I64, _I], _I64),
     "dbt_topk_runs": ([_P, _I64, _P, _I, _P, _P, _P, _I64, _P], _I),
-    "dbt_hot_hashes": ([_P, _P, _I64, _P, _P, _P], _I),
+    "dbt_hot_lists": ([_P, _P, _I64, _P, _P, _P, _I64, _P, _I64, _P, _P, _I, _I, _I64, _P], _I),
     "dbt_in_hot_set": ([_P, _I64, _P, _I64, _P, _I, _I, _I, _I, _I64, _P], _I),
     "dbt_range_dest": ([_PP, _PI64, _I, _I64, _PP, _PI64, _I64, _P, _I, _I64, _P], _I),
 }

@@ -18,6 +18,14 @@ K22, the distributed sort's range destination (``csrc/range_dest.cu``).
 - K20 holds the all-gathered candidates (hash and count, 8 bytes each) in
   shared memory, K21 the hot list (4 bytes an entry), K22 the splitters
   (4 bytes a word of each), each at most ``SHARED_BYTES``.
+- K20 takes one of two modes (``hot_plan``).  Where both sides' candidates
+  together fit one block of ``HOT_THREADS`` (the path's 2 * ndev * hh_topk),
+  one block stages both, a thread a candidate, and its last barrier counts
+  the list's live entries (block mode: one launch, no memset, no atomic).
+  Past that, up to ``HOT_MAX_CANDIDATES`` a side, a block of
+  ``HOT_THREADS`` takes a chunk of one side and stages that side whole; the
+  blocks add their counts to a zeroed word (grid mode: a memset and the
+  launch).
 - K21 takes one of two paths and one of two modes (``in_set_plan``).  A
   thread takes ``IN_SET_ROWS`` = 8 rows a step: where the hashes are
   contiguous and 16-byte aligned (the vector path) by two 16-byte loads
@@ -59,7 +67,8 @@ TOPK_WARP_K = 32  # K19: picks up to which a warp keeps its list in registers (S
 TOPK_BIG_SORT = 4096  # K19: keys of a block's list and buffer past TOPK_WARP_K (BIG_SORT)
 TOPK_BIG_ROUND = 4  # K19: keys a thread offers the block's list a round (BIG_ROUND)
 TOPK_MAX_K = 1024  # K19: picks (MAX_K): the list and a round's entrants fit TOPK_BIG_SORT
-HOT_MAX_CANDIDATES = SHARED_BYTES // 8  # K20
+HOT_MAX_CANDIDATES = SHARED_BYTES // 8  # K20, a side
+HOT_THREADS = 1024  # K20: block mode's most candidates, grid mode's block (csrc/hot_set.cu)
 IN_SET_MAX_HOT = (SHARED_BYTES - 16) // 4  # K21: the list in shared memory, 4 bytes an entry
 IN_SET_ROWS = 8  # K21's rows a thread a step (1, 2, 4 or 8): two 16-byte loads at 8
 IN_SET_THREADS = 128  # K21's block in scan mode
@@ -95,6 +104,25 @@ def check_candidates(name: str, m: int) -> None:
     if m > HOT_MAX_CANDIDATES:
         raise ValueError(f"{name}: {m} candidates; K20 holds them in shared memory, 8 bytes "
                          f"each, at most {HOT_MAX_CANDIDATES} (ndev * hh_topk)")
+
+
+class HotPlan(NamedTuple):
+    block: bool  # one block holds both sides' candidates, else a block a chunk of one side
+    threads: int
+    blocks: int
+    shared_bytes: int  # the candidates a block stages, 8 bytes each
+
+
+def hot_plan(m_p: int, m_b: int, name: str = "hot_lists") -> HotPlan:
+    """K20's plan for m_p probe-side and m_b build-side candidates (m_b 0 for
+    one side alone).  Raises ValueError on what the kernel refuses."""
+    check_candidates(name, m_p)
+    check_candidates(name, m_b)
+    m = m_p + m_b
+    if m <= HOT_THREADS:
+        return HotPlan(True, max(-(-m // 32) * 32, 32), 1, 8 * m)
+    return HotPlan(False, HOT_THREADS, -(-m_p // HOT_THREADS) + -(-m_b // HOT_THREADS),
+                   8 * max(m_p, m_b))
 
 
 def check_hot_list(name: str, n: int, mh: int) -> None:

@@ -2,16 +2,16 @@
 torch version.
 
 Replaces the source search of the JAX package's
-``materialize_field3_device`` (``ops/hash_join.py:682-686``).
+``materialize_field3_device`` (``ops/hash_join.py:682-686``).  The kernel
+merges the output positions with ``c`` (a merge path; ``scan_plan.expand_plan``
+holds its block, its items a thread and its grid).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _lib
-
-MAX_ROWS = (1 << 31) - 1
+from . import _lib, scan_plan
 
 
 def expand_sources(c: torch.Tensor, total: torch.Tensor, cap: int) -> torch.Tensor:
@@ -19,8 +19,13 @@ def expand_sources(c: torch.Tensor, total: torch.Tensor, cap: int) -> torch.Tens
     min(total, cap)``, ``src[i]`` is the first j with ``c[j] > i``
     (``searchsorted(c, i, 'right')``); every other row gets ``nprobe``, the
     fill row.  `c` is the inclusive int32 cumsum of the multiplicities
-    ([nprobe]), `total` a 0-d int32 tensor (``c[-1]``, or 0 for no probe
-    rows).  Returns int32[cap].
+    ([nprobe], non-negative), `total` a 0-d int32 tensor (``c[-1]``, or 0
+    for no probe rows).  Returns int32[cap].
+
+    The kernel reads no total: ``c[-1]`` is the total, so the count of
+    entries ``c[j] <= i`` is already nprobe past it.  A `total` other than
+    ``c[-1]`` (or 0 for no probe rows) is not supported: the kernel would
+    still fill from ``c[-1]`` on, where the plain version fills from `total`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -35,15 +40,14 @@ def expand_sources(c: torch.Tensor, total: torch.Tensor, cap: int) -> torch.Tens
     if c.dim() != 1 or total.numel() != 1:
         raise ValueError("expand_sources: c must be [nprobe] and total hold one value")
     nprobe = c.shape[0]
-    if max(nprobe, cap) > MAX_ROWS:
-        raise ValueError(f"expand_sources: {max(nprobe, cap)} rows; rows are int32")
+    plan = scan_plan.expand_plan(cap, nprobe)
     src = torch.empty(cap, dtype=torch.int32, device=dev)
     if cap == 0:
         return src
     lib = _lib.library()
     with torch.cuda.device(dev):
-        err = lib.dbt_expand_sources(c.data_ptr(), nprobe, total.data_ptr(), cap,
-                                     src.data_ptr(), _lib.stream_of(c))
+        err = lib.dbt_expand_sources(c.data_ptr(), nprobe, cap, src.data_ptr(), plan.threads,
+                                     plan.items, plan.blocks, _lib.stream_of(c))
     _lib.raise_on_error(err, "expand_sources")
     _lib.LAUNCHES["expand_sources"] += 1
     return src

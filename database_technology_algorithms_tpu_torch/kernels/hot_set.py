@@ -2,8 +2,9 @@
 (``csrc/hot_set.cu``), and their plain torch versions.
 
 K20 replaces the candidate reduction of the JAX package's ``hot_hash_set``
-(``parallel/skew.py:68-88``), K21 its ``in_hash_set``
-(``parallel/skew.py:91-96``).
+(``parallel/skew.py:68-88``): ``hot_lists`` takes both sides of the skew
+join in one launch, ``hot_hashes`` one side.  K21 replaces its
+``in_hash_set`` (``parallel/skew.py:91-96``).
 """
 
 from __future__ import annotations
@@ -21,22 +22,37 @@ def _threshold(threshold, dev) -> torch.Tensor:
     return torch.full((), int(threshold), dtype=torch.int32, device=dev)
 
 
+def _launch_k20(plan, gh_p, gc_p, tot_p, gh_b, gc_b, tot_b, div, hot, n_hot) -> None:
+    lib = _lib.library()
+    with torch.cuda.device(hot.device):
+        err = lib.dbt_hot_lists(
+            gh_p.data_ptr(), gc_p.data_ptr(), gh_p.shape[0], tot_p.data_ptr(),
+            gh_b.data_ptr() if gh_b is not None else None,
+            gc_b.data_ptr() if gc_b is not None else None,
+            gh_b.shape[0] if gh_b is not None else 0,
+            tot_b.data_ptr() if tot_b is not None else None, div, hot.data_ptr(),
+            n_hot.data_ptr() if n_hot is not None else None, int(plan.block), plan.threads,
+            plan.blocks, _lib.stream_of(hot))
+    _lib.raise_on_error(err, "hot_lists")
+    _lib.LAUNCHES["hot_hashes"] += 1
+
+
 def hot_hashes(gh: torch.Tensor, gc: torch.Tensor, threshold) -> torch.Tensor:
-    """The hot list of the gathered candidates.
+    """The hot list of one side's gathered candidates.
 
     `gh` int32[m] holds the candidates' u32 hashes (``SENTINEL`` for none),
     `gc` int32[m] their counts, `threshold` an int or a 0-d integer tensor.
     Candidate i is hot where it is the first candidate with its hash, the
     counts of every candidate with its hash sum (int32, wrapping) above
     `threshold` (signed), and its hash is not the sentinel.  Returns
-    int32[m]: the hash where hot, else ``SENTINEL``.
+    int32[m]: the hash where hot, else ``SENTINEL``.  K20's one-sided launch.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     m = gh.shape[0]
     if gc.shape != (m,):
         raise ValueError("hot_hashes: gh and gc must be [m]")
-    dist_plan.check_candidates("hot_hashes", m)
+    plan = dist_plan.hot_plan(m, 0, "hot_hashes")
     if gh.device.type == "cpu":
         return hot_hashes_plain(gh, gc, threshold)
     dev = gh.device
@@ -46,12 +62,7 @@ def hot_hashes(gh: torch.Tensor, gc: torch.Tensor, threshold) -> torch.Tensor:
     hot = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return hot
-    lib = _lib.library()
-    with torch.cuda.device(dev):
-        err = lib.dbt_hot_hashes(gh.data_ptr(), gc.data_ptr(), m, thr.data_ptr(), hot.data_ptr(),
-                                 _lib.stream_of(gh))
-    _lib.raise_on_error(err, "hot_hashes")
-    _lib.LAUNCHES["hot_hashes"] += 1
+    _launch_k20(plan, gh, gc, thr, None, None, None, 0, hot, None)
     return hot
 
 
@@ -67,6 +78,51 @@ def hot_hashes_plain(gh: torch.Tensor, gc: torch.Tensor, threshold) -> torch.Ten
     first = ~(eq & (idx[None, :] < idx[:, None])).any(1)
     hot = first & (tot > _threshold(threshold, gh.device).long()) & (gh != SENTINEL)
     return torch.where(hot, gh, SENTINEL)
+
+
+def hot_lists(gh_p: torch.Tensor, gc_p: torch.Tensor, tot_p: torch.Tensor, gh_b: torch.Tensor,
+              gc_b: torch.Tensor, tot_b: torch.Tensor,
+              div: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The skew join's hot list of both sides in one launch.
+
+    Side p (the probe side) and side b each give their gathered candidates
+    (`gh_*` int32[m_*] of u32 hashes, `gc_*` int32[m_*] counts) and their
+    psum'd live count `tot_*` (a 0-d int32 tensor); a side's threshold is
+    ``max(tot // div, 1)`` (torch's floor division; `div` = ndev *
+    hh_factor >= 1).  Returns (hot int32[m_p + m_b], n_hot int32 0-d): each
+    side's ``hot_hashes`` list, side p's first, and the number of entries
+    that are not ``SENTINEL``.  ``dist_plan.hot_plan`` picks K20's mode.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    m_p, m_b = gh_p.shape[0], gh_b.shape[0]
+    if gc_p.shape != (m_p,) or gc_b.shape != (m_b,):
+        raise ValueError("hot_lists: each side's gh and gc must be [m]")
+    if int(div) < 1:
+        raise ValueError(f"hot_lists: div {div} < 1")
+    plan = dist_plan.hot_plan(m_p, m_b)
+    if gh_p.device.type == "cpu":
+        return hot_lists_plain(gh_p, gc_p, tot_p, gh_b, gc_b, tot_b, div)
+    dev = gh_p.device
+    for name, t in (("gh_p", gh_p), ("gc_p", gc_p), ("tot_p", tot_p), ("gh_b", gh_b),
+                    ("gc_b", gc_b), ("tot_b", tot_b)):
+        _lib.check_cuda(f"hot_lists {name}", t, torch.int32, dev)
+    if tot_p.numel() != 1 or tot_b.numel() != 1:
+        raise ValueError("hot_lists: tot_p and tot_b must hold one value each")
+    hot = torch.empty(m_p + m_b, dtype=torch.int32, device=dev)
+    n_hot = torch.empty((), dtype=torch.int32, device=dev)
+    _launch_k20(plan, gh_p, gc_p, tot_p, gh_b, gc_b, tot_b, int(div), hot, n_hot)
+    return hot, n_hot
+
+
+def hot_lists_plain(gh_p, gc_p, tot_p, gh_b, gc_b, tot_b,
+                    div: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each side's threshold in the count's dtype, its plain hot list, the
+    two lists concatenated and their live entries counted, as the JAX form
+    does them one after the other."""
+    hot = torch.cat([hot_hashes_plain(h, c, (t // div).clamp(min=1))
+                     for h, c, t in ((gh_p, gc_p, tot_p), (gh_b, gc_b, tot_b))])
+    return hot, (hot != SENTINEL).sum(dtype=torch.int32)
 
 
 def in_hot_set(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:

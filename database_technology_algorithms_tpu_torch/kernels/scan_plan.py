@@ -27,9 +27,19 @@ columns, 4-byte ones for flags and bools).
 The wrappers hand the plan's tile size and scratch size to the C entries,
 which refuse a plan that differs from their own; the CPU tests emulate the
 kernels tile by tile with it (``tests/test_torch_scan_schedule.py``).
+
+K14, the expansion sources (``csrc/expand_sources.cu``,
+``expand_sources.py``), is a merge of the output positions and the cumsum
+``c``: ``expand_plan`` gives its block (``EXPAND_THREADS``), its merge
+items a thread (``EXPAND_ITEMS``) and a grid of one block a run of
+``threads * items`` merge items, all kernel arguments, chosen by
+``tools/expand_sweep.py`` (``tests/test_torch_expand_schedule.py``
+emulates the kernel under every plan the sweep tries).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 THREADS = 256  # SCAN_THREADS in csrc/scan.cuh
 ITEMS = 16  # SCAN_ITEMS: rows a thread owns
@@ -44,6 +54,9 @@ MAX_ROWS = (1 << 31) - 1
 MAX_WORDS = 8  # payload words one launch 2 moves (MAX_WORDS in csrc/common.cuh)
 WINDOW = 32  # predecessors one look-back step reads, a warp's lanes
 COUNT_WORD = 1  # K3's scratch word that holds the count
+SHARED_BYTES = 232448  # dynamic shared memory a block may use on the H100
+EXPAND_THREADS = 256  # K14's block: warps 0 and 1 search, every thread merges
+EXPAND_ITEMS = 15  # K14's merge items a thread (V; odd: no bank conflicts in the merge)
 
 
 def tiles(n: int, tile: int = TILE) -> int:
@@ -86,3 +99,30 @@ def check_row_index(kernel: str, base: int, n: int) -> None:
         raise ValueError(
             f"{kernel}: a row-index slot from {base} over {n} rows leaves [0, 2^31); "
             f"its words are int32 row numbers")
+
+
+class ExpandPlan(NamedTuple):
+    threads: int
+    items: int  # merge items a thread
+    blocks: int  # ceil((cap + nprobe) / (threads * items))
+    shared_bytes: int  # the block's slice of c and its outputs, 4 bytes an item each
+
+
+def expand_plan(cap: int, nprobe: int) -> ExpandPlan:
+    """K14's plan for `cap` outputs and `nprobe` entries of c, from the
+    ``EXPAND_*`` constants; merge positions run to cap + nprobe, past 2^31,
+    so the grid is counted here in Python's integers.  Raises ValueError on
+    what the kernel refuses."""
+    if cap < 0 or nprobe < 0:
+        raise ValueError(f"expand_sources: cap {cap} and {nprobe} probe rows must be >= 0")
+    if max(cap, nprobe) > MAX_ROWS:
+        raise ValueError(f"expand_sources: {max(cap, nprobe)} rows; rows are int32")
+    threads, items = EXPAND_THREADS, EXPAND_ITEMS
+    if threads < 64 or threads > 1024 or threads % LANES:
+        raise ValueError(f"expand_sources: {threads} threads a block; the kernel takes whole "
+                         f"warps, at least two (they search) and at most 1024")
+    nv = threads * items
+    if items < 1 or 8 * nv + 16 > SHARED_BYTES:  # and the two splits, 8 bytes each
+        raise ValueError(f"expand_sources: {items} items a thread; a block stages its "
+                         f"{nv} items twice in shared memory, at most {SHARED_BYTES} bytes")
+    return ExpandPlan(threads, items, -(-(cap + nprobe) // nv), 8 * nv)

@@ -92,6 +92,21 @@ class Mesh:
                 made[dev] = torch.cat([x.to(dev) for x in xs])
         return [made[dev] for dev in self.devices]
 
+    def per_device(self, fn, *xs: Sequence) -> list:
+        """fn once for each device and arguments (each of `xs` a value a
+        shard): shards of one device that pass the very same objects, as a
+        collective's results are, share one result (read, never written);
+        a shard whose arguments differ gets its own call."""
+        cols = [self._check(x) for x in xs]
+        made: dict = {}
+        out = []
+        for dev, args in zip(self.devices, zip(*cols)):
+            key = (dev, tuple(map(id, args)))
+            if key not in made:
+                made[key] = fn(*args)
+            out.append(made[key])
+        return out
+
     def psum(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """Every shard gets the elementwise sum, in the tensors' dtype (int32
         wraps, as in XLA)."""

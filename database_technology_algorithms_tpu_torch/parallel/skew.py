@@ -17,10 +17,11 @@ build side is a key set) allow a split:
    full keys.
 
 Fields 0-2 (a set-semantics build).  Device work: K5 sorts each shard's
-masked hashes and K19 takes their top k; K20 reduces the gathered
-candidates to the hot list; K21 tests each row's hash against it; the
-local operators (compaction, distinct, the hash join) and the shuffle run
-their own kernels.
+masked hashes and K19 takes their top k; K20 reduces both sides' gathered
+candidates to the hot list in one launch a device (every shard of a device
+reads the one list, as it reads a collective's result); K21 tests each
+row's hash against it; the local operators (compaction, distinct, the hash
+join) and the shuffle run their own kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from ..batch import RecordBatch
 from ..config import DEFAULT_CONFIG, EngineConfig
-from ..kernels.hot_set import SENTINEL, hot_hashes, in_hot_set
+from ..kernels.hot_set import SENTINEL, hot_hashes, hot_lists, in_hot_set
 from ..kernels.topk_runs import topk_runs
 from ..ops.distinct import distinct_impl
 from ..ops.filter import compact
@@ -55,13 +56,20 @@ def local_topk_hashes(hashes: torch.Tensor, active: torch.Tensor,
     return topk_runs(hs, active.sum(dtype=torch.int32), k)
 
 
+def gathered_candidates(mesh: Mesh, hashes: list, active: list, k: int) -> tuple[list, list]:
+    """Every shard's top-k (hash, count) candidates, all-gathered: (hashes,
+    counts), a copy a device."""
+    local = [local_topk_hashes(h, a, k) for h, a in zip(hashes, active)]
+    return mesh.all_gather([h for h, _ in local]), mesh.all_gather([c for _, c in local])
+
+
 def hot_hash_set(mesh: Mesh, hashes: list, active: list, k: int, threshold: list) -> list:
     """The global hot-hash list (ndev * k entries, padded with 0xFFFFFFFF),
-    a copy a shard: every shard reduces the same all-gathered candidates."""
-    local = [local_topk_hashes(h, a, k) for h, a in zip(hashes, active)]
-    gh = mesh.all_gather([h for h, _ in local])
-    gc = mesh.all_gather([c for _, c in local])
-    return [hot_hashes(h, c, t) for h, c, t in zip(gh, gc, threshold)]
+    a value a shard: the all-gathered candidates reduced by K20 once a
+    device where its shards pass the same threshold tensor (a psum's
+    result), else once a shard."""
+    gh, gc = gathered_candidates(mesh, hashes, active, k)
+    return mesh.per_device(hot_hashes, gh, gc, threshold)
 
 
 in_hash_set = in_hot_set  # bool[N]: the row's hash is in the hot list (K21)
@@ -98,17 +106,17 @@ def skew_join_local(
     bh = [key_hash(b, field) for b in bb]
     ph = [key_hash(b, field) for b in pb]
 
-    def thresholds(counts):
-        return [(t // (ndev * cfg.hh_factor)).clamp(min=1).to(torch.int32)
-                for t in mesh.psum(counts)]
-
-    hot_p = hot_hash_set(mesh, ph, p_active, cfg.hh_topk, thresholds(pc))
-    # build-side heavy hitters too: a key with many duplicate build rows would
-    # funnel them all to one shard's cap_b; on the hot path they are deduped
-    # locally first, so one row a key a shard is gathered
-    hot_b = hot_hash_set(mesh, bh, b_active, cfg.hh_topk, thresholds(bc))
-    hot = [torch.cat([a, b]) for a, b in zip(hot_p, hot_b)]
-    n_hot = [(h != SENTINEL).sum(dtype=torch.int32) for h in hot]
+    # the probe side's hot list, then the build side's: build-side heavy
+    # hitters too, since a key with many duplicate build rows would funnel
+    # them all to one shard's cap_b (on the hot path they are deduped locally
+    # first, so one row a key a shard is gathered).  One K20 launch a device
+    # reduces both sides' candidates, each against max(psum'd count // (ndev
+    # * hh_factor), 1), and counts the list's live entries.
+    cand_p = gathered_candidates(mesh, ph, p_active, cfg.hh_topk)
+    cand_b = gathered_candidates(mesh, bh, b_active, cfg.hh_topk)
+    hot, n_hot = (list(x) for x in zip(*mesh.per_device(
+        lambda *a: hot_lists(*a, ndev * cfg.hh_factor),
+        *cand_p, mesh.psum(pc), *cand_b, mesh.psum(bc))))
     b_hot = [in_hot_set(h, s) & a for h, s, a in zip(bh, hot, b_active)]
     p_hot = [in_hot_set(h, s) & a for h, s, a in zip(ph, hot, p_active)]
 

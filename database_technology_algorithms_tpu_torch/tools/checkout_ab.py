@@ -51,6 +51,18 @@ arguments are the same in every checkout.  The sets:
   Each call's device time (torch.profiler, mean of 10 calls) with each
   launch's own in the order they ran, the step's host wall (median of 5),
   and checksums of the results (K16's stored set, flag and failures).
+- ``expand_hot``: K14 on the inputs ``materialize_field3_device`` gives it
+  at cap = total on ``chip_smoke``'s field-3 join (``field3_join``: 1M +
+  1M rows) and on a heavy row (one of 1M probe rows holding all 1M
+  outputs), and that ``materialize_field3_device``; K20 as the 4-shard
+  skew join on BASELINE config 4's Zipf 1.2 tables (4M + 4M) launches it
+  (every call of ``hot_hashes`` or ``hot_lists`` the step makes, each timed
+  by launch, summed), and the step itself: its device time, its host wall
+  (median of 5) and its kernels in the order they ran, counted by name;
+  the hot list's part of the step alone (``hot_list_section_ms``: host
+  issue time and wall, medians of 51).  Checksums of the sources, the
+  expanded rows, the step's hot list (K21's argument), nres, overflow and
+  n_hot.
 
 Printed a line a checkout; the results (checksums, counters, nres) must be
 equal across checkouts, or the tool fails.
@@ -60,6 +72,7 @@ equal across checkouts, or the tool fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -432,8 +445,141 @@ def hash_hot(cs, dev) -> tuple[dict, dict]:
     return {"ms": ms}, sums
 
 
+def field3_join(cs, dev):
+    """(probe, mult, total) of ``chip_smoke.phase_aggregate``'s field-3 join:
+    ``generate_f3`` tables of 1M rows (seeds 74 and 75, the build's keys in
+    a smaller range), ``hash_join_count`` at field 3."""
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join_count
+
+    b_cols = cs.generate_f3(cs.AGG_SMALL_NBLOCKS, 74, cs.F3_BUILD_KEYS)
+    p_cols = cs.generate_f3(cs.AGG_SMALL_NBLOCKS, 75, cs.F3_PROBE_KEYS)
+    build, probe = cs.to_batch(b_cols, dev), cs.to_batch(p_cols, dev)
+    _, mult, nres = hash_join_count(build, probe, 3)
+    return probe, mult, int(nres)
+
+
+def expand_hot(cs, dev) -> tuple[dict, dict]:
+    import collections
+    import importlib
+
+    import torch
+
+    from database_technology_algorithms_tpu_torch.kernels.expand_sources import expand_sources
+    from database_technology_algorithms_tpu_torch.ops.hash_join import materialize_field3_device
+    from database_technology_algorithms_tpu_torch.parallel import dist_ops, skew
+    from database_technology_algorithms_tpu_torch.parallel.mesh import make_mesh
+
+    ms, sums = {}, {}
+
+    def timed(what, fn):
+        launches = in_order(cs, fn)
+        ms[what] = sum(t for _, t in launches)
+        ms[f"{what}, by launch"] = launches
+
+    def u64sum(t):
+        return int((t.to(torch.int64) & 0xFFFFFFFF).sum())
+
+    probe, mult, total = field3_join(cs, dev)
+    with cs.recorded_calls("expand_sources", "expand_sources") as calls:
+        materialize_field3_device(probe, mult, total)
+    c, tot, cap = calls[0][0]
+    heavy = torch.zeros(c.shape[0], dtype=torch.int32, device=dev)
+    heavy[c.shape[0] // 3] = c.shape[0]
+    hc = torch.cumsum(heavy, 0, dtype=torch.int32)
+    for what, args in ((f"K14 field 3, {c.shape[0]} -> {cap}", (c, tot, cap)),
+                       (f"K14 heavy row, {hc.shape[0]} -> {hc.shape[0]}",
+                        (hc, hc[-1], hc.shape[0]))):
+        sums[what] = u64sum(expand_sources(*args))
+        timed(what, lambda a=args: expand_sources(*a))
+    out, _ = materialize_field3_device(probe, mult, total)
+    what = f"materialize_field3_device, {probe.nrows} probe rows, cap {total}"
+    sums[what] = [u64sum(out.recid), u64sum(out.num), u64sum(out.strw), int(out.valid.sum())]
+    prof = cs.profile_device(lambda: materialize_field3_device(probe, mult, total), reps=10)
+    ms[what] = prof["busy_us"] / 1e3
+    ms[f"{what}, by kernel"] = {short_name(n): us / 1e3 for n, us in prof["top"]}
+    del probe, mult, out, calls, c, tot, hc, heavy
+
+    mesh = make_mesh(devices=[dev] * cs.DIST_SHARDS)
+    zb, zp = cs.dist_cols(cs.DIST_ROWS, 44, zipf_a=1.2), cs.dist_cols(cs.DIST_ROWS, 45, zipf_a=1.2)
+    zb["valid"][:] = True
+    zp["valid"][:] = True
+    tb, tp = dist_ops.distribute(mesh, zb), dist_ops.distribute(mesh, zp)
+
+    def step():
+        return skew.dist_hash_join_skew(mesh, tb, tp, 1)
+
+    hot_set = importlib.import_module("database_technology_algorithms_tpu_torch.kernels.hot_set")
+    k20 = [n for n in ("hot_lists", "hot_hashes") if hasattr(hot_set, n)]
+    with contextlib.ExitStack() as stack:
+        rec = {n: stack.enter_context(cs.recorded_calls("hot_set", n)) for n in k20}
+        k21 = stack.enter_context(cs.recorded_calls("hot_set", "in_hot_set"))
+        _, nres, ovf, n_hot = step()
+    sums["skew step zipf"] = [int(nres), int(ovf), int(n_hot), u64sum(k21[0][0][1])]
+    k20_calls = [(n, args) for n in k20 for args, _ in rec[n]]
+    ms["K20 in the skew step, calls"] = len(k20_calls)
+    ms["K20 in the skew step"] = 0.0
+    for n, args in k20_calls:
+        launches = in_order(cs, lambda f=getattr(hot_set, n), a=args: f(*a))
+        ms["K20 in the skew step"] += sum(t for _, t in launches)
+    del rec, k21, k20_calls
+    prof = cs.profile_device(step, reps=5)
+    ms["skew step zipf"] = prof["busy_us"] / 1e3
+    ms["skew step zipf, host wall"] = cs.wall_ms(step, reps=5)
+    names = [name for name, _ in in_order(cs, step, reps=3)]
+    ms["skew step zipf, kernels"] = len(names)
+    ms["skew step zipf, kernels by name"] = dict(collections.Counter(names).most_common())
+    issue, wall = hot_list_section_ms(skew, hot_set, mesh, tp, tb)
+    ms["hot-list section, host issue"] = issue
+    ms["hot-list section, host wall"] = wall
+    return {"ms": ms}, sums
+
+
+def hot_list_section_ms(skew, hot_set, mesh, tp, tb, reps: int = 51) -> tuple[float, float]:
+    """The hot list's part of ``skew_join_local`` as the checkout's skew
+    join runs it, from the shards' key hashes to each shard's hot list and
+    n_hot: the medians over `reps` runs of the host's issue time (the device
+    idle at its start, no synchronize at its end) and of its synchronized
+    wall, in ms.  A checkout with ``skew.gathered_candidates`` reduces both
+    sides in one ``hot_lists`` call a device; an older one runs a
+    threshold, a ``hot_hash_set``, a ``cat`` and a count a shard."""
+    import torch
+
+    from database_technology_algorithms_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from database_technology_algorithms_tpu_torch.ops.keys import key_hash
+
+    div = len(mesh.devices) * cfg.hh_factor
+    (ph, pa, pc), (bh, ba, bc) = [
+        ([key_hash(b, 1) for b in t.batches],
+         [torch.arange(b.nrows, device=b.recid.device) < c for b, c in zip(t.batches, t.counts)],
+         t.counts) for t in (tp, tb)]
+
+    def section():
+        if hasattr(skew, "gathered_candidates"):
+            cand_p = skew.gathered_candidates(mesh, ph, pa, cfg.hh_topk)
+            cand_b = skew.gathered_candidates(mesh, bh, ba, cfg.hh_topk)
+            return mesh.per_device(lambda *a: hot_set.hot_lists(*a, div), *cand_p,
+                                   mesh.psum(pc), *cand_b, mesh.psum(bc))
+        thr_p = [(t // div).clamp(min=1).to(torch.int32) for t in mesh.psum(pc)]
+        hot_p = skew.hot_hash_set(mesh, ph, pa, cfg.hh_topk, thr_p)
+        thr_b = [(t // div).clamp(min=1).to(torch.int32) for t in mesh.psum(bc)]
+        hot_b = skew.hot_hash_set(mesh, bh, ba, cfg.hh_topk, thr_b)
+        hot = [torch.cat([a, b]) for a, b in zip(hot_p, hot_b)]
+        return [(h, (h != -1).sum(dtype=torch.int32)) for h in hot]
+
+    issue, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        section()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(issue), statistics.median(wall)
+
+
 SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range,
-        "topk_agg": topk_agg, "probe": probe, "hash_hot": hash_hot}
+        "topk_agg": topk_agg, "probe": probe, "hash_hot": hash_hot, "expand_hot": expand_hot}
 
 
 def one(sets: list[str], root: str) -> dict:

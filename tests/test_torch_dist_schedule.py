@@ -11,7 +11,15 @@ against their plain torch versions and the JAX package.
   block's pass over every tile's k keys.  At the plan's tile and at small
   tiles that every long run crosses.
 - K20 (``csrc/hot_set.cu``): a thread a candidate, the counts of equal
-  candidates summed in 32 bits, the first occurrence, the signed threshold.
+  candidates summed in 32 bits, the first occurrence, the signed threshold;
+  under its plan (``dist_plan.hot_plan``) with both sides of the
+  skew join in one launch: block mode (one block stages both lists, the
+  live entries counted by the block's last barrier) and grid mode (a block
+  a chunk of one side, its counts added to a zeroed word), each side's
+  threshold max(tot // div, 1) by C's division as the kernel takes it, held
+  against the plain version, a group-by reference at the limit a side, JAX's
+  ``hot_hash_set`` on both sides, and ``skew_join_local``'s one call a
+  device.
 - K21 (``csrc/hot_set.cu``) under its plan (``dist_plan.in_set_plan``):
   the vector path's R rows a thread (one load, one R-byte store) with the
   tail's n % R rows taken by the thread past the last whole group, the
@@ -35,24 +43,35 @@ against their plain torch versions and the JAX package.
 Every value is an integer or a bool, so every comparison is exact.
 """
 
+import functools
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import shard_map
+from jax.sharding import PartitionSpec as P
 
+from database_technology_algorithms_tpu.ops.keys import key_hash as jkey_hash
 from database_technology_algorithms_tpu_torch.batch import torch_to_u32, u32_to_torch
+from database_technology_algorithms_tpu_torch.config import EngineConfig as TConfig
 from database_technology_algorithms_tpu_torch.kernels import dist_plan
 from database_technology_algorithms_tpu_torch.kernels.hot_set import (
-    hot_hashes, hot_hashes_plain, in_hot_set, in_hot_set_plain)
+    hot_hashes, hot_hashes_plain, hot_lists, hot_lists_plain, in_hot_set, in_hot_set_plain)
 from database_technology_algorithms_tpu_torch.kernels.range_dest import (
     range_dest, range_dest_plain)
 from database_technology_algorithms_tpu_torch.kernels.stage_cells import stage_to_cells
 from database_technology_algorithms_tpu_torch.kernels.topk_runs import topk_runs, topk_runs_plain
+from database_technology_algorithms_tpu_torch.ops.keys import key_hash as tkey_hash
 from database_technology_algorithms_tpu_torch.parallel import dist_ops as tdist
+from database_technology_algorithms_tpu_torch.parallel import mesh as tmesh
+from database_technology_algorithms_tpu_torch.parallel import skew as tskew
 from test_torch_cells_schedule import GEOMETRIES, emulate_stage
+from test_torch_parallel import meshes, skewed
 
+jpar = importlib.import_module("database_technology_algorithms_tpu.parallel")
 jskew = importlib.import_module("database_technology_algorithms_tpu.parallel.skew")
 jdist = importlib.import_module("database_technology_algorithms_tpu.parallel.dist_ops")
 joverlap = importlib.import_module("database_technology_algorithms_tpu.parallel.overlap")
@@ -422,6 +441,284 @@ def test_k20_refuses_past_shared_memory():
         hot_hashes(torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32), 1)
     assert hot_hashes_plain(torch.zeros(0, dtype=torch.int32),
                             torch.zeros(0, dtype=torch.int32), 1).numel() == 0
+
+
+def k20_threshold(tot: int, div: int) -> int:
+    """csrc/hot_set.cu side_threshold: C's truncating quotient, one less where
+    it truncated a negative one (a floor), at least 1; at div 0, tot."""
+    if div == 0:
+        return tot
+    q = abs(tot) // div * (1 if tot >= 0 else -1)
+    q -= tot - q * div != 0 and tot < 0
+    return max(q, 1)
+
+
+def k20_lists_emulate(sides, div: int, plan) -> tuple[np.ndarray, int, dict]:
+    """hot_lists_kernel under `plan` over one or two sides, each (gh u32,
+    gc int32, tot): (hot u32[m], n_hot, stats)."""
+    gh = np.concatenate([np.asarray(s[0], np.uint32) for s in sides] + [np.zeros(0, np.uint32)])
+    gc = np.concatenate([np.asarray(s[1], np.int64) for s in sides] + [np.zeros(0, np.int64)])
+    m_p, m = len(sides[0][0]), len(gh)
+    tots = [int(s[2]) for s in sides]
+    hot = np.zeros(m, np.uint32)
+    written = np.zeros(m, np.int64)
+    t = plan.threads
+    blocks0 = -(-m_p // t)
+    n_hot, stats = 0, {"staged": 0}  # grid mode's word is zeroed by a memset first
+    assert plan.blocks == (1 if plan.block else blocks0 + -(-(m - m_p) // t))
+    for blk in range(plan.blocks):
+        if plan.block:
+            lo, hi, g = 0, m, np.arange(t)
+        else:
+            second = blk >= blocks0
+            lo, hi = (m_p, m) if second else (0, m_p)
+            g = lo + (blk - (blocks0 if second else 0)) * t + np.arange(t)
+        assert 8 * (hi - lo) <= plan.shared_bytes
+        stats["staged"] = max(stats["staged"], hi - lo)
+        sh, sc = gh[lo:hi], gc[lo:hi]
+        v = np.full(t, M32, np.uint32)
+        for k in np.flatnonzero(g < hi):
+            side = int(g[k] >= m_p)
+            i = g[k] - lo
+            frm, to = (m_p if side else 0) - lo, (m if side else m_p) - lo
+            eq = sh[frm:to] == sh[i]
+            tot = int(sc[frm:to][eq].sum()) & M32
+            tot = tot - (1 << 32) if tot >= 1 << 31 else tot
+            first = not eq[:i - frm].any()
+            if first and tot > k20_threshold(tots[side], div) and sh[i] != M32:
+                v[k] = sh[i]
+            hot[g[k]] = v[k]
+            written[g[k]] += 1
+        live = int((v != M32).sum())  # __syncthreads_count over the block's threads
+        n_hot = live if plan.block else n_hot + live
+    assert (written == 1).all()
+    return hot, n_hot, stats
+
+
+def k20_reference(gh: np.ndarray, gc: np.ndarray, thr: int) -> np.ndarray:
+    """The hot list by a group-by (no [m, m] matrix): each hash's counts
+    summed mod 2^32 and compared signed, kept at its first occurrence."""
+    gh = np.asarray(gh, np.uint32)
+    u, first, inv = np.unique(gh, return_index=True, return_inverse=True)
+    tot = np.zeros(len(u), np.int64)
+    np.add.at(tot, inv, np.asarray(gc, np.int64))
+    tot = (tot & M32).astype(np.uint32).view(np.int32).astype(np.int64)
+    keep = np.zeros(len(gh), bool)
+    keep[first] = True
+    return np.where(keep & (tot[inv] > thr) & (gh != M32), gh, np.uint32(M32)).astype(np.uint32)
+
+
+DIV = 16  # ndev * hh_factor of a 4-shard mesh
+
+
+def k20_side(case: str, g, m: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """(gh, gc, tot) of one side: m gathered candidates, 4 shards' top lists."""
+    if case == "all sentinels":
+        return np.full(m, M32, np.uint32), g.integers(0, 40, m).astype(np.int32), 800
+    shard = max(m // 4, 1)
+    pool = g.choice(np.array([5, 2**31 + 1, 9, 12, 2**32 - 2, 77], np.uint64), shard)
+    gh = np.resize(pool, m).astype(np.uint32)  # duplicates across the shards' lists
+    gh[g.random(m) < 0.2] = M32
+    gc = g.integers(0, 40, m).astype(np.int32)
+    tot = int(g.integers(0, 2000))
+    if case == "wrapping sums":
+        gc[:] = 2**30
+    elif case == "threshold equal to a sum":
+        h = gh[gh != M32][:1]
+        if len(h):
+            tot = DIV * int(gc[gh == h[0]].astype(np.int64).sum())
+    elif case == "tot // div = 0":
+        tot, gc[:] = DIV - 1, 1
+        gc[:m // 2] = 2
+    elif case == "negative tot":  # a psum that wrapped: the floor, then the clamp
+        tot = -37
+    return gh, gc, tot
+
+
+K20_SIZES = [(0, 0), (1, 1), (64, 64), (64, 0), (0, 64), (1, 64)]
+K20_CASES = ["mixed", "all sentinels", "wrapping sums", "threshold equal to a sum",
+             "tot // div = 0", "negative tot"]
+
+
+def check_k20_lists(sides, plan, want_block: bool):
+    """The two-sided emulation against the plain version (each side's list,
+    the cat, the count) and the wrapper's CPU route."""
+    assert plan.block == want_block
+    (ghp, gcp, tp), (ghb, gcb, tb) = sides
+    args = (t32(ghp), torch.from_numpy(gcp), torch.tensor(tp, dtype=torch.int32),
+            t32(ghb), torch.from_numpy(gcb), torch.tensor(tb, dtype=torch.int32), DIV)
+    want, want_n = hot_lists_plain(*args)
+    got, got_n = hot_lists(*args)
+    np.testing.assert_array_equal(torch_to_u32(got), torch_to_u32(want))
+    assert int(got_n) == int(want_n) and got_n.dtype == torch.int32
+    emu, n_hot, _ = k20_lists_emulate(sides, DIV, plan)
+    np.testing.assert_array_equal(emu, torch_to_u32(want))
+    assert n_hot == int(want_n) == int((emu != M32).sum())
+    cat = np.concatenate([k20_reference(ghp, gcp, max(tp // DIV, 1)),
+                          k20_reference(ghb, gcb, max(tb // DIV, 1))])
+    np.testing.assert_array_equal(emu, cat)
+
+
+@pytest.mark.parametrize("mode", ["block", "grid"])
+@pytest.mark.parametrize("case", K20_CASES)
+@pytest.mark.parametrize("m_p,m_b", K20_SIZES)
+def test_k20_two_sided_emulation_matches_plain(m_p, m_b, case, mode, monkeypatch):
+    g = np.random.default_rng(m_p * 7 + m_b + len(case))
+    sides = [k20_side(case if side == "p" or case != "all sentinels" else "mixed", g, m)
+             for side, m in (("p", m_p), ("b", m_b))]
+    if mode == "grid":  # blocks of 32: grid mode from 33 candidates
+        monkeypatch.setattr(dist_plan, "HOT_THREADS", 32)
+    plan = dist_plan.hot_plan(m_p, m_b)
+    check_k20_lists(sides, plan, mode == "block" or m_p + m_b <= 32)
+
+
+def test_k20_two_sided_at_the_limit_a_side():
+    """HOT_MAX_CANDIDATES on the probe side and 64 on the build side: grid
+    mode, each block staging its side whole (the plain version's [m, m]
+    matrix would take gigabytes here, so the group-by reference holds it)."""
+    g = np.random.default_rng(29)
+    m = dist_plan.HOT_MAX_CANDIDATES
+    ghp = g.integers(0, 3000, m).astype(np.uint32) * np.uint32(2654435761)
+    ghp[::97] = M32
+    gcp = g.integers(0, 400, m).astype(np.int32)
+    ghb, gcb, tb = k20_side("mixed", g, 64)
+    plan = dist_plan.hot_plan(m, 64)
+    assert not plan.block and plan.shared_bytes == 8 * m <= dist_plan.SHARED_BYTES
+    tp = 40_000
+    emu, n_hot, stats = k20_lists_emulate([(ghp, gcp, tp), (ghb, gcb, tb)], DIV, plan)
+    assert stats["staged"] == m
+    want = np.concatenate([k20_reference(ghp, gcp, tp // DIV), k20_reference(ghb, gcb, tb // DIV)])
+    np.testing.assert_array_equal(emu, want)
+    assert n_hot == int((want != M32).sum()) > 0
+    with pytest.raises(ValueError, match="K20"):
+        dist_plan.hot_plan(m + 1, 0)
+    with pytest.raises(ValueError, match="K20"):
+        dist_plan.hot_plan(0, m + 1)
+
+
+@pytest.mark.parametrize("tot", [-2**31, -33, -32, -1, 0, 1, 15, 16, 17, 2**31 - 1])
+def test_k20_threshold_is_torch_floor_division(tot):
+    want = int((torch.tensor(tot, dtype=torch.int32) // DIV).clamp(min=1))
+    assert k20_threshold(tot, DIV) == want
+    assert k20_threshold(tot, 0) == tot
+
+
+def test_k20_one_sided_launch_is_the_same_kernel():
+    """hot_hashes is the one-sided case: div 0 (the threshold itself), no
+    count; its plan is the two-sided plan with no build side."""
+    g = np.random.default_rng(20)
+    gh, gc = candidates("mixed", g, 64)
+    plan = dist_plan.hot_plan(64, 0, "hot_hashes")
+    emu, _, _ = k20_lists_emulate([(gh, gc, 30)], 0, plan)
+    np.testing.assert_array_equal(emu, k20_emulate(gh, gc, 30))
+    with pytest.raises(ValueError, match="div"):
+        hot_lists(t32(gh), torch.from_numpy(gc), torch.tensor(1), t32(gh), torch.from_numpy(gc),
+                  torch.tensor(1), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_hot_lists(kind, seed: int):
+    """Both sides' hot lists in JAX's skew join order (probe, then build), and
+    n_hot, inside shard_map: a copy a shard."""
+    jm, _ = meshes(kind)
+    ndev = jpar.mesh_size(jm)
+    probe = skewed(300 * ndev, seed, 7, 0.4, key_range=200)
+    build = skewed(200 * ndev - 11, seed + 1, 9, 0.3, key_range=200)
+    jp, jb = jdist.distribute(jm, probe), jdist.distribute(jm, build)
+    ax = jm.axis_names if len(jm.axis_names) > 1 else jm.axis_names[0]
+    row = P(jm.axis_names)
+
+    @functools.partial(shard_map, mesh=jm, in_specs=(row,) * 4, out_specs=(row, row),
+                       check_vma=False)
+    def body(pb, pc, bb, bc):
+        def side(batch, count):
+            active = jnp.arange(batch.nrows) < count[0]
+            thr = jnp.maximum(jax.lax.psum(count[0], ax) // (ndev * 4), 1).astype(jnp.int32)
+            return jskew.hot_hash_set(jkey_hash(batch, 1), active, ax, 16, thr)
+
+        hot = jnp.concatenate([side(pb, pc), side(bb, bc)])
+        return hot, jnp.sum(hot != jnp.uint32(M32)).astype(jnp.int32).reshape(1)
+
+    hot, n_hot = jax.jit(body)(jp.batch, jp.count, jb.batch, jb.count)
+    return probe, build, np.asarray(hot).reshape(ndev, -1), np.asarray(n_hot)
+
+
+@pytest.mark.parametrize("kind", [8, 4, 3])
+def test_k20_two_sided_matches_jax_hot_hash_set(kind, monkeypatch):
+    """The port's gathered candidates of both sides through hot_lists (once a
+    device: the shards of the CPU mesh share it) and through the emulation in
+    both modes, against JAX's two hot_hash_set calls, the cat and the count."""
+    probe, build, want, want_n = jax_hot_lists(kind, 5)
+    _, tm = meshes(kind)
+    ndev = tmesh.mesh_size(tm)
+    tp, tb = tdist.distribute(tm, probe), tdist.distribute(tm, build)
+
+    def side(t):
+        hashes = [tkey_hash(b, 1) for b in t.batches]
+        active = [torch.arange(b.nrows) < c for b, c in zip(t.batches, t.counts)]
+        return tskew.gathered_candidates(tm, hashes, active, 16)
+
+    (ghp, gcp), (ghb, gcb) = side(tp), side(tb)
+    totp, totb = tm.psum(tp.counts), tm.psum(tb.counts)
+    got = tm.per_device(lambda *a: hot_lists(*a, ndev * 4), ghp, gcp, totp, ghb, gcb, totb)
+    assert len({id(x) for x in got}) == 1  # one CPU device: one list, shared
+    for d in range(ndev):
+        np.testing.assert_array_equal(torch_to_u32(got[d][0]), want[d])
+        assert int(got[d][1]) == int(want_n[d])
+    assert (want[0] != M32).any()
+    sides = [(torch_to_u32(ghp[0]), gcp[0].numpy(), int(totp[0])),
+             (torch_to_u32(ghb[0]), gcb[0].numpy(), int(totb[0]))]
+    for threads in (dist_plan.HOT_THREADS, 32):
+        monkeypatch.setattr(dist_plan, "HOT_THREADS", threads)
+        plan = dist_plan.hot_plan(len(sides[0][0]), len(sides[1][0]))
+        emu, n_hot, _ = k20_lists_emulate(sides, ndev * 4, plan)
+        np.testing.assert_array_equal(emu, want[0])
+        assert n_hot == int(want_n[0])
+
+
+def test_skew_join_local_calls_hot_lists_once_a_device(monkeypatch):
+    """On a 4-shard mesh of one device the skew join reduces both sides'
+    candidates in one hot_lists call, and hot_hash_set one hot_hashes call;
+    the wrappers are spied on, nothing is counted by kernel."""
+    mesh = tmesh.make_mesh(4, devices="cpu")
+    calls = {"hot_lists": 0, "hot_hashes": 0}
+    for name in calls:
+        real = getattr(tskew, name)
+
+        def spy(*a, real=real, name=name):
+            calls[name] += 1
+            return real(*a)
+
+        monkeypatch.setattr(tskew, name, spy)
+    build, probe = skewed(400, 1, 7, 0.0), skewed(1200, 2, 7, 0.5)
+    cfg = TConfig(hh_factor=4, hh_topk=8)
+    _, _, _, n_hot = tskew.dist_hash_join_skew(mesh, tdist.distribute(mesh, build),
+                                               tdist.distribute(mesh, probe), 1, cfg)
+    assert calls == {"hot_lists": 1, "hot_hashes": 0} and int(n_hot) >= 1
+    t = tdist.distribute(mesh, probe)
+    hashes = [tkey_hash(b, 1) for b in t.batches]
+    active = [torch.arange(b.nrows) < c for b, c in zip(t.batches, t.counts)]
+    lists = tskew.hot_hash_set(mesh, hashes, active, 8, mesh.psum(t.counts))
+    assert calls["hot_hashes"] == 1 and len({id(x) for x in lists}) == 1
+
+
+def test_hot_hash_set_keeps_each_shards_own_threshold():
+    """Shards of one device that pass different thresholds each get the list
+    for their own threshold (one hot_hashes call a shard); shards that pass
+    the one threshold tensor share one list."""
+    mesh = tmesh.make_mesh(4, devices="cpu")
+    t = tdist.distribute(mesh, skewed(1200, 2, 7, 0.5))
+    hashes = [tkey_hash(b, 1) for b in t.batches]
+    active = [torch.arange(b.nrows) < c for b, c in zip(t.batches, t.counts)]
+    gh, gc = tskew.gathered_candidates(mesh, hashes, active, 8)
+    thr = [torch.tensor(v, dtype=torch.int32) for v in (1, 2, 40, 10**6)]
+    lists = tskew.hot_hash_set(mesh, hashes, active, 8, thr)
+    for got, tv in zip(lists, thr):
+        np.testing.assert_array_equal(got.numpy(), hot_hashes_plain(gh[0], gc[0], tv).numpy())
+    assert len({torch_to_u32(x).tobytes() for x in lists}) > 1
+    shared = tskew.hot_hash_set(mesh, hashes, active, 8, [thr[1]] * 4)
+    assert len({id(x) for x in shared}) == 1
+    np.testing.assert_array_equal(shared[0].numpy(), lists[1].numpy())
 
 
 def k21_stage_live(hot: np.ndarray, threads: int) -> np.ndarray:
