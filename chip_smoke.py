@@ -133,8 +133,11 @@ Phases (any failure raises and the script exits non-zero):
      still exact, and the key whose mix is the table's EMPTY answered
      exactly; K15-K18 against their plain versions at their edges (K15
      also past one index tree's reach, K18 on sparse and all-inactive
-     sides) and on the 1M runs' own inputs, K15 and K18 also on the 8M
-     run's, timed there too, each launch alone (``[engines]`` lines);
+     sides, K17 with its fused total under its plan, both windows and
+     the evict-first hints on and off, and on tables of 2^24 and 2^25
+     slots) and on the 1M runs' own inputs,
+     K15-K18 also on the 8M run's, timed there too, each launch alone,
+     K17 and K18 beside ``torch.isin`` (``[engines]`` lines);
  11. the distributed plan on a mesh of four shards on the one card
      (``parallel/``, ``make_dist_pipeline``): K19 (top-k runs), K20 (hot
      list; both sides in one launch, in block and grid mode, hot and
@@ -156,7 +159,14 @@ Phases (any failure raises and the script exits non-zero):
      on block files under each engine; K19-K22 and K9's fill again on the
      runs' own inputs; a 16M + 16M run's stages (local, shuffle, join)
      timed; the phase must end within 60 s (``[dist]`` lines);
- 12. timings: each kernel's device time (torch.profiler) beside its plain
+ 12. the multi-process plan: ``pipeline --coordinator`` as one process of
+     four shards on the card (a process group of one over NCCL; two
+     processes cannot share the one card), its ``torch.distributed``
+     collectives counted, under the "sorted" and "skew" engines, against
+     numpy, the single-card command and ``--dist 4``; then a death after
+     the "local" stage checkpointed and a resume that loads it
+     (``[multiproc]`` lines);
+ 13. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
      beside a stable torch.sort, and how many radix passes K1 and K5
@@ -3817,6 +3827,75 @@ def k16_edges(g, dev) -> list:
     return cases
 
 
+def probe_total(hs, keys, count=None, max_probe: int = 64) -> list:
+    """K17 with its fused total: [found, mult, total]."""
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import hash_set_probe
+
+    total = torch.full((), -1, dtype=torch.int32, device=keys.device)
+    found, mult = hash_set_probe(hs, keys, count, max_probe, total=total)
+    return [found, mult, total.reshape(1)]
+
+
+def probe_total_plain(hs, keys, count=None, max_probe: int = 64) -> list:
+    """The plain version's found and mult, and the sum of mult."""
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import hash_set_probe_plain
+
+    found, mult = hash_set_probe_plain(hs, keys, count, max_probe)
+    return [found, mult, mult.sum(dtype=torch.int32).reshape(1)]
+
+
+# K17 under the window and hints its plan gives other tables: 1-slot
+# windows (a table under 4 slots) and the evict-first hints on (a table
+# past SET_PROBE_STREAM_BYTES) and off, each at either window
+K17_PLANS = (dict(SET_PROBE_WINDOW=1, SET_PROBE_STREAM_BYTES=1 << 40),
+             dict(SET_PROBE_WINDOW=1, SET_PROBE_STREAM_BYTES=0),
+             dict(SET_PROBE_STREAM_BYTES=0), dict(SET_PROBE_STREAM_BYTES=1 << 40))
+
+
+def engines_plan_set(**values):
+    """``kernels/engines_plan``'s constants set to `values` for a block's
+    calls (``tools/hash_sweep.plan``)."""
+    from database_technology_algorithms_tpu_torch.kernels import engines_plan
+    from database_technology_algorithms_tpu_torch.tools.hash_sweep import plan
+
+    return plan(engines_plan, **values)
+
+
+def k17_wide_tables(g, dev) -> int:
+    """K17 against its plain version on tables of 2^24 and 2^25 slots (64
+    and 128 MB) built from 8,388,608 random keys, probed by 8,388,608 keys
+    of which half are built, with a live count, max_probe 64 and 1, and
+    under the other plans of ``K17_PLANS``."""
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import hash_set_build
+
+    n = BIG_ROWS
+    keys = g.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    probe = np.where(g.random(n) < 0.5, g.permutation(keys),
+                     g.integers(0, 2**32, size=n, dtype=np.uint64)).astype(np.uint32)
+    kt, pt = u32_dev(keys, dev), u32_dev(probe, dev)
+    worst = 0
+    for size in (1 << 24, 1 << 25):
+        hs = hash_set_build(kt, size)
+        for pc, max_probe in ((None, 64), (n - 12345, 64), (None, 1)):
+            want = probe_total_plain(hs, pt, pc, max_probe)
+            worst = max(worst, assert_same(f"K17 {n} keys against {size} slots, "
+                                           f"count {pc}, max_probe {max_probe}",
+                                           probe_total(hs, pt, pc, max_probe), want))
+            if max_probe != 64:
+                continue
+            for values in K17_PLANS:
+                with engines_plan_set(**values):
+                    worst = max(worst, assert_same(
+                        f"K17 {n} keys against {size} slots, count {pc}, {values}",
+                        probe_total(hs, pt, pc, max_probe), want))
+        del hs, want
+    torch.cuda.synchronize()
+    log(f"[kernels] K17 equals its plain version on tables of 2^24 and 2^25 slots ({n} random "
+        f"keys, {n} probes half built; the live count, max_probe 64 and 1, the plan and "
+        f"{len(K17_PLANS)} others), total == sum of mult")
+    return worst
+
+
 def k18_edges(g, dev) -> list:
     """(what, args) of K18 at its edges: overflow on either side, an
     inactive tail, empty sides, one bucket, keys with bit 31 set, a sparse
@@ -3860,7 +3939,7 @@ def check_engine_kernels_at_edges(g, dev) -> dict:
     from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
         bucket_probe, bucket_probe_plain)
     from database_technology_algorithms_tpu_torch.kernels.hash_set import (
-        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
+        hash_set_build, hash_set_build_plain)
     from database_technology_algorithms_tpu_torch.kernels.sorted_probe import (
         sorted_probe, sorted_probe_plain)
 
@@ -3882,14 +3961,21 @@ def check_engine_kernels_at_edges(g, dev) -> dict:
             finally:
                 engines_plan.HASH_KEYS = saved
         probe = torch.cat([keys, u32_dev(np.array(EMPTY_PAIR + (7,), np.uint32), dev)])
-        for pc, max_probe in ((None, limit), (probe.shape[0] - 2, 200), (None, 1)):
+        for pc, max_probe in ((None, limit), (probe.shape[0] - 2, 200), (None, 1), (None, 0),
+                              (0, 64)):
+            want = probe_total_plain(hs, probe, pc, max_probe)
             errs["hash_set_probe"] = max(errs["hash_set_probe"], assert_same(
                 f"K17 {what} probe_count={pc} max_probe={max_probe}",
-                hash_set_probe(hs, probe, pc, max_probe),
-                hash_set_probe_plain(hs, probe, pc, max_probe)))
+                probe_total(hs, probe, pc, max_probe), want))
+            for values in K17_PLANS:  # the other windows and hints
+                with engines_plan_set(**values):
+                    errs["hash_set_probe"] = max(errs["hash_set_probe"], assert_same(
+                        f"K17 {what} probe_count={pc} max_probe={max_probe}, {values}",
+                        probe_total(hs, probe, pc, max_probe), want))
     for what, args in k18_edges(g, dev):
         errs["bucket_probe"] = max(errs["bucket_probe"], assert_same(
             f"K18 {what}", bucket_probe(*args), bucket_probe_plain(*args)))
+    errs["hash_set_probe"] = max(errs["hash_set_probe"], k17_wide_tables(g, dev))
     torch.cuda.synchronize()
     log("[kernels] K15-K18 equal their plain versions at their edges (K15: empty build, count "
         "0, bit 31, a live 0xFFFFFFFF, 16*2^k +- 1 rows, counts on the host and the card, "
@@ -3897,7 +3983,9 @@ def check_engine_kernels_at_edges(g, dev) -> dict:
         "the stored set, flag and failures, with duplicates, the EMPTY pair, 100 keys on one "
         "home slot (and 20 of 5 copies each), limits 64 and 8, n % 4 of 0-3, a view one word "
         "in, 1M keys all equal, the random keys and the view also at 4 keys a thread; K17 on "
-        "K16's tables, max_probe 1, the limit and 200; "
+        "K16's tables, max_probe 0, 1, the limit and 200, a count of 0, under its plan and "
+        "1- and 4-slot windows with the evict-first hints on and off, its fused "
+        "total == the sum of mult; 2^24- and 2^25-slot tables; "
         "K18: overflow on either side, inactive tails, empty sides, 1-65536 buckets, a sparse "
         "case, a side all inactive)")
     return errs
@@ -4072,18 +4160,18 @@ def phase_engines(dev, card: str) -> dict:
 def check_engine_kernels_on(captured: dict, run: str) -> dict:
     """The kernels in `captured` (of K15-K18) against their plain versions
     on the arguments the `run` runs gave them (K16 by the parts its atomics'
-    order leaves fixed; K17 on the kernel's own table)."""
+    order leaves fixed; K17 on the kernel's own table, with its total)."""
     from database_technology_algorithms_tpu_torch.kernels.bucket_probe import (
         bucket_probe, bucket_probe_plain)
     from database_technology_algorithms_tpu_torch.kernels.hash_set import (
-        hash_set_build, hash_set_build_plain, hash_set_probe, hash_set_probe_plain)
+        hash_set_build, hash_set_build_plain)
     from database_technology_algorithms_tpu_torch.kernels.sorted_probe import (
         sorted_probe, sorted_probe_plain)
 
     pairs = {"sorted_probe": (lambda a: sorted_probe(*a), lambda a: sorted_probe_plain(*a)),
              "hash_set_build": (lambda a: hash_set_parts(hash_set_build(*a)),
                                 lambda a: hash_set_parts(hash_set_build_plain(*a))),
-             "hash_set_probe": (lambda a: hash_set_probe(*a), lambda a: hash_set_probe_plain(*a)),
+             "hash_set_probe": (lambda a: probe_total(*a), lambda a: probe_total_plain(*a)),
              "bucket_probe": (lambda a: bucket_probe(*a), lambda a: bucket_probe_plain(*a))}
     errs = {k: assert_same(f"{k} on the {run} run's inputs", kern(captured[k]),
                            plain(captured[k]))
@@ -4127,9 +4215,12 @@ def probe_specs(captured: dict) -> dict:
     ok = (cb <= cap) & (cp <= cap)
     compares = int((cb * cp * ok).sum())
     searches = 4 * (nbuckets + 1) * max(bb.shape[0], pb.shape[0], 1).bit_length()
+    bkeys_b, bkeys_p = bargs[1], bargs[3]
     out["bucket_probe"] = dict(
-        kern=lambda: bucket_probe(*bargs), plain=lambda: bucket_probe_plain(*bargs), lib=None,
-        lib_name=None, nbytes=8 * bb.shape[0] + 9 * pb.shape[0] + 4, nops=compares + searches,
+        kern=lambda: bucket_probe(*bargs), plain=lambda: bucket_probe_plain(*bargs),
+        lib=lambda: torch.isin(bkeys_p, bkeys_b),
+        lib_name="torch.isin of the probe keys in the build keys",
+        nbytes=8 * bb.shape[0] + 9 * pb.shape[0] + 4, nops=compares + searches,
         shape=f"{nbuckets} buckets of cap {cap}, {bb.shape[0]} + {pb.shape[0]} rows, "
               f"{compares} key compares")
     keys, size, count, limit = captured["hash_set_build"]
@@ -4140,10 +4231,15 @@ def probe_specs(captured: dict) -> dict:
         nbytes=4 * n + 4 * size + 8, nops=12 * n, shape=f"{n} build keys into {size} slots")
     hs, pkeys, pcount, max_probe = captured["hash_set_probe"]
     npk = pkeys.shape[0]
-    out["hash_set_probe"] = dict(
-        kern=lambda: hash_set_probe(hs, pkeys, pcount, max_probe),
-        plain=lambda: hash_set_probe_plain(hs, pkeys, pcount, max_probe), lib=None,
-        lib_name=None, nbytes=4 * size + 4 + 4 * npk + 5 * npk, nops=12 * npk,
+    live_b = keys if count is None else keys[:int(count)]
+    live_p = pkeys if pcount is None else pkeys[:int(pcount)]
+    out["hash_set_probe"] = dict(  # as hash_join_count_table calls it: the entry zeroes total
+        kern=lambda: hash_set_probe(hs, pkeys, pcount, max_probe, total=torch.empty(
+            (), dtype=torch.int32, device=pkeys.device)),
+        plain=lambda: hash_set_probe_plain(hs, pkeys, pcount, max_probe),
+        lib=lambda: torch.isin(live_p, live_b),
+        lib_name="torch.isin of the live probe keys in the live build keys",
+        nbytes=4 * size + 4 + 4 * npk + 5 * npk + 4, nops=12 * npk,  # table, keys in; outputs
         shape=f"{npk} probe keys against {size} slots")
     return out
 
@@ -5037,6 +5133,161 @@ def dist_selection_keys(hs: torch.Tensor, nact) -> torch.Tensor:
     return (run << 32) | (~pos & 0xFFFFFFFF)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-process plan, one process of four shards on the card (NCCL)
+
+MULTIPROC_SHARDS = 4  # --local-devices: four shards of the one process on the card
+COLLECTIVES = ("all_to_all_single", "all_gather", "all_reduce")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def counted_collectives(backends: list):
+    """Count the ``torch.distributed`` collectives called inside, by name,
+    and record the backend of every group ``multihost.initialize`` forms.
+    The calls still run."""
+    import torch.distributed as dist
+
+    from database_technology_algorithms_tpu_torch.parallel import multihost
+
+    counts = {name: 0 for name in COLLECTIVES}
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+    init = multihost.initialize
+
+    def wrap(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    def initialize(*a, **kw):
+        mesh = init(*a, **kw)
+        backends.append(dist.get_backend(mesh.group))
+        return mesh
+
+    for name in COLLECTIVES:
+        setattr(dist, name, wrap(name))
+    multihost.initialize = initialize
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+        multihost.initialize = init
+
+
+def phase_multiproc(dev, card: str) -> dict:
+    """``pipeline --coordinator`` as one process of four shards on the card:
+    the group over NCCL (gloo on the CPU), the mesh's collectives over it,
+    the counters against numpy, the single-card command and ``--dist 4``
+    (the in-process mesh on the same card), the launch counters around the
+    run; then a death after the "local" stage checkpointed (exit 17, the
+    manifest and the process's shards left) and a resume that loads it."""
+    import tempfile
+
+    from database_technology_algorithms_tpu_torch.io.generator import generate_columns
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.time()
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    seed = 42
+    want = command_oracle(generate_columns(NBLOCKS, seed=seed),
+                          generate_columns(NBLOCKS, seed=seed + 1), 1)
+    base = ["pipeline", "--nblocks", str(NBLOCKS), "--seed", str(seed), "--skip-files",
+            "--field", "1"]
+
+    def group(port: int) -> list:
+        return ["--coordinator", f"localhost:{port}", "--num-processes", "1", "--process-id",
+                "0", "--local-devices", str(MULTIPROC_SHARDS), "--init-timeout", "120",
+                "--heartbeat-timeout", "120"]
+
+    rc, single = run_cli(base)
+    if rc or {k: single[k] for k in COMMAND_COUNTERS} != want:
+        raise AssertionError(f"[multiproc] the single-card command: rc {rc}, {single}, "
+                             f"numpy {want}")
+    out = {"runs": {}}
+    # the sorted engine's exchange and sums; the skew engine's all-gathers too
+    for name, extra, engine, reps, needs in (
+            ("--dist 4", ["--dist", str(MULTIPROC_SHARDS)], "sorted", 3, ()),
+            ("one process of a group", None, "sorted", 3, ("all_to_all_single", "all_reduce")),
+            ("one process of a group, skew", None, "skew", 1, COLLECTIVES)):
+        walls = []
+        for rep in range(reps):
+            backends: list = []
+            argv = base + (extra if extra is not None else group(free_port())) + [
+                "--join-engine", engine]
+            with counted_collectives(backends) as counts:
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                rc, line = run_cli(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(LAUNCHES)
+            got = {k: line[k] for k in COMMAND_COUNTERS}
+            if rc or got != want or line["overflow"] or not line["joins_agree"] \
+                    or line["mesh_devices"] != MULTIPROC_SHARDS:
+                raise AssertionError(f"[multiproc] {name}: rc {rc}, {line}, numpy {want}")
+            check_launched(launches, DIST_KERNELS + DIST_ENGINE_KERNELS[engine],
+                           f"[multiproc] {name}")
+            if extra is None:
+                if backends != [want_backend] or not all(counts[c] for c in needs):
+                    raise AssertionError(f"[multiproc] {name}: groups {backends}, collectives "
+                                         f"{counts}; want one {want_backend} group carrying "
+                                         f"{needs}")
+            elif any(counts.values()) or backends:
+                raise AssertionError(f"[multiproc] {name}: the in-process mesh called "
+                                     f"collectives {counts}")
+            walls.append((line["wall_s"], wall))
+        out["runs"][name] = {"step_wall_s": [w for w, _ in walls],
+                             "command_wall_s": [w for _, w in walls],
+                             "collectives": counts, "backend": backends,
+                             "launches": {k: v for k, v in launches.items() if v}}
+        log(f"[multiproc] {card}: `{' '.join(argv)}`: {json.dumps(got)} == numpy and the single "
+            f"card; mesh_devices {line['mesh_devices']}; "
+            + (f"one {backends[0]} group, collectives {counts}; " if extra is None else
+               "the in-process mesh (copies); ")
+            + f"step wall s ({reps} runs): " + ", ".join(f"{w:.4f}" for w, _ in walls)
+            + "; the whole command s: " + ", ".join(f"{w:.3f}" for _, w in walls))
+    # ---- a death after the "local" stage, then the resume, on the card ---------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_stages_") as tmp:
+        ck = os.path.join(tmp, "stages")
+        try:
+            run_cli(base + group(free_port()) + ["--stage-checkpoints", ck,
+                                                 "--fail-after-stage", "local"])
+            raise AssertionError("[multiproc] --fail-after-stage local: the run did not die")
+        except SystemExit as e:
+            if e.code != 17:
+                raise AssertionError(f"[multiproc] --fail-after-stage local: exit {e.code}, not 17")
+        left = sorted(os.listdir(ck))
+        if not {"manifest.json", "local.p0.npz", "local.p0.meta.json"} <= set(left):
+            raise AssertionError(f"[multiproc] after the death: {left}")
+        reset_launches()
+        rc, line = run_cli(base + group(free_port()) + ["--stage-checkpoints", ck])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        got = {k: line[k] for k in COMMAND_COUNTERS}
+        if rc or got != want or line.get("resumed_stages") != ["local"] or os.listdir(ck):
+            raise AssertionError(f"[multiproc] the resume: rc {rc}, {line}, numpy {want}, "
+                                 f"left {os.listdir(ck)}")
+        check_launched(launches, ("stage_cells", "compact", "take_fill"),
+                       "[multiproc] the resume")
+    out["resume"] = {"left_after_death": left, "resumed_stages": line["resumed_stages"],
+                     "step_wall_s": line["wall_s"]}
+    log(f"[multiproc] {card}: --stage-checkpoints with --fail-after-stage local: exit 17, left "
+        f"{left}; the re-run resumed {line['resumed_stages']}: {json.dumps(got)} == numpy, "
+        f"its files removed")
+    log(f"[multiproc] the phase took {time.time() - t_phase:.1f} s")
+    return out
+
+
 def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dict, errs: dict,
                   card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
@@ -5386,6 +5637,8 @@ def main() -> int:
     done("engines")
     dist = phase_dist(dev, card)
     done("dist")
+    phase_multiproc(dev, card)
+    done("multiproc")
     kernels = (phase_timings(pipe, command, over, sort, probes, errs, card) + agg["recs"]
                + eng["recs"] + dist["recs"])
     done("timings")

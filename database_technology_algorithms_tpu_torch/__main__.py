@@ -21,9 +21,16 @@ file commands take the external route (``external.py``: spill segments in
 ``--mem-blocks``, and by themselves for block files beyond the default
 budget.  ``pipeline --dist N`` runs the distributed plan
 (``models/pipeline.make_dist_pipeline``) over N shards in this process, shard
-d on card ``d % device_count`` (or all on the CPU with ``--device cpu``);
-its multi-process flags (``--coordinator`` and the others) raise
-``NotImplementedError``: that form is not ported yet.
+d on card ``d % device_count`` (or all on the CPU with ``--device cpu``).
+With ``--coordinator host:port --num-processes P --process-id p
+--local-devices L`` it runs as process p of P, each of L shards on its one
+card over NCCL (or on the CPU over gloo with ``--device cpu``), after a
+rendezvous that fails past ``--init-timeout`` seconds; a dead peer fails the
+others' collectives within ``--heartbeat-timeout`` (shown over gloo; over
+NCCL the bound rests on torch's asynchronous error handling).  ``--stage-checkpoints
+DIR`` runs the plan stage by stage, each stage's shards saved to DIR, and a
+re-run resumes past the stages done (``--fail-after-stage`` injects a death,
+exit 17, after one).
 """
 
 from __future__ import annotations
@@ -64,13 +71,6 @@ def _write_chunks(path: str, chunks) -> None:
             w.append(chunk)
 
 
-# the multi-process flags of the JAX CLI and their defaults: parsed, and
-# refused when set (the multi-process plan is not ported yet)
-MULTI_PROCESS_FLAGS = {"coordinator": None, "num_processes": 1, "process_id": 0,
-                       "local_devices": None, "init_timeout": 300, "heartbeat_timeout": 100,
-                       "stage_checkpoints": None, "fail_after_stage": None}
-
-
 def cmd_pipeline(args) -> int:
     from .batch import canonical_field
     from .config import DEFAULT_CONFIG as cfg
@@ -82,13 +82,20 @@ def cmd_pipeline(args) -> int:
     from .ops.merge_join import join_sorted_distinct
     from .utils.checks import resolve_device
 
-    multi = [f"--{name.replace('_', '-')}" for name, default in MULTI_PROCESS_FLAGS.items()
-             if getattr(args, name) != default]
-    if multi:
-        from .parallel.multihost import MULTI_PROCESS
+    mesh = None
+    if args.coordinator:
+        # the multi-process entry: the rendezvous first, then the same plan
+        # over the global mesh
+        from .parallel.multihost import initialize
 
-        raise NotImplementedError(f"{', '.join(multi)}: {MULTI_PROCESS}")
-    device = resolve_device(args.device)
+        if not args.skip_files:
+            print("ERROR: multi-process runs require --skip-files")
+            return 1
+        mesh = initialize(args.coordinator, args.num_processes, args.process_id,
+                          local_devices=args.local_devices, device=args.device,
+                          initialization_timeout=args.init_timeout,
+                          heartbeat_timeout=args.heartbeat_timeout)
+    device = mesh.devices[0] if mesh is not None else resolve_device(args.device)
     field = canonical_field(args.field)
     t0 = time.time()
     print(f"[gen] {args.nblocks} blocks x 2 files ({args.nblocks * 100} rows each)")
@@ -106,8 +113,16 @@ def cmd_pipeline(args) -> int:
         assert_batch(r)
         assert_batch(s)
     print(f"[gen] done in {time.time() - t0:.2f}s on {device.type}")
-    if args.dist:
-        return _pipeline_dist(args, r, s, field, device)
+    if args.dist or mesh is not None:
+        from .parallel.multihost import shutdown
+
+        try:
+            rc = _pipeline_dist(args, r, s, field, device, mesh)
+        except SystemExit:  # the injected death after a stage: leave the group first
+            shutdown()
+            raise
+        shutdown()
+        return rc
 
     print("\n--------------MERGE JOIN-------------------")
     t1 = time.time()
@@ -154,26 +169,31 @@ def cmd_pipeline(args) -> int:
     return 0
 
 
-def _pipeline_dist(args, r, s, field: int, device) -> int:
-    """``pipeline --dist N``: the distributed plan over N shards, the JAX
+def _pipeline_dist(args, r, s, field: int, device, mesh=None) -> int:
+    """``pipeline --dist N``: the distributed plan over N shards (or, with a
+    process group's `mesh`, over all of its processes' shards), the JAX
     CLI's JSON record and exit code (1 unless the joins agree with no
     overflow)."""
     import torch
 
     from .config import EngineConfig
-    from .models.pipeline import make_dist_pipeline
-    from .parallel.dist_ops import distribute
+    from .models.pipeline import make_dist_pipeline_staged
     from .parallel.mesh import make_mesh
+    from .parallel.dist_ops import distribute
 
-    n = args.dist
-    if device.type == "cuda":
+    n = args.dist or mesh.size
+    if mesh is not None and n != mesh.size:
+        print("ERROR: multi-process runs use all global devices (--dist must match)")
+        return 1
+    if mesh is None and device.type == "cuda":
         count = torch.cuda.device_count()
         mesh = make_mesh(devices=[torch.device("cuda", d % count) for d in range(n)])
-    else:
+    elif mesh is None:
         mesh = make_mesh(n, devices=device)
     cfg = EngineConfig(shuffle_slack=4.0, dist_join_engine=args.join_engine,
                        shuffle_nchunks=args.shuffle_chunks)
-    step = make_dist_pipeline(mesh, field, cfg)
+    step = make_dist_pipeline_staged(mesh, field, cfg, ckpt_dir=args.stage_checkpoints,
+                                     fail_after=args.fail_after_stage)
     t1, t2 = distribute(mesh, r.to_numpy()), distribute(mesh, s.to_numpy())
     t0 = time.time()
     out = step(t1.batches, t1.counts, t2.batches, t2.counts)
@@ -193,6 +213,8 @@ def _pipeline_dist(args, r, s, field: int, device) -> int:
         "overflow": int(out["overflow"]),
         "wall_s": round(dt, 4),
     }
+    if "resumed_stages" in out:
+        rec["resumed_stages"] = out["resumed_stages"]
     print(json.dumps(rec))
     return 0 if rec["joins_agree"] and rec["overflow"] == 0 else 1
 
@@ -410,18 +432,24 @@ def main(argv=None) -> int:
     pp.add_argument("--shuffle-chunks", type=int, default=1, dest="shuffle_chunks",
                     help=">1 splits the exchanges into that many slices")
     pp.add_argument("--coordinator", default=None,
-                    help="multi-process: coordinator address host:port (not ported yet)")
+                    help="multi-process: coordinator address host:port (process 0 listens)")
     pp.add_argument("--num-processes", type=int, default=1)
     pp.add_argument("--process-id", type=int, default=0)
-    pp.add_argument("--local-devices", type=int, default=None)
-    pp.add_argument("--init-timeout", type=int, default=300, dest="init_timeout")
-    pp.add_argument("--heartbeat-timeout", type=int, default=100, dest="heartbeat_timeout")
+    pp.add_argument("--local-devices", type=int, default=None,
+                    help="shards of this process, all on its one device (default 1)")
+    pp.add_argument("--init-timeout", type=int, default=300, dest="init_timeout",
+                    help="multi-process rendezvous timeout (failure detection)")
+    pp.add_argument("--heartbeat-timeout", type=int, default=100, dest="heartbeat_timeout",
+                    help="multi-process liveness: seconds a collective waits for a peer "
+                         "before it fails (failure detection)")
     pp.add_argument("--debug-checks", action="store_true",
                     help="validate batch invariants at ingestion (utils/checks)")
     pp.add_argument("--stage-checkpoints", default=None, dest="stage_checkpoints",
-                    help="dist runs: checkpoint each stage (multi-process plan; not ported yet)")
+                    help="dist runs: save each stage's shards to this directory "
+                         "(manifest-resumable; a re-run skips the stages done)")
     pp.add_argument("--fail-after-stage", default=None, dest="fail_after_stage",
-                    choices=["local", "shuffle"])
+                    choices=["local", "shuffle"],
+                    help="fault injection: exit 17 right after the named stage checkpoints")
     pp.set_defaults(fn=cmd_pipeline)
 
     ms = sub.add_parser("mergesort", help="external sort a block file", parents=[common])

@@ -8,14 +8,15 @@
 //
 // Bound on the H100: bytes and L2 transactions.  A build key is read once
 // and costs a trip to its home slot, and a compare-and-swap where that
-// reads EMPTY; a probe key one 4-byte read a slot.  At the path's sizes the
-// table is 8 MB (1M build keys, 2^21 slots) and in the 50 MB L2, or 64 MB
-// (8M, 2^24 slots) and not.  A table of keys drawn from 3 rows / 10 values
-// is about 14% full, so most keys settle at their home slot.  On the card
-// the build is bound by the rate of the random L2 transactions (1M plain
-// stores to random slots take about as long as the insert), not by their
-// latency, so the plan (kernels/engines_plan.py hash_plan, chosen by
-// tools/hash_sweep.py) keeps one key a thread; its numbers:
+// reads EMPTY; a probe key one trip a 16-byte window of slots.  At the
+// path's sizes the table is 8 MB (1M build keys, 2^21 slots) and in the
+// 50 MB L2, or 64 MB (8M, 2^24 slots) and not.  A table of keys drawn from
+// 3 rows / 10 values is about 14% full, so most keys settle at their home
+// slot.  On the card the build is bound by the rate of the random L2
+// transactions (1M plain stores to random slots take about as long as the
+// insert), not by their latency, so the plan (kernels/engines_plan.py
+// hash_plan, chosen by tools/hash_sweep.py) keeps one key a thread; its
+// numbers:
 // - a thread takes K keys (HASH_KEYS, 1 in the plan): where the keys are
 //   contiguous and aligned to 4K bytes (16 at most) by one load (two
 //   16-byte ones at K = 8), the thread past the last whole group taking
@@ -29,6 +30,28 @@
 //   of at least W, so a window never crosses the table's end.
 // The table is filled with EMPTY and the meta words zeroed first, by one
 // fill launch (a little faster than the two memsets it replaced).
+//
+// K17 (kernels/engines_plan.py set_probe_plan, chosen by tools/hash_sweep.py)
+// takes the build's key loader and windows: at 1M keys it sits at the rate
+// of random L2 reads, one a key; at 8M the 64 MB table does not fit the L2
+// and most windows come from device memory.  So:
+// - a thread takes PROBE_KEYS = 2 keys (one 8-byte load where the keys are
+//   contiguous and aligned), issues both home windows before it looks at
+//   either, and stores its flags and counts 2 at a time; a block is
+//   PROBE_THREADS = 256 threads;
+// - where the table is past SET_PROBE_STREAM_BYTES the keys are read and
+//   the outputs written evict-first (__ldcs/__stcs), so they pass through
+//   the L2 without pushing table lines out;
+// - each block adds its hits into a 0-d total that the entry zeroes on the
+//   call's stream, so a caller needs no sum over mult.
+// Passes over L2-sized ranges of a large table (a pass the keys whose home
+// lies in its range), with or without a prefetch of the range, an evict-last
+// policy on the table's reads, 1 or 4 keys a thread, and blocks of 128 or
+// 512 threads all measured slower (PERF.md, "forms tried"): every pass
+// rereads every key and writes outputs in partial sectors.  The walk is the
+// same for either window: from the home slot, at most max_probe slots,
+// stopping at the key's mix or at EMPTY; the key whose mix is EMPTY reads
+// the flag; rows past the live count are not found.
 //
 // Exactness, which the JAX form does not have (it stores the one key whose
 // mix is EMPTY as EMPTY ^ 1, the mix of another key, and probes fewer slots
@@ -54,8 +77,10 @@
 
 namespace {
 
-constexpr int THREADS = 256;       // K17's block and the fill's
-constexpr int MAX_THREADS = 1024;  // a K16 block, at most
+constexpr int THREADS = 256;        // the fill's block
+constexpr int MAX_THREADS = 1024;   // a K16 block, at most
+constexpr int PROBE_KEYS = 2;       // a K17 thread's keys
+constexpr int PROBE_THREADS = 256;  // a K17 block
 constexpr uint32_t EMPTY = 0xFFFFFFFFu;
 
 // murmur3's finalizer, bijective on u32 (ops/hash_table.py:34)
@@ -71,7 +96,8 @@ __device__ __forceinline__ uint32_t mix(uint32_t h) {
 // A thread's keys: the vector path's keys Ku .. Ku + K - 1 (or, for u ==
 // n / K, the tail), the scalar path's keys c * KT + t + k * T of chunk
 // c = u / T, thread t = u % T (T = blockDim.x).  The keys taken are a
-// prefix of the K.
+// prefix of the K.  STREAM reads them evict-first (K17), else through the
+// read-only path (K16).
 template <int K>
 struct Keys {
   uint32_t v[K];
@@ -80,7 +106,13 @@ struct Keys {
   int count;
 };
 
-template <int K>
+template <bool STREAM, typename T>
+__device__ __forceinline__ T load_one(const T* p) {
+  if constexpr (STREAM) return __ldcs(p);
+  else return __ldg(p);
+}
+
+template <int K, bool STREAM = false>
 __device__ __forceinline__ Keys<K> load_keys(const uint32_t* __restrict__ keys, int64_t n,
                                              int64_t u, bool vec) {
   Keys<K> r;
@@ -92,15 +124,15 @@ __device__ __forceinline__ Keys<K> load_keys(const uint32_t* __restrict__ keys, 
     if (u < full) {
       const uint32_t* p = keys + r.first;
       if constexpr (K == 1) {
-        r.v[0] = __ldg(p);
+        r.v[0] = load_one<STREAM>(p);
       } else if constexpr (K == 2) {
-        const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+        const uint2 x = load_one<STREAM>(reinterpret_cast<const uint2*>(p));
         r.v[0] = x.x;
         r.v[1] = x.y;
       } else {
 #pragma unroll
         for (int q = 0; q < K / 4; ++q) {
-          const uint4 x = __ldg(reinterpret_cast<const uint4*>(p) + q);
+          const uint4 x = load_one<STREAM>(reinterpret_cast<const uint4*>(p) + q);
           r.v[4 * q] = x.x;
           r.v[4 * q + 1] = x.y;
           r.v[4 * q + 2] = x.z;
@@ -111,7 +143,8 @@ __device__ __forceinline__ Keys<K> load_keys(const uint32_t* __restrict__ keys, 
     } else {
       r.count = u == full ? (int)(n - full * K) : 0;
 #pragma unroll
-      for (int k = 0; k < K; ++k) r.v[k] = k < r.count ? __ldg(keys + r.first + k) : 0u;
+      for (int k = 0; k < K; ++k)
+        r.v[k] = k < r.count ? load_one<STREAM>(keys + r.first + k) : 0u;
     }
   } else {
     r.first = (u / t) * t * K + u % t;
@@ -120,7 +153,7 @@ __device__ __forceinline__ Keys<K> load_keys(const uint32_t* __restrict__ keys, 
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int64_t i = r.first + k * t;
-      r.v[k] = i < n ? __ldg(keys + i) : 0u;
+      r.v[k] = i < n ? load_one<STREAM>(keys + i) : 0u;
       r.count += i < n;
     }
   }
@@ -289,33 +322,120 @@ void launch_build(int window, int64_t blocks, int threads, cudaStream_t s,
         keys, n, cnt, cnt_host, table, mask, limit, meta, vec);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The window of W slots that holds `slot`, read through the read-only path
+// (the probe writes no slot).
+template <int W>
+__device__ __forceinline__ void read_window_ro(const uint32_t* __restrict__ table, uint32_t slot,
+                                               uint32_t (&win)[W]) {
+  if constexpr (W == 1) {
+    win[0] = __ldg(table + slot);
+  } else {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(table) + (slot >> 2));
+    win[0] = x.x;
+    win[1] = x.y;
+    win[2] = x.z;
+    win[3] = x.w;
+  }
+}
+
+// An output word, evict-first with `stream`.
+template <typename T>
+__device__ __forceinline__ void store_out(T* p, T v, bool stream) {
+  if (stream) __stcs(p, v);
+  else *p = v;
+}
+
+// The probe's walk over the window from `slot`, having tried `d` slots: the
+// key's mix ends it found, EMPTY or the max_probe-th slot not found.
+// Returns true when the key is settled; else moves `slot` to the next
+// window's first slot.
+template <int W>
+__device__ __forceinline__ bool probe_window(uint32_t q, uint32_t& slot, int& d, int max_probe,
+                                             uint32_t mask, const uint32_t (&win)[W], bool& f) {
+  const uint32_t base = slot & ~(uint32_t)(W - 1);
+  const int from = (int)(slot & (W - 1));
+#pragma unroll
+  for (int s = 0; s < W; ++s) {
+    if (s < from) continue;
+    if (d == max_probe) return true;
+    if (win[s] == q) {
+      f = true;
+      return true;
+    }
+    if (win[s] == EMPTY) return true;
+    ++d;
+  }
+  if (d == max_probe) return true;
+  slot = (base + W) & mask;
+  return false;
+}
+
+// The grid covers the keys once, PROBE_KEYS a thread.  total, where not
+// null, gains the found keys; `stream` reads the keys and writes the
+// outputs evict-first.
+template <int W>
+__global__ void __launch_bounds__(PROBE_THREADS)
     hash_set_probe_kernel(const uint32_t* __restrict__ table, uint32_t mask,
                           const int32_t* __restrict__ meta, const uint32_t* __restrict__ keys,
                           int32_t n, const int32_t* __restrict__ cnt_dev, int32_t cnt_host,
-                          int max_probe, bool* __restrict__ found, int32_t* __restrict__ mult) {
-  const int32_t i = (int32_t)(blockIdx.x * THREADS + threadIdx.x);
-  if (i >= n) return;
-  bool f = false;
-  if (i < (cnt_dev ? *cnt_dev : cnt_host)) {
-    const uint32_t q = mix(keys[i]);
-    if (q == EMPTY) {
-      f = meta[0] != 0;
-    } else {
-      uint32_t slot = q & mask;
-      for (int d = 0; d < max_probe; ++d) {
-        const uint32_t cur = __ldg(table + slot);
-        if (cur == q) {
-          f = true;
-          break;
-        }
-        if (cur == EMPTY) break;
-        slot = (slot + 1) & mask;
-      }
+                          int max_probe, uint8_t* __restrict__ found, int32_t* __restrict__ mult,
+                          int32_t* __restrict__ total, bool vec, bool stream) {
+  constexpr int K = PROBE_KEYS;
+  const int64_t u = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const Keys<K> r = stream ? load_keys<K, true>(keys, n, u, vec) : load_keys<K>(keys, n, u, vec);
+  const int64_t live = cnt_dev ? *cnt_dev : cnt_host;
+  uint32_t q[K], slot[K];
+  bool walk[K], f[K];
+  int d[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    q[k] = mix(r.v[k]);
+    const bool is_live = k < r.count && r.first + k * r.step < live;
+    slot[k] = q[k] & mask;
+    walk[k] = is_live && q[k] != EMPTY && max_probe > 0;
+    f[k] = is_live && q[k] == EMPTY && meta[0] != 0;  // the flag read by that key alone
+    d[k] = 0;
+  }
+  // every home window in flight at once, then each walk
+  uint32_t win[K][W];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (walk[k]) read_window_ro<W>(table, slot[k], win[k]);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    walk[k] = walk[k] && !probe_window<W>(q[k], slot[k], d[k], max_probe, mask, win[k], f[k]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    while (walk[k]) {
+      uint32_t w[W];
+      read_window_ro<W>(table, slot[k], w);
+      walk[k] = !probe_window<W>(q[k], slot[k], d[k], max_probe, mask, w, f[k]);
     }
   }
-  found[i] = f;
-  mult[i] = f ? 1 : 0;
+  int hits = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) hits += f[k];
+  static_assert(K == 2, "the vector path stores 2 flags and 2 counts");
+  if (vec && r.count == K) {
+    store_out(reinterpret_cast<uchar2*>(found + r.first), make_uchar2(f[0], f[1]), stream);
+    store_out(reinterpret_cast<int2*>(mult + r.first), make_int2(f[0], f[1]), stream);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k >= r.count) break;
+      store_out(found + r.first + k * r.step, (uint8_t)f[k], stream);
+      store_out(mult + r.first + k * r.step, (int32_t)f[k], stream);
+    }
+  }
+  if (total) {  // the same for every block: no thread skips the barriers
+    __shared__ int block_hits;
+    if (threadIdx.x == 0) block_hits = 0;
+    __syncthreads();
+    hits = __reduce_add_sync(dbt::FULL_MASK, hits);
+    if ((threadIdx.x & 31) == 0 && hits) atomicAdd(&block_hits, hits);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_hits) atomicAdd(total, block_hits);
+  }
 }
 
 }  // namespace
@@ -366,19 +486,47 @@ DBT_API int dbt_hash_set_build(const void* keys, int64_t n, const void* cnt, int
 }
 
 // table u32[size] and meta i32[2] from dbt_hash_set_build; keys u32[n] with
-// their live count as above; found bool[n], mult i32[n].
+// their live count as above; found bool[n], mult i32[n]; total one i32 (or
+// null), zeroed here on the stream, gains the found keys.  The plan
+// (kernels/engines_plan.py set_probe_plan): the window (1 or 4 slots), vec
+// (keys read and outputs written 2 at a time) and stream (both
+// evict-first); the grid covers the keys once.
 DBT_API int dbt_hash_set_probe(const void* table, int64_t size, const void* meta, const void* keys,
                                int64_t n, const void* cnt, int64_t cnt_host, int max_probe,
-                               void* found, void* mult, void* stream) {
-  if (n < 0 || n > INT32_MAX || size < 1 || size > (int64_t(1) << 31) || (size & (size - 1)))
+                               void* found, void* mult, void* total, int window, int vec,
+                               int stream, void* stream_ptr) {
+  if (n < 0 || n > INT32_MAX || size < 1 || size > (int64_t(1) << 31) || (size & (size - 1)) ||
+      (window != 1 && window != 4) || size < window ||
+      reinterpret_cast<uintptr_t>(table) % (4u * window))
     return (int)cudaErrorInvalidValue;
+  if (vec && (reinterpret_cast<uintptr_t>(keys) % (4u * PROBE_KEYS) ||
+              reinterpret_cast<uintptr_t>(found) % PROBE_KEYS ||
+              reinterpret_cast<uintptr_t>(mult) % (4u * PROBE_KEYS)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (total) {
+    cudaMemsetAsync(total, 0, sizeof(int32_t), s);
+    DBT_CHECK_LAUNCH();
+  }
   if (n == 0) return 0;
-  hash_set_probe_kernel<<<dbt::blocks_for(n, THREADS), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(table), (uint32_t)(size - 1),
-      static_cast<const int32_t*>(meta), static_cast<const uint32_t*>(keys), (int32_t)n,
-      static_cast<const int32_t*>(cnt), (int32_t)cnt_host, max_probe < 0 ? 0 : max_probe,
-      static_cast<bool*>(found), static_cast<int32_t*>(mult));
+  const auto* tp = static_cast<const uint32_t*>(table);
+  const auto* mp = static_cast<const int32_t*>(meta);
+  const auto* kp = static_cast<const uint32_t*>(keys);
+  const auto* cp = static_cast<const int32_t*>(cnt);
+  auto* fp = static_cast<uint8_t*>(found);
+  auto* up = static_cast<int32_t*>(mult);
+  auto* op = static_cast<int32_t*>(total);
+  const auto mask = (uint32_t)(size - 1);
+  const int64_t per_block = (int64_t)PROBE_THREADS * PROBE_KEYS;
+  const auto grid = (unsigned)((n + per_block - 1) / per_block);
+  if (window == 4)
+    hash_set_probe_kernel<4><<<grid, PROBE_THREADS, 0, s>>>(
+        tp, mask, mp, kp, (int32_t)n, cp, (int32_t)cnt_host, max_probe, fp, up, op, vec != 0,
+        stream != 0);
+  else
+    hash_set_probe_kernel<1><<<grid, PROBE_THREADS, 0, s>>>(
+        tp, mask, mp, kp, (int32_t)n, cp, (int32_t)cnt_host, max_probe, fp, up, op, vec != 0,
+        stream != 0);
   DBT_CHECK_LAUNCH();
   return 0;
 }

@@ -139,7 +139,8 @@ _SIGNATURES = {
     "dbt_expand_sources": ([_P, _I64, _I64, _P, _I, _I, _I64, _P], _I),
     "dbt_sorted_probe": ([_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _I, _P, _P, _P], _I),
     "dbt_hash_set_build": ([_P, _I64, _P, _I64, _P, _I64, _I, _P, _I, _I, _I, _I, _I64, _P], _I),
-    "dbt_hash_set_probe": ([_P, _I64, _P, _P, _I64, _P, _I64, _I, _P, _P, _P], _I),
+    "dbt_hash_set_probe": ([_P, _I64, _P, _P, _I64, _P, _I64, _I, _P, _P, _P, _I, _I, _I, _P],
+                           _I),
     "dbt_bucket_probe": ([_P, _P, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P], _I),
     "dbt_topk_runs_scratch_words": ([_I64, _I], _I64),
     "dbt_topk_runs": ([_P, _I64, _P, _I, _P, _P, _P, _I64, _P], _I),

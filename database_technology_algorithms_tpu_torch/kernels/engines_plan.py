@@ -18,8 +18,16 @@ open-addressing hash set (``csrc/hash_set.cu``), and K18, the bucket compare
   and reads a taken slot's successors ``HASH_WINDOW`` slots (one aligned
   16-byte window) a trip.  The plan is the one ``tools/hash_sweep.py``
   chose: one key a thread, a window of 4.  It inserts a key into at most
-  ``insert_limit(max_probe)`` slots, the bound under which K17, one thread a
-  key, finds every stored key; a key that passes it fails.
+  ``insert_limit(max_probe)`` slots, the bound under which K17 finds every
+  stored key; a key that passes it fails.
+- K17 (``set_probe_plan``): a thread of a 256-thread block takes 2 keys
+  (by one 8-byte load where the keys are contiguous and aligned; the tail
+  and other layouts key by key), issues their home windows of
+  ``SET_PROBE_WINDOW`` slots together and stores their outputs 2 at a time,
+  the keys and outputs evict-first where the table is past
+  ``SET_PROBE_STREAM_BYTES`` (there they would push table lines out of the
+  L2).  The keys a thread and the block are the kernel's constants; the
+  window and the hints are the ones ``tools/hash_sweep.py`` chose.
 - K18 (``bucket_plan``): one launch writes the first row of every bucket
   on both sides (``bucket_starts_words``), the next gives a block a span of
   ``span`` consecutive buckets, whose build keys it holds in shared memory,
@@ -50,6 +58,9 @@ H100_SMS = 132
 HASH_KEYS = 1  # K16's keys a thread: 1, 2, 4 or 8 (4 and 8 read by 16-byte loads)
 HASH_THREADS = 256  # K16's insert block
 HASH_WINDOW = 4  # K16's slots a read: 1, or 4 (one 16-byte window)
+
+SET_PROBE_WINDOW = 4  # K17's slots a read: 1, or 4 (one 16-byte window)
+SET_PROBE_STREAM_BYTES = 32 << 20  # keys and outputs evict-first past a table this large
 
 BUCKET_SPAN = 32  # buckets a block of K18's compare
 BUCKET_MAX_SPAN = 32  # MAX_SPAN in csrc/bucket_probe.cu: a warp scans the span's counts
@@ -156,6 +167,26 @@ def hash_plan(n: int, size: int, keys_ptr: int) -> HashPlan:
     window = window if size >= window else 1
     vec = keys_ptr % min(4 * keys, 16) == 0
     return HashPlan(keys, threads, window, vec, max(-(-n // (threads * keys)), 1))
+
+
+class SetProbePlan(NamedTuple):
+    window: int  # slots a read
+    vec: bool  # the keys read and the outputs stored 2 at a time
+    stream: bool  # the keys read and the outputs stored evict-first
+
+
+def set_probe_plan(size: int, keys_ptr: int) -> SetProbePlan:
+    """K17's plan against `size` slots, from ``SET_PROBE_WINDOW`` and
+    ``SET_PROBE_STREAM_BYTES``: the vector path takes keys aligned to 8
+    bytes (its outputs are fresh and aligned), a window of 4 slots a table
+    of at least 4, the streaming hints a table past
+    ``SET_PROBE_STREAM_BYTES``.  Raises ValueError on what the kernel
+    refuses."""
+    window = SET_PROBE_WINDOW
+    if window not in (1, 4):
+        raise ValueError(f"hash_set_probe: a window of {window} slots; the kernel takes 1 or 4")
+    window = window if size >= window else 1
+    return SetProbePlan(window, keys_ptr % 8 == 0, 4 * size > SET_PROBE_STREAM_BYTES)
 
 
 class BucketPlan(NamedTuple):

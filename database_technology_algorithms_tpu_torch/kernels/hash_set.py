@@ -109,20 +109,29 @@ def hash_set_build_plain(keys: torch.Tensor, size: int, count=None, limit: int =
                    pending.sum(dtype=torch.int32))
 
 
-def hash_set_probe(hs: HashSet, keys: torch.Tensor, count=None, max_probe: int = 64
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+def hash_set_probe(hs: HashSet, keys: torch.Tensor, count=None, max_probe: int = 64,
+                   total: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Membership of each key (int32[P], the first `count` live; None: all)
     in the set: linear probing from the key's home slot until its value, an
     EMPTY slot or `max_probe` slots; the key whose mix is EMPTY reads the
     flag.  Returns (found bool[P], mult int32[P]); a dead row is not found.
+    `total`, a 0-d int32 tensor on the keys' device, receives the number of
+    keys found (the sum of mult), on the card from the same launch.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    under ``engines_plan.set_probe_plan``.
     """
     size = hs.slots.shape[0]
     engines_plan.check_table("hash_set_probe", size)
     max_probe = min(max(int(max_probe), 0), engines_plan.MAX_ROWS)
+    if total is not None and (total.shape != () or total.dtype != torch.int32
+                              or total.device != keys.device):
+        raise ValueError("hash_set_probe: total must be a 0-d int32 tensor on the keys' device")
     if keys.device.type == "cpu":
-        return hash_set_probe_plain(hs, keys, count, max_probe)
+        found, mult = hash_set_probe_plain(hs, keys, count, max_probe)
+        if total is not None:
+            total.copy_(mult.sum(dtype=torch.int32))
+        return found, mult
     dev = keys.device
     _lib.check_cuda("hash_set_probe keys", keys, torch.int32)
     _lib.check_cuda("hash_set_probe slots", hs.slots, torch.int32, dev)
@@ -132,14 +141,18 @@ def hash_set_probe(hs: HashSet, keys: torch.Tensor, count=None, max_probe: int =
     found = torch.empty(n, dtype=torch.bool, device=dev)
     mult = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
+        if total is not None:
+            total.zero_()
         return found, mult
     cnt, cnt_host = rowmove_plan.count_arg(count, n, dev)
+    plan = engines_plan.set_probe_plan(size, keys.data_ptr())
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.dbt_hash_set_probe(
             hs.slots.data_ptr(), size, hs.has_empty_key.data_ptr(), keys.data_ptr(), n,
             None if cnt is None else cnt.data_ptr(), cnt_host, max_probe,
-            found.data_ptr(), mult.data_ptr(), _lib.stream_of(keys),
+            found.data_ptr(), mult.data_ptr(), None if total is None else total.data_ptr(),
+            plan.window, int(plan.vec), int(plan.stream), _lib.stream_of(keys),
         )
     _lib.raise_on_error(err, "hash_set_probe")
     _lib.LAUNCHES["hash_set_probe"] += 1

@@ -2,7 +2,8 @@
 all four key fields, both materialization routes; beyond the device budget
 the staged runner composes the chunked distinct, the tiled join and the
 chunked compaction; ``make_dist_pipeline``, the distributed plan over a
-shard mesh, at the end of the module).
+shard mesh, and ``make_dist_pipeline_staged``, the same plan stage by stage
+with per-stage checkpoints, at the end of the module).
 
 The reference driver's workload (``main.cpp:109-123``) is MergeJoin
 (sort -> distinct -> two-pointer join) followed by HashJoin on the dedup'd
@@ -350,18 +351,108 @@ def make_dist_pipeline(mesh, field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG)
     the combine of the partials, the merge join and the HashJoin
     cross-check under ``cfg.dist_join_engine`` ("sorted", "skew" or
     "overlap"; all exact) (stage 3).  The stages are this module's
-    ``_dist_stage_local``, ``_dist_stage_shuffle`` and ``_dist_stage_join``.
+    ``_dist_stage_local``, ``_dist_stage_shuffle`` and ``_dist_stage_join``,
+    run by :func:`make_dist_pipeline_staged` with nothing checkpointed.
     """
+    return make_dist_pipeline_staged(mesh, field, cfg)
+
+
+BATCH_COLS = ("recid", "num", "strw", "valid")
+AGG_COLS = ("count", "sum", "min", "max")
+
+
+def make_dist_pipeline_staged(mesh, field: int = 1, cfg: EngineConfig = DEFAULT_CONFIG,
+                              ckpt_dir: str | None = None, fail_after: str | None = None):
+    """The distributed plan as its three stages (``_dist_stage_local``,
+    ``_dist_stage_shuffle``, ``_dist_stage_join``), the one sequence behind
+    :func:`make_dist_pipeline`.  With `ckpt_dir`, each stage's outputs are
+    checkpointed there (per-process npz shards and a manifest,
+    ``parallel/checkpoint.StageCheckpoints``), so that a re-run skips the
+    stages done and re-runs only the one that failed.  `fail_after`
+    ("local" or "shuffle") is the fault injection: the process exits (17)
+    right after the named stage checkpointed.
+
+    Returns ``run(r_batches, r_counts, s_batches, s_counts)``, which returns
+    :func:`make_dist_pipeline`'s dict; with `ckpt_dir` it also holds
+    ``resumed_stages``, the stages loaded from the manifest.  The
+    checkpoint ties itself to the run's input shapes, field and plan
+    settings, and to each process's input content; a run that completes
+    removes its files."""
+    from ..parallel.checkpoint import InjectedStageFailure, StageCheckpoints, local_content_tag
+
     ndev = mesh_size(mesh)
 
-    def step(rb: list, rc: list, sb: list, sc: list) -> dict:
+    def batches(values: dict, side: str) -> list:
+        return [RecordBatch(*(values[f"{side}_{c}"][j] for c in BATCH_COLS))
+                for j in range(len(mesh.devices))]
+
+    def columns(bs: list, side: str) -> dict:
+        return {f"{side}_{c}": [getattr(b, c) for b in bs] for c in BATCH_COLS}
+
+    def run(rb: list, rc: list, sb: list, sc: list) -> dict:
         cap_r, cap_s = _dist_caps(rb[0].nrows, sb[0].nrows, ndev, cfg)
-        local = [_dist_stage_local(r, a, s, b, field, cfg) for r, a, s, b in zip(rb, rc, sb, sc)]
-        rloc, nur_loc, sloc, s_pagg, nus_loc = (list(x) for x in zip(*local))
-        rsh, rtot, ssh, s_px, stot, sh_ovf = _dist_stage_shuffle(
-            mesh, rloc, nur_loc, sloc, s_pagg, nus_loc, field, cfg, cap_r, cap_s)
+        resumed: list[str] = []
+        ckpt = None
+        if ckpt_dir:
+            ckpt = StageCheckpoints(
+                ckpt_dir, mesh,
+                fingerprint={
+                    "field": field if isinstance(field, str) else int(field),
+                    "ndev": ndev,
+                    "shapes": [rb[0].nrows * ndev, sb[0].nrows * ndev, rb[0].str_words,
+                               sb[0].str_words],
+                    "cfg": [cfg.shuffle_slack, cfg.shuffle_nchunks, cfg.dist_join_engine,
+                            cfg.packed_u32_sorts],
+                },
+                local_tag=local_content_tag(
+                    [getattr(b, c) for b in rb + sb for c in BATCH_COLS] + rc + sc))
+
+        # ---- stage 1: local (filter, dedup, partial aggregates) -------------------
+        if ckpt is not None and ckpt.stage_done("local"):
+            a = ckpt.load_stage("local")
+            rloc, sloc = batches(a, "r"), batches(a, "s")
+            nur_loc, nus_loc = a["r_cnt"], a["s_cnt"]
+            s_pagg = [{k: a[f"pg_{k}"][j] for k in AGG_COLS} for j in range(len(rloc))]
+            resumed.append("local")
+        else:
+            local = [_dist_stage_local(r, a, s, b, field, cfg)
+                     for r, a, s, b in zip(rb, rc, sb, sc)]
+            rloc, nur_loc, sloc, s_pagg, nus_loc = (list(x) for x in zip(*local))
+            if ckpt is not None:
+                ckpt.save_stage("local", {
+                    **columns(rloc, "r"), "r_cnt": nur_loc, **columns(sloc, "s"),
+                    "s_cnt": nus_loc, **{f"pg_{k}": [p[k] for p in s_pagg] for k in AGG_COLS}})
+                if fail_after == "local":
+                    raise InjectedStageFailure("local")
+
+        # ---- stage 2: the exchange --------------------------------------------------
+        if ckpt is not None and ckpt.stage_done("shuffle"):
+            b = ckpt.load_stage("shuffle")
+            rsh, ssh = batches(b, "r"), batches(b, "s")
+            rtot, stot = b["r_cnt"], b["s_cnt"]
+            s_px = [tuple(b[f"px_{k}"][j] for k in range(len(AGG_COLS)))
+                    for j in range(len(rsh))]
+            sh_ovf = int(ckpt.load_scalars("shuffle")["overflow"])
+            resumed.append("shuffle")
+        else:
+            rsh, rtot, ssh, s_px, stot, ovf = _dist_stage_shuffle(
+                mesh, rloc, nur_loc, sloc, s_pagg, nus_loc, field, cfg, cap_r, cap_s)
+            sh_ovf = ovf[0]
+            if ckpt is not None:
+                ckpt.save_stage("shuffle", {
+                    **columns(rsh, "r"), "r_cnt": rtot, **columns(ssh, "s"), "s_cnt": stot,
+                    **{f"px_{k}": [p[k] for p in s_px] for k in range(len(AGG_COLS))}},
+                    scalars={"overflow": int(sh_ovf)})
+                if fail_after == "shuffle":
+                    raise InjectedStageFailure("shuffle")
+
+        # ---- stage 3: the global combine and the joins -----------------------------
         out = _dist_stage_join(mesh, rsh, rtot, ssh, s_px, stot, field, cfg, cap_r, cap_s)
-        out["overflow"] = out["overflow"] + sh_ovf[0]
+        out["overflow"] = out["overflow"] + sh_ovf
+        if ckpt is not None:
+            out["resumed_stages"] = resumed
+            # the run completed: its checkpoints served their purpose
+            ckpt.cleanup()
         return out
 
-    return step
+    return run

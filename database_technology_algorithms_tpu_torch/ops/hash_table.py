@@ -4,8 +4,9 @@ Port of the JAX package's ``ops/hash_table.py``.  The reference's hash join
 builds an STL ``unordered_map`` per query (``DatabaseProject.cpp:510-548``);
 here a power-of-two slot array on the card is filled by parallel insertion
 (K16: one ``atomicCAS`` a slot, linear probing) and probed by hash, read
-and compare (K17).  The table's size follows the build rows and the
-configured load factor, so its memory is bounded and explicit.
+and compare (K17, which also counts the matches in the same launch).  The
+table's size follows the build rows and the configured load factor, so its
+memory is bounded and explicit.
 
 The port is exact where the JAX form is not (see ``csrc/hash_set.cu``): the
 one key whose mix is ``EMPTY`` is flagged, never stored under another key's
@@ -76,5 +77,7 @@ def hash_join_count_table(
     if int(n_failed) > 0:
         return hash_join_count_u32(build, probe, field, build_count=build_count,
                                    probe_count=probe_count)
-    hit, mult = hash_set_probe(hs, u32_key(probe, field), probe_count, cfg.hash_max_probe)
-    return hit, mult, mult.sum(dtype=torch.int32)
+    total = torch.empty((), dtype=torch.int32, device=bkey.device)
+    hit, mult = hash_set_probe(hs, u32_key(probe, field), probe_count, cfg.hash_max_probe,
+                               total=total)
+    return hit, mult, total

@@ -1,6 +1,6 @@
-"""The distributed layer: the shard mesh, the all-to-all shuffle and the
-distributed operators (port of the JAX package's ``parallel/``, in one
-process; the multi-process form is not ported yet)."""
+"""The distributed layer: the shard mesh, the all-to-all shuffle, the
+distributed operators, the multi-process runtime and the per-stage
+checkpoints (port of the JAX package's ``parallel/``)."""
 
 from .dist_ops import (
     DistTable,

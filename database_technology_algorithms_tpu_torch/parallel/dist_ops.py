@@ -45,9 +45,9 @@ from .shuffle import shuffle
 
 @dataclasses.dataclass
 class DistTable:
-    """A row-split table: one batch a shard (all of ``rows_per_chip`` rows
-    and one string width) and each shard's live count (0-d int32 on its
-    device)."""
+    """A row-split table: one batch a local shard (all of ``rows_per_chip``
+    rows and one string width) and each shard's live count (0-d int32 on
+    its device)."""
 
     batches: list
     counts: list
@@ -58,7 +58,7 @@ class DistTable:
 
     def global_batch(self) -> RecordBatch:
         """The shards' rows in mesh order, as one batch on the first shard's
-        device: the JAX package's global array."""
+        device: the JAX package's global array (of this process's shards)."""
         dev = self.batches[0].recid.device
         return RecordBatch.concat([
             RecordBatch(*(getattr(b, c).to(dev) for c in ("recid", "num", "strw", "valid")))
@@ -77,7 +77,8 @@ def hash_dest(batch: RecordBatch, field, ndev: int) -> torch.Tensor:
 
 def distribute(mesh: Mesh, cols: dict, rows_per_chip: int | None = None) -> DistTable:
     """Spread host columns over the shards in contiguous blocks
-    (``multihost.pad_columns``), each block on its shard's device."""
+    (``multihost.pad_columns``): this process's shards' blocks, each on its
+    shard's device (every process passes the same columns)."""
     from .multihost import pad_columns
 
     ndev = mesh_size(mesh)
@@ -85,7 +86,7 @@ def distribute(mesh: Mesh, cols: dict, rows_per_chip: int | None = None) -> Dist
     per = rows_per_chip or -(-n // ndev)
     padded, counts = pad_columns(cols, ndev, per)
     batches, live = [], []
-    for d, dev in enumerate(mesh.devices):
+    for d, dev in zip(mesh.local_shards, mesh.devices):
         rows = slice(d * per, (d + 1) * per)
         batches.append(RecordBatch(
             recid=u32_to_torch(padded["recid"][rows], dev),
@@ -97,7 +98,7 @@ def distribute(mesh: Mesh, cols: dict, rows_per_chip: int | None = None) -> Dist
 
 
 def collect(table: DistTable) -> dict:
-    """The live rows of every shard, in mesh order, as host columns."""
+    """The live rows of every local shard, in mesh order, as host columns."""
     parts = [b.slice(0, int(c)).to_numpy() for b, c in zip(table.batches, table.counts)]
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 

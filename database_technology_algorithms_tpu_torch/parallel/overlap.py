@@ -162,7 +162,7 @@ def overlapped_join_local(
     bkey_recv = [mesh.all_to_all([p[0][j] for p in bpack]) for j in range(nw)]
     brc = mesh.all_to_all([p[2] for p in bpack])
     bkeys, n_bkeys = [], []
-    for d in range(ndev):
+    for d in range(len(bb)):
         slot = torch.arange(cap_b, device=brc[d].device)
         live = (slot[None, :] < brc[d][:, None]).reshape(-1)
         n = live.sum(dtype=torch.int32)
@@ -180,14 +180,14 @@ def overlapped_join_local(
         k_recv = [mesh.all_to_all([p[0][j].reshape(ndev, cap_p)[:, lo:lo + chunk_cap]
                                    .reshape(-1) for p in ppack]) for j in range(nw)]
         cnts = []
-        for d in range(ndev):
+        for d in range(len(pb)):
             within = torch.arange(lo, lo + chunk_cap, device=prc[d].device)
             live = (within[None, :] < prc[d][:, None]).reshape(-1)
             cnts.append(_probe(bkeys[d], n_bkeys[d], [k[d] for k in k_recv], live))
         back.append(mesh.all_to_all(cnts))  # block s returns to source shard s
 
     mult = []
-    for d in range(ndev):
+    for d in range(len(pb)):
         # [ndev, cap_p] in slot order: slice c fills columns [c * chunk_cap, ...)
         slots = torch.stack([b[d].reshape(ndev, chunk_cap) for b in back], 1).reshape(-1)
         flat = torch.cat([slots, slots.new_zeros(1)])

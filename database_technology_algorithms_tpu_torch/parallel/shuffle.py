@@ -17,7 +17,7 @@ mesh's ``all_to_all`` of each column, then K3 (``compact_rows``) brings
 the received rows to the front.
 
 The JAX functions run inside ``shard_map`` on one chip's view; these take
-the mesh and one value a shard (lists), and return lists.
+the mesh and one value a local shard (lists), and return lists.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def _chunked_all_to_all(mesh: Mesh, xs: list, cap: int, nchunks: int) -> list:
             continue
         sl = [x.reshape((ndev, cap) + rest)[:, lo:hi].reshape((-1,) + rest) for x in xs]
         parts.append([y.reshape((ndev, hi - lo) + rest) for y in mesh.all_to_all(sl)])
-    return [torch.cat([p[d] for p in parts], 1).reshape(xs[d].shape) for d in range(ndev)]
+    return [torch.cat([p[d] for p in parts], 1).reshape(xs[d].shape) for d in range(len(xs))]
 
 
 def exchange(
@@ -121,16 +121,15 @@ def exchange(
     Returns, a shard each: (received batch [ndev * cap], received extras,
     received total 0-d int32, received counts int32[ndev] by source).
     """
-    ndev = mesh_size(mesh)
     nchunks = max(1, min(nchunks, cap))
-    extras = extras if extras is not None else [()] * ndev
+    extras = extras if extras is not None else [()] * len(sends)
     cols = {c: _chunked_all_to_all(mesh, [getattr(s, c) for s in sends], cap, nchunks)
             for c in ("recid", "num", "strw", "valid")}
     nx = len(extras[0])
     rx = [_chunked_all_to_all(mesh, [e[j] for e in extras], cap, nchunks) for j in range(nx)]
     recv_counts = mesh.all_to_all(send_counts)  # rows from each source shard
     outs, out_extras, totals = [], [], []
-    for d in range(ndev):
+    for d in range(len(sends)):
         recv = RecordBatch(*(cols[c][d] for c in ("recid", "num", "strw", "valid")))
         slot = torch.arange(cap, dtype=torch.int32, device=recv.recid.device)
         mask = (slot[None, :] < recv_counts[d][:, None]).reshape(-1)
@@ -171,7 +170,7 @@ def shuffle_with_extra(
     and an optional chunked exchange.  Returns (received batches, received
     extras, received counts, overflow)."""
     ndev = mesh_size(mesh)
-    extras = extras if extras is not None else [()] * ndev
+    extras = extras if extras is not None else [()] * len(batches)
     packed = [partition_to_slots(b, c, t, ndev, cap, cfg, extra=x)
               for b, c, t, x in zip(batches, counts, dests, extras)]
     outs, out_extras, totals, _ = exchange(

@@ -43,7 +43,8 @@ arguments are the same in every checkout.  The sets:
   calls) and its time by launch, and checksums of the results.
 - ``hash_hot``: K16 and K17 on the inputs ``hash_join_count`` gives them
   under "table" at field 1 on ``chip_smoke.gen_pair``'s tables of 1M + 1M
-  and 8M + 8M rows, and that ``hash_join_count``; K21 on shard 0's build
+  and 8M + 8M rows, ``torch.isin`` of the same probe keys in the build
+  keys, and that ``hash_join_count``; K21 on shard 0's build
   and probe hashes of the 4-shard skew join on BASELINE config 4's Zipf
   1.2 tables (4M + 4M, ``chip_smoke.dist_cols``), on shard 0's build
   hashes of the same join on uniform tables, and on a full list
@@ -396,10 +397,13 @@ def hash_hot(cs, dev) -> tuple[dict, dict]:
                                int(hs.n_failed)]
         sums[f"K17 {what}"] = int(hash_set_probe(*pargs)[0].sum())
         sums[f"hash_join_count table {what}"] = [int(nres), int(matched.sum())]
+        bkeys, pkeys = bargs[0], pargs[1]
+        sums[f"torch.isin {what}"] = int(torch.isin(pkeys, bkeys).sum())
         timed(f"K16 {what}", lambda a=bargs: hash_set_build(*a))
         timed(f"K17 {what}", lambda a=pargs: hash_set_probe(*a))
+        timed(f"torch.isin {what}", lambda: torch.isin(pkeys, bkeys))
         timed(f"hash_join_count table {what}", lambda: hash_join_count(s, r, 1, cfg))
-        del r, s, b, p, bargs, pargs, hs, stored
+        del r, s, b, p, bargs, pargs, hs, stored, bkeys, pkeys
     mesh = make_mesh(devices=[dev] * cs.DIST_SHARDS)
     zb, zp = cs.dist_cols(cs.DIST_ROWS, 44, zipf_a=1.2), cs.dist_cols(cs.DIST_ROWS, 45, zipf_a=1.2)
     zb["valid"][:] = True

@@ -1,5 +1,6 @@
-"""K16's plan (``kernels/engines_plan.hash_plan``) and K21's
-(``kernels/dist_plan.in_set_plan``) swept on the card.
+"""K16's plan (``kernels/engines_plan.hash_plan``), K17's
+(``engines_plan.set_probe_plan``) and K21's (``kernels/dist_plan.in_set_plan``)
+swept on the card.
 
 The inputs:
 
@@ -7,6 +8,10 @@ The inputs:
   on ``chip_smoke.gen_pair``'s tables (the bench's key range, about 70% of
   the keys duplicates) of 1M + 1M and 8M + 8M rows, recorded from those
   calls, and a build of 1M keys all equal.
+- K17: the probe keys, table and count ``hash_join_count`` gives it under
+  "table" at field 1 on the same tables (1M keys against 2^21 slots, 8M
+  against 2^24), and the 8M build's keys in a table of 2^25 slots (128 MB)
+  probed by the same keys.
 - K21: shard 0's build hashes and hot list of the 4-shard skew join on
   BASELINE config 4's Zipf 1.2 tables (``chip_smoke.dist_cols``, 4M + 4M;
   128 entries, a few live), recorded from ``dist_hash_join_skew``, and the
@@ -17,6 +22,9 @@ The sweep:
 
 - K16: keys a thread (1, 2, 4, 8) by window (1 or 4 slots) at 256
   threads; threads a block (128, 512, 1024) at the constants' plan.
+- K17: window (1 or 4) by the keys' and outputs' evict-first hints (on,
+  off), each with and without the total; its 2 keys a thread and 256
+  threads a block are the kernel's constants.
 - K21: rows a thread (1, 2, 4, 8) by threads (64-512), the grid capped at
   132-1056 blocks (a thread takes several steps); on the full list rows a
   thread by search threads (256, 512, 1024).
@@ -24,11 +32,12 @@ The sweep:
 Each plan is set through the plan modules' constants around ordinary
 wrapper calls; the plans' numbers are kernel arguments, so one build serves
 them all.  Every plan's result is held against the plain version (K16 by
-its stored set, flag and failure count).  A time is the sum of the mean
-device times of one call's launches (the fill included) over 10 calls in a
-fenced trace (``chip_smoke.launches_in_order``), in ms, beside each
-launch's own.
-The ``HASH_*`` and ``IN_SET_*`` constants are the ones these readings chose.
+its stored set, flag and failure count; K17 by found, mult and its total).
+A time is the sum of the mean device times of one call's launches (the
+fill, the total's memset included) over 10 calls in a fenced trace
+(``chip_smoke.launches_in_order``), in ms, beside each launch's own.
+The ``HASH_*``, ``SET_PROBE_*`` and ``IN_SET_*`` constants are the ones
+these readings chose.
 
     python -m database_technology_algorithms_tpu_torch.tools.hash_sweep
 """
@@ -136,6 +145,57 @@ def sweep_k16(cs, dev) -> None:
             print(f"[hash_sweep] K16 {what} into {args[1]} slots: {shown}: {show(t)}", flush=True)
 
 
+def k17_inputs(cs, dev) -> dict:
+    """(set, keys, count, max_probe) of K17 by name."""
+    # bound to the wrappers when first imported: before any recorder swaps one
+    from database_technology_algorithms_tpu_torch.ops import hash_table  # noqa: F401
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import hash_set_build
+    from database_technology_algorithms_tpu_torch.ops.hash_join import hash_join_count
+
+    got = {}
+    for rows in (cs.ROWS, cs.BIG_ROWS):
+        r_cols, s_cols = cs.gen_pair(rows)
+        r, s = cs.to_batch(r_cols, dev), cs.to_batch(s_cols, dev)
+        with cs.recorded_calls("hash_set", "hash_set_build") as b, \
+                cs.recorded_calls("hash_set", "hash_set_probe") as calls:
+            hash_join_count(s, r, 1, cs.engine_cfg("table"))
+        hs, keys, count, max_probe = calls[0][0]
+        got[f"{rows} keys against {hs.slots.shape[0]} slots"] = (hs, keys, count, max_probe)
+    bkeys, size, bcount, limit = b[0][0]
+    wide = hash_set_build(bkeys, 2 * size, bcount, limit)
+    got[f"{keys.shape[0]} keys against {2 * size} slots"] = (wide, keys, count, max_probe)
+    return got
+
+
+def sweep_k17(cs, dev) -> None:
+    from database_technology_algorithms_tpu_torch.kernels.hash_set import (
+        hash_set_probe, hash_set_probe_plain)
+
+    plans = [dict(SET_PROBE_WINDOW=w, SET_PROBE_STREAM_BYTES=st)
+             for w in WINDOWS for st in (0, 1 << 40)]
+    plans += [{}]
+    for what, (hs, keys, count, max_probe) in k17_inputs(cs, dev).items():
+        found, mult = hash_set_probe_plain(hs, keys, count, max_probe)
+        want = [found, mult, mult.sum(dtype=torch.int32).reshape(1)]
+        total = torch.empty((), dtype=torch.int32, device=dev)
+
+        def call():
+            return hash_set_probe(hs, keys, count, max_probe, total=total)
+
+        for values in plans:
+            with plan(engines_plan, **values):
+                got = list(call()) + [total.reshape(1)]
+                if cs.max_abs_err(got, want):
+                    raise AssertionError(f"hash_sweep: K17 under {values} differs from the plain "
+                                         f"version on {what}")
+                t = cs.launches_in_order(call)
+                bare = cs.launches_in_order(lambda: hash_set_probe(hs, keys, count, max_probe))
+                shown = engines_plan.set_probe_plan(hs.slots.shape[0], keys.data_ptr())
+            print(f"[hash_sweep] K17 {what}: {values or 'the plan'}: {shown}: {show(t)}; "
+                  f"without the total {show(bare)}", flush=True)
+        del found, mult, want
+
+
 def sweep_k21(cs, dev) -> None:
     from database_technology_algorithms_tpu_torch.kernels.hot_set import (
         in_hot_set, in_hot_set_plain)
@@ -170,9 +230,11 @@ def main(argv: list[str]) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[hash_sweep] {smi or device_name(dev)}", flush=True)
-    parts = argv or ["k16", "k21"]
+    parts = argv or ["k16", "k17", "k21"]
     if "k16" in parts:
         sweep_k16(cs, dev)
+    if "k17" in parts:
+        sweep_k17(cs, dev)
     if "k21" in parts:
         sweep_k21(cs, dev)
     return 0

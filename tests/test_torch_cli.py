@@ -166,18 +166,33 @@ def external_both(cmd: str, files: list, flags: list, tmp_path, monkeypatch, cap
 
 
 def test_unported_flags_and_commands_raise(pair_files, tmp_path, monkeypatch, capsys):
-    """Only the multi-process flags of ``pipeline`` are still refused, each
-    by a message that names the multi-process plan; ``mergesort`` and
-    ``--mem-blocks`` run the external route and equal the JAX CLI."""
+    """No flag or command is refused any more: the multi-process flags of
+    ``pipeline`` parse and run in one process (a gloo group of one, four
+    shards; the stage checkpoints, a death after a stage and the resume),
+    with the counters of ``--dist 4``; ``mergesort`` and ``--mem-blocks``
+    run the external route and equal the JAX CLI; ``--platform`` and a
+    field past 3 are refused."""
+    import socket
+
     f1, f2 = pair_files
     out = str(tmp_path / "o.bin")
     cpu = ["--device", "cpu"]
-    for flag in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-                 ["--process-id", "1"], ["--local-devices", "2"], ["--init-timeout", "5"],
-                 ["--heartbeat-timeout", "5"], ["--stage-checkpoints", str(tmp_path / "c")],
-                 ["--fail-after-stage", "local"]):
-        with pytest.raises(NotImplementedError, match=f"{flag[0]}: the multi-process plan"):
-            t_main(["pipeline", "--nblocks", "1", "--dist", "4", *flag, *cpu])
+    base = ["pipeline", "--nblocks", "3", "--skip-files", *cpu]
+    assert t_main([*base, "--dist", "4"]) == 0
+    want = last_json(capsys)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group = ["--coordinator", f"localhost:{port}", "--num-processes", "1", "--process-id", "0",
+             "--local-devices", "4", "--init-timeout", "30", "--heartbeat-timeout", "30"]
+    assert t_main([*base, *group]) == 0
+    assert last_json(capsys) == want
+    ck = ["--stage-checkpoints", str(tmp_path / "c")]
+    with pytest.raises(SystemExit) as died:
+        t_main([*base, "--dist", "4", *ck, "--fail-after-stage", "local"])
+    assert died.value.code == 17
+    assert t_main([*base, "--dist", "4", *ck]) == 0
+    assert last_json(capsys) == dict(want, resumed_stages=["local"])
     for cmd, files in (("mergesort", [f1]), ("elimdup", [f1]), ("hashjoin", [f1, f2]),
                        ("mergejoin", [f1, f2])):
         line = external_both(cmd, files, ["--mem-blocks", "10"], tmp_path / cmd, monkeypatch,
