@@ -54,7 +54,10 @@ Phases (any failure raises and the script exits non-zero):
      route; ``sort_batch``, ``distinct``, ``merge_join``,
      ``join_sorted_distinct``, ``hash_join`` and ``compact_rows`` at 1M
      rows on both placement routes against the gather route; device time
-     and host wall of the three routes side by side;
+     and host wall of the three routes side by side; the package's
+     ``utils/profiling.py`` timers and trace (with an ``annotate`` span) and
+     ``utils/roofline.py`` audit on the staged run, and
+     ``write_blockfile_native`` against the numpy writer (``[utils]``);
      the probes: the K11 tile copy (``tools/bench_pallas_dma``'s Pallas
      kernel) for each chunk size G (also under plans of other units, rings
      and grids, and at other row widths) and the K12 row move (P4 and P5 of
@@ -84,7 +87,11 @@ Phases (any failure raises and the script exits non-zero):
      page-locked host memory; ``distinct``, ``sort_batch``, ``hash_join_count`` and
      ``hash_join`` alone at 24M rows; fields 0, 2 and 3 at 1.5M + 1.5M rows
      under a 512K-row budget; all keys equal, where the tiled join overflows,
-     retries and still equals numpy;
+     retries and still equals numpy; ``hash_join_count`` at 1M + 1M under
+     mem_rows=100, whose 65,536 cells K9 stages in two rounds, against numpy,
+     the plain path and each K9 call's plain version; ``gather_words`` (K1's
+     and K5's gather of extra words) timed at the route's largest call and
+     in ``group_aggregate`` (phase 9) beside ``index_select``;
   8. the ``mergejoin``, ``elimdup`` and ``hashjoin`` commands on 100-block
      files written by the port's codec, output files read back; then the
      external route (``external.py``) through the CLI: ``mergejoin`` and
@@ -191,6 +198,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import importlib
 import io
 import json
@@ -206,10 +214,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-# 32-bit operations outside the tensor cores: the data sheet's float32 rate,
-# taken for the integer work of these kernels too
-OPS_PER_S = 67e12
 PROFILE_GUARD = 1024  # marker kernels ahead of a profiled window
 PROFILE_TAIL = 64  # and after it
 PROFILE_ATTEMPTS = 3  # traces taken before a reading is refused
@@ -360,14 +364,24 @@ def device_ms(fn, cpu: bool = True) -> float:
     return us / 1e3
 
 
+@functools.cache
+def card_peaks() -> tuple[float, float]:
+    """(bytes a second, 32-bit operations a second) of the card, from the
+    port's peak table (``utils/roofline.py``), which refuses a card it does
+    not list."""
+    from database_technology_algorithms_tpu_torch.utils import roofline
+
+    return roofline.chip_hbm_gbps() * 1e9, roofline.chip_ops_per_s()
+
+
 def bound_ms(nbytes: int) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes / card_peaks()[0] * 1e3
 
 
 def bound_of(nbytes: int, nops: int) -> tuple[float, str]:
     """The least time for the work and what bounds it: the larger of the
     bytes over the memory rate and the operations over the 32-bit rate."""
-    by_bytes, by_ops = bound_ms(nbytes), nops / OPS_PER_S * 1e3
+    by_bytes, by_ops = bound_ms(nbytes), nops / card_peaks()[1] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -1518,6 +1532,101 @@ def phase_pipeline(dev, card: str) -> dict:
     return result
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+NATIVE_WRITE_BLOCKS = 1000  # 100,000 rows through the native writer
+
+
+def trace_events(logdir: Path) -> list:
+    """The events of the one Chrome trace file that ``profiling.trace``
+    wrote into `logdir`."""
+    import gzip
+
+    files = sorted(logdir.glob("*.json*"))
+    if len(files) != 1:
+        raise AssertionError(f"profiling.trace wrote {[f.name for f in files]} into {logdir}")
+    opener = gzip.open if files[0].suffix == ".gz" else open
+    with opener(files[0], "rt") as f:
+        return json.load(f)["traceEvents"]
+
+
+def phase_utils(dev, card: str, pipe: dict) -> dict:
+    """The port's utilities on the card: ``profiling.timed`` and
+    ``timed_steady`` on the staged 1M + 1M pipeline beside this script's
+    ``cuda_ms`` and ``wall_ms``, and its output checked again; a
+    ``profiling.trace`` of stage A under ``annotate("stage_a")`` and the
+    materialization, which must hold that span and a one-sweep kernel;
+    ``roofline.audit("pipeline", ...)`` of the timed run; ``chip_hbm_gbps()``
+    of the card (3350.0 on an H100 80GB HBM3); ``write_blockfile_native`` of
+    100,000 rows against the numpy writer's bytes (``[utils]`` lines)."""
+    from database_technology_algorithms_tpu_torch.io import blockfile, native
+    from database_technology_algorithms_tpu_torch.io.generator import generate_columns
+    from database_technology_algorithms_tpu_torch.models.pipeline import make_pipeline_staged
+    from database_technology_algorithms_tpu_torch.utils import profiling, roofline
+
+    r, s, _ = pipe["inputs"]
+    r_cols, s_cols = pipe["cols"]
+    run = make_pipeline_staged(1)
+    best_s, out = profiling.timed(run, r, s, reps=10, warmup=2)
+    check_run(out, oracle(r_cols, s_cols, 1), r_cols, "field 1, profiling.timed's output")
+    per_s, first_s = profiling.timed_steady(run, (r, s), k=20, reps=5)
+    if not all(0 < x < 60 for x in (best_s, per_s, first_s)):
+        raise AssertionError(f"profiling: timed {best_s}, timed_steady {per_s}, {first_s}")
+    ev_ms, host_ms = cuda_ms(lambda: run(r, s)), wall_ms(lambda: run(r, s))
+    log(f"[utils] {card}: staged {ROWS}+{ROWS}, field 1: profiling.timed {best_s * 1e3:.4f} ms "
+        f"(best of 10), timed_steady {per_s * 1e3:.4f} ms a call (k 20, first call "
+        f"{first_s * 1e3:.4f} ms); this script's cuda_ms {ev_ms:.4f} ms (CUDA events over 20 "
+        f"back-to-back calls), wall_ms {host_ms:.4f} ms (median of 10 synchronized calls)")
+
+    logdir = ROOT / "build" / "utils_trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    with profiling.trace(str(logdir)):
+        with profiling.annotate("stage_a"):
+            a_out = run.stage_a(r, s)
+        with profiling.annotate("materialize"):
+            run.materialize(a_out, r, s)
+        torch.cuda.synchronize()
+    events = trace_events(logdir)
+    shutil.rmtree(logdir, ignore_errors=True)
+    spans = [e for e in events if e.get("name") == "stage_a"]
+    sweeps = [e for e in events if e.get("cat") == "kernel" and "onesweep_" in e.get("name", "")]
+    if not spans or not sweeps:
+        raise AssertionError(f"the trace holds {len(spans)} 'stage_a' spans and {len(sweeps)} "
+                             f"one-sweep kernels")
+    log(f"[utils] profiling.trace: {len(events)} events, the 'stage_a' span "
+        f"({len(spans)} events) and {len(sweeps)} one-sweep kernel launches")
+
+    gbps = roofline.chip_hbm_gbps()
+    if torch.cuda.get_device_name(0) == H100 and gbps != 3350.0:
+        raise AssertionError(f"chip_hbm_gbps() gives {gbps} on an {H100}")
+    res = roofline.audit("pipeline", ROWS, best_s)
+    log(f"[utils] {card}: chip_hbm_gbps() {gbps}; roofline.audit: {res.line()}")
+
+    cols = generate_columns(NATIVE_WRITE_BLOCKS, seed=5)
+    where = ROOT / "build" / "utils_native"
+    where.mkdir(parents=True, exist_ok=True)
+    if native.get_lib() is None:  # built at first use: not on the clock
+        raise AssertionError("the native block-file library did not build")
+    try:
+        paths = [str(where / "native.bin"), str(where / "numpy.bin")]
+        t0 = time.perf_counter()
+        nblocks = native.write_blockfile_native(paths[0], cols)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blockfile.write_blockfile(paths[1], cols)
+        numpy_s = time.perf_counter() - t0
+        same = Path(paths[0]).read_bytes() == Path(paths[1]).read_bytes()
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    if nblocks != NATIVE_WRITE_BLOCKS or not same:
+        raise AssertionError(f"write_blockfile_native wrote {nblocks} blocks; bytes equal to "
+                             f"the numpy writer's: {same}")
+    log(f"[utils] write_blockfile_native: {len(cols['recid'])} rows in {nblocks} blocks, the "
+        f"numpy writer's bytes; host wall {native_s * 1e3:.1f} ms against numpy's "
+        f"{numpy_s * 1e3:.1f} ms")
+    return {"timed_ms": best_s * 1e3, "steady_ms": per_s * 1e3, "cuda_ms": ev_ms,
+            "wall_ms": host_ms, "hbm_gbps": gbps}
+
+
 @contextlib.contextmanager
 def recorded_take_fills():
     """The arguments of every K4 wrapper call made inside, in order, so that
@@ -2303,6 +2412,179 @@ def spill_copy_rates(dev, card: str, chunk_rows: int) -> None:
         f"first page-locked allocation of 512 MiB took {alloc_ms:.1f} ms")
 
 
+ROUND_ROWS = 1_000_000
+ROUND_MEM_ROWS = 100  # 65,536 cells, past K9's 38,399 a call: two rounds of 32,768
+
+
+def plain_tiled_count(r, s, cfg, cap_mult: int) -> tuple:
+    """The tiled join's attempt at `cap_mult` (field 1) through the kernels'
+    plain versions on the same card tensors, round by round as the port
+    runs it: the plain hash, each round's two stagings, all of the round's cell
+    pairs in one plain K10 call (the pairs are independent, so the grouping
+    into steps changes no count) and the plain gather; (mult, overflow)."""
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+    from database_technology_algorithms_tpu_torch.kernels.hash_words import hash_words_plain
+    from database_technology_algorithms_tpu_torch.kernels.member_mult import (
+        member_multiplicity_cells_plain)
+    from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
+        stage_to_cells_plain)
+    from database_technology_algorithms_tpu_torch.kernels.unpermute import (
+        unpermute_gather_plain)
+    from database_technology_algorithms_tpu_torch.ops.hash_join import _tile_layout
+
+    ntiles, cap_b, cap_p, _ = _tile_layout(r.nrows, s.nrows, cfg.mem_rows, cap_mult)
+    width = cells_plan.round_width(r.nrows, s.nrows, ntiles, cap_b, cap_p)
+    hb = hash_words_plain([r.num]) & (ntiles - 1)
+    hp = hash_words_plain([s.num]) & (ntiles - 1)
+    mult = torch.zeros(s.nrows, dtype=torch.int32, device=s.num.device)
+    overflow = 0
+    for base in range(0, ntiles, width):
+        bc, bn, _, ob = stage_to_cells_plain(hb - base, None, width, cap_b, [r.num], "none")
+        pc, pn, slots, op = stage_to_cells_plain(hp - base, None, width, cap_p, [s.num], "slots")
+        first = torch.cumsum(pn, 0, dtype=torch.int32) - pn
+        out = torch.zeros(s.nrows, dtype=torch.int32, device=s.num.device)
+        member_multiplicity_cells_plain([bc[0].view(width, cap_b)], bn,
+                                        [pc[0].view(width, cap_p)], pn, None, out, first)
+        mult += unpermute_gather_plain(slots, out, first, cap_p)
+        overflow += int(ob) + int(op)
+    return mult, overflow
+
+
+def check_rounds(dev, card: str) -> dict:
+    """``hash_join_count`` at 1M + 1M rows, field 1, under mem_rows=100:
+    65,536 cells, which K9 stages in two rounds of 32,768.  The launch
+    counters are set to 0 just before the run and read just after; its match
+    mask and count are held against numpy and against the plain path on the
+    same tensors (``plain_tiled_count`` at the attempt that succeeded, which
+    must not overflow, where the attempt before it must); every K9 call of
+    that attempt against its plain version."""
+    from database_technology_algorithms_tpu_torch.config import EngineConfig
+    from database_technology_algorithms_tpu_torch.kernels import (
+        LAUNCHES, cells_plan, reset_launches)
+    from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
+        stage_to_cells, stage_to_cells_plain)
+    from database_technology_algorithms_tpu_torch.ops.hash_join import (
+        _tile_layout, hash_join_count)
+
+    r_cols, s_cols = gen_pair(ROUND_ROWS)
+    r, s = to_batch(r_cols, dev), to_batch(s_cols, dev)
+    cfg = EngineConfig(mem_rows=ROUND_MEM_ROWS)
+    ntiles, cap_b, cap_p, group = _tile_layout(r.nrows, s.nrows, cfg.mem_rows)
+    width = cells_plan.round_width(r.nrows, s.nrows, ntiles, cap_b, cap_p)
+    if (ntiles, width) != (65536, 32768):
+        raise AssertionError(f"the rounds' layout is {ntiles} cells in rounds of {width}")
+    kb, kp = key_ids([r_cols, s_cols], 1)
+    want = np.bincount(kb, minlength=int(max(kb.max(), kp.max())) + 1)[kp] > 0
+    join = lambda: hash_join_count(r, s, 1, cfg)
+    reset_launches()
+    with _CountWarnings() as seen, recorded_calls("stage_cells", "stage_to_cells") as k9_calls:
+        (matched, mult, nres), run_wall = timed(join)
+    launches = dict(LAUNCHES)
+    attempts = seen.n + 1
+    rounds = ntiles // width
+    expect = {"stage_cells": 2 * rounds * attempts, "unpermute_gather": rounds * attempts,
+              "member_mult": ntiles // group * attempts, "hash_words": 2 * attempts}
+    got_launches = {k: launches[k] for k in expect}
+    if got_launches != expect or {c[0][2] for c in k9_calls} != {width}:
+        raise AssertionError(f"65,536-cell join launched {got_launches}, expected {expect}, with "
+                             f"K9 cells {sorted({c[0][2] for c in k9_calls})}")
+    if int(nres) != int(want.sum()) or not np.array_equal(matched.cpu().numpy(), want):
+        raise AssertionError(f"65,536-cell hash_join_count: nres {int(nres)}, numpy "
+                             f"{int(want.sum())}")
+    cap_mult = 1 << (attempts - 1)
+    plain_mult, plain_ovf = plain_tiled_count(r, s, cfg, cap_mult)
+    if plain_ovf or not torch.equal(plain_mult > 0, matched) or not torch.equal(
+            (plain_mult > 0).to(torch.int32), mult):
+        raise AssertionError(f"65,536-cell hash_join_count differs from the plain path at "
+                             f"cap_mult {cap_mult} (plain overflow {plain_ovf})")
+    if attempts > 1 and plain_tiled_count(r, s, cfg, cap_mult // 2)[1] == 0:
+        raise AssertionError("the plain path does not overflow where the kernels did")
+    k9_err = 0
+    for args, kw in k9_calls[-2 * rounds:]:
+        got = stage_to_cells(*args, **kw)
+        plain_kw = {k: v for k, v in kw.items() if k != "in_range"}
+        ref = stage_to_cells_plain(*args, **plain_kw)
+        k9_err = max(k9_err, assert_same(
+            f"K9 round of {args[2]} cells of {args[3]}",
+            (*got[0], got[1], got[3].reshape(1)) + (() if got[2] is None else (got[2],)),
+            (*ref[0], ref[1], ref[3].reshape(1)) + (() if ref[2] is None else (ref[2],))))
+    del k9_calls
+    prof = profile_device(join, reps=1, cpu=False)
+    log(f"[over budget] {card}: hash_join_count {ROUND_ROWS}+{ROUND_ROWS} rows, field 1, "
+        f"mem_rows {cfg.mem_rows}: {ntiles} cells of {cap_b} + {cap_p} rows, {group} pair a "
+        f"step, staged in {rounds} rounds of {width} cells (K9 takes at most "
+        f"{cells_plan.MAX_STAGE_BINS - 1}); {attempts} attempts (cap_mult {cap_mult}); nres "
+        f"{int(nres)} == numpy == the plain path; K9's calls of the last attempt equal their "
+        f"plain versions (max abs err {k9_err}); launches {got_launches}; host wall of the "
+        f"synchronized call {run_wall:.1f} ms, device kernels {prof['busy_us'] / 1e3:.3f} ms "
+        f"a call ({device_parts(prof)})")
+    return {"ntiles": ntiles, "width": width, "attempts": attempts, "wall_ms": run_wall,
+            "device_ms": prof["busy_us"] / 1e3, "launches": got_launches}
+
+
+@contextlib.contextmanager
+def recorded_extra_sorts():
+    """The K1 (``view_sort``) and K5 (``words_sort``) calls made inside that
+    carry extra words, as (wrapper name, args, kwargs).  The calls still
+    launch their kernels."""
+    with recorded_calls("radix_sort", "view_sort") as k1, \
+            recorded_calls("words_sort", "words_sort") as k5:
+        calls: list = []
+        yield calls
+    for name, recorded in (("view_sort", k1), ("words_sort", k5)):
+        for args, kw in recorded:
+            if sort_extras(name, args, kw):
+                calls.append((name, args, kw))
+
+
+def sort_extras(name: str, args, kw) -> tuple:
+    """The extra words of a recorded K1 or K5 call."""
+    import inspect
+
+    module = importlib.import_module(f"{PKG}.kernels."
+                                     + ("radix_sort" if name == "view_sort" else "words_sort"))
+    bound = inspect.signature(getattr(module, name)).bind(*args, **kw)
+    return tuple(bound.arguments.get("extra", ()))
+
+
+def gather_words_reading(calls: list, run_prof: dict, card: str, what: str) -> dict:
+    """``gather_words`` (``csrc/radix.cuh``), K1's and K5's gather of their
+    extra words through the order, at the largest recorded call with extras:
+    its device time a call (torch.profiler's gather_words events), the
+    call's outputs against the wrapper's plain version (the extras outputs
+    are what it writes), ``index_select`` of the same words through the
+    same order (a yardstick), the byte bound (the order read, every extra
+    word read and written once) and, from `run_prof`, its time and launches
+    in the whole run."""
+    name, args, kw = max(calls, key=lambda c: len(sort_extras(*c)) * sort_extras(*c)[0].numel())
+    module = importlib.import_module(f"{PKG}.kernels."
+                                     + ("radix_sort" if name == "view_sort" else "words_sort"))
+    kernel, plain = getattr(module, name), getattr(module, name + "_plain")
+    extras = sort_extras(name, args, kw)
+    got, ref = kernel(*args, **kw), plain(*args, **kw)
+    err = assert_same(f"{name} with {len(extras)} extra words ({what})",
+                      flat_tensors(got), flat_tensors(ref))
+    perm = got[1] if name == "view_sort" else got[0]
+    n, k = perm.shape[0], len(extras)
+    prof = profile_device(lambda: kernel(*args, **kw), reps=10)
+    in_call = [e for e in prof["per_call"] if "gather_words" in e]
+    ms = sum(us for nm, us in prof["top"] if "gather_words" in nm) / 1e3
+    lib_ms = device_ms(lambda: [torch.index_select(w, 0, perm) for w in extras])
+    nbytes = n * 4 + 2 * n * 4 * k
+    least, bound_by = bound_of(nbytes, n * k)
+    run_ms = sum(us for nm, us in run_prof["top"] if "gather_words" in nm) / 1e3
+    run_launches = sum("gather_words" in e for e in run_prof["per_call"])
+    log(f"[timing] {card}: gather_words ({what}: {name}, {n} rows, {k} extra words): device "
+        f"time {ms:.4f} ms a call in {len(in_call)} launches, index_select of the same words "
+        f"{lib_ms:.4f} ms, bound {least:.4f} ms by {bound_by} ({nbytes} B); the wrapper's "
+        f"outputs against its plain version: max abs err {err}; in the whole run "
+        f"{run_ms:.4f} ms in {run_launches} launches")
+    return {"name": "gather_words", "what": what, "rows": n, "words": k, "ms": ms,
+            "call_launches": len(in_call), "library_ms": lib_ms, "bound_ms": least,
+            "bound_by": bound_by, "max_abs_err": err, "run_ms": run_ms,
+            "launches": run_launches}
+
+
 def phase_overbudget(dev, card: str) -> dict:
     from database_technology_algorithms_tpu_torch.config import DEFAULT_CONFIG, EngineConfig
     from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -2353,6 +2635,11 @@ def phase_overbudget(dev, card: str) -> dict:
     (_, _), ms_c = timed(lambda: compact_rows_chunked(r_d, m_r, cfg))
     prof = profile_device(lambda: run(r, s), reps=2)
     _, run2_ms = timed(lambda: run(r, s))
+    with recorded_extra_sorts() as extra_sorts:
+        run(r, s)
+    gather_chunk = gather_words_reading(extra_sorts, prof, card,
+                                        f"over budget {rows}+{rows}, the largest call")
+    del extra_sorts
     log(f"[over budget] {card}: host wall by step: distinct R {ms_dr:.1f} ms, distinct S "
         f"{ms_ds:.1f} ms, tiled join {ms_j:.1f} ms, chunked compaction {ms_c:.1f} ms; the whole "
         f"run again {run2_ms:.1f} ms; device kernels {prof['busy_us'] / 1e3:.1f} ms per run, "
@@ -2399,8 +2686,15 @@ def phase_overbudget(dev, card: str) -> dict:
     if LAUNCHES["unpermute"] or not LAUNCHES["unpermute_gather"] or row_maps != ["none", "slots"]:
         raise AssertionError(f"the tiled join launched {dict(LAUNCHES)} with K9 row maps "
                              f"{row_maps}: expected K7's gather, no scatter, 'none' and 'slots'")
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+
+    ntiles, cap_b, cap_p, group = _tile_layout(rows, rows, cfg.mem_rows)
+    if cells_plan.round_width(rows, rows, ntiles, cap_b, cap_p) != ntiles:
+        raise AssertionError(f"the {rows}+{rows} tiled join does not stage its {ntiles} "
+                             f"cells in one round")
     log(f"[over budget] the tiled join alone: K9 with row maps {row_maps}, K7's gather "
-        f"{LAUNCHES['unpermute_gather']} launch, the scatter {LAUNCHES['unpermute']}")
+        f"{LAUNCHES['unpermute_gather']} launch, the scatter {LAUNCHES['unpermute']}; "
+        f"{ntiles} cells in one round")
     join_prof = profile_device(join, reps=3)
     join_wall = wall_ms(join, reps=5)
     log(f"[over budget] {card}: the tiled join alone: device kernels "
@@ -2410,7 +2704,6 @@ def phase_overbudget(dev, card: str) -> dict:
         log(f"[tiled join profile]   {us / 1e3:9.3f} ms  {name[:90]}")
 
     # ---- K8-K10 at this run's shapes: the build side of the tiled join ----------
-    ntiles, cap_b, cap_p, group = _tile_layout(rows, rows, cfg.mem_rows)
     words = [s_d.num]
     hb = key_hash(s_d, 1) & (ntiles - 1)
     hp = key_hash(r_d, 1) & (ntiles - 1)
@@ -2606,8 +2899,12 @@ def phase_overbudget(dev, card: str) -> dict:
     log(f"[over budget] all keys equal, {SKEW_ROWS}+{SKEW_ROWS} rows, mem_rows "
         f"{small.mem_rows}, {ntiles} cells: {seen.n} attempts overflowed and were retried with "
         f"doubled capacity (at most {ntiles.bit_length()} attempts), nres {int(nres)} == numpy")
+    del r, s, matched
+
+    # ---- 65,536 cells: K9's limit passed, the cells staged in two rounds ---------
+    rounds = check_rounds(dev, card)
     return {"launches": launches, "recs": recs, "k4_chunk": k4_chunk, "k3_chunk": k3_chunk,
-            "k6_chunk": k6_chunk}
+            "k6_chunk": k6_chunk, "gather_words": gather_chunk, "rounds": rounds}
 
 
 def phase_cli() -> None:
@@ -3416,6 +3713,14 @@ def phase_aggregate(dev, card: str) -> dict:
             f"{want['n_groups']} groups (numpy: the same groups, counts, sums, mins, maxes and "
             f"first rows); the largest group {int(want['count'][top])} rows; the two-phase "
             f"form equals the single pass")
+        if table == "uniform":  # K1's gather of its extra words inside group_aggregate
+            agg_prof = profile_device(lambda: group_aggregate(filtered, 1, count=n_kept),
+                                      reps=3)
+            with recorded_extra_sorts() as extra_sorts:
+                group_aggregate(filtered, 1, count=n_kept)
+            gather_agg = gather_words_reading(extra_sorts, agg_prof, card,
+                                              f"group_aggregate {what}")
+            del extra_sorts
         with recorded_calls("run_aggregate", "run_aggregate") as calls:
             group_aggregate(filtered, 1, count=n_kept)
             two_phase(filtered, n_kept, 1)
@@ -3480,7 +3785,7 @@ def phase_aggregate(dev, card: str) -> dict:
         f"inputs, K14 on the field-3 run's; max abs err {errs}")
     recs = [k13_record(captured, runs, errs, card), k14_record(captured, runs, errs, card)]
     log(f"[aggregate] the phase took {time.time() - t_phase:.1f} s")
-    return {"recs": recs, "runs": runs}
+    return {"recs": recs, "runs": runs, "gather_words": gather_agg}
 
 
 def generate_f3(nblocks: int, seed: int, key_range: int) -> dict:
@@ -5614,6 +5919,8 @@ def main() -> int:
     done("kernels")
     pipe = phase_pipeline(dev, card)
     done("pipeline")
+    phase_utils(dev, card, pipe)
+    done("utils")
     sort = phase_sort_route(dev, card, pipe)
     done("sort route")
     probes = phase_probes(dev, card, np.random.default_rng(8))

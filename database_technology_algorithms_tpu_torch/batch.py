@@ -263,3 +263,29 @@ class RecordBatch:
             "strs": strs,
             "valid": self.valid.cpu().numpy(),
         }
+
+    def str_list(self) -> list[bytes]:
+        """The strings as Python bytes, each up to its first NUL (for tests
+        and debugging)."""
+        raw = self.to_numpy()["strs"][:, :STR_LENGTH]
+        out = []
+        for row in raw:
+            nz = np.nonzero(row == 0)[0]
+            end = nz[0] if len(nz) else STR_LENGTH
+            out.append(row[:end].tobytes())
+        return out
+
+
+def make_batch_from_strings(recid: np.ndarray, num: np.ndarray, strings: list[bytes],
+                            device=None) -> RecordBatch:
+    """A batch from Python byte strings, each cut to ``STR_LENGTH`` bytes,
+    on `device` (default: the card)."""
+    n = len(strings)
+    strs = np.zeros((n, STR_PAD), dtype=np.uint8)
+    for i, s in enumerate(strings):
+        b = np.frombuffer(s[:STR_LENGTH], dtype=np.uint8)
+        strs[i, : len(b)] = b
+    return RecordBatch.from_numpy(
+        np.asarray(recid, dtype=np.uint32), np.asarray(num, dtype=np.uint32), strs,
+        device=device,
+    )

@@ -3,8 +3,9 @@ the port's copy of the JAX package's ``io/native.py``).
 
 This is host IO: it transposes the on-disk records into the columns the
 engine uses, faster than the numpy codec of ``blockfile.py`` for multi-GB
-files.  Only the reader is bound: nothing in the port writes through the
-library yet (its writer and its generator have no caller).  The library is
+files.  The reader serves ``read_blockfile``; the writer and the pair
+generator are bound as the JAX package binds them, and no path of the port
+calls them yet (the numpy codec writes every file).  The library is
 built at first use with the repository's ``native/Makefile`` into
 ``build/torch_native/`` (not the JAX package's ``build/libdbtio.so``, so
 that the two packages never write or load one file at the same time).
@@ -66,6 +67,14 @@ def get_lib():
         ctypes.c_char_p, u32p, u32p, u8p, u8p, ctypes.c_long, ctypes.c_int,
     ]
     lib.dbt_read_blockfile_mt.restype = ctypes.c_long
+    lib.dbt_write_blockfile.argtypes = [
+        ctypes.c_char_p, u32p, u32p, u8p, u8p, ctypes.c_long,
+    ]
+    lib.dbt_write_blockfile.restype = ctypes.c_long
+    lib.dbt_generate_pair.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long, ctypes.c_uint32, ctypes.c_uint32,
+    ]
+    lib.dbt_generate_pair.restype = ctypes.c_long
     return lib
 
 
@@ -96,3 +105,36 @@ def read_blockfile_native(path: str, nthreads: int | None = None) -> dict | None
         return None
     return {"recid": recid, "num": num, "strs": strs, "valid": valid.astype(bool)}
 
+
+
+def write_blockfile_native(path: str, cols: dict) -> int | None:
+    """Write host columns (those of ``read_blockfile_numpy``; `strs` u8[N,
+    <=128], zero-padded to 128 bytes here; `valid` all true when absent) as
+    a block file of 100 records a block; the number of blocks, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    recid = np.ascontiguousarray(cols["recid"], np.uint32)
+    num = np.ascontiguousarray(cols["num"], np.uint32)
+    strs = np.ascontiguousarray(cols["strs"], np.uint8)
+    if strs.shape[1] != STR_PAD:
+        padded = np.zeros((len(recid), STR_PAD), np.uint8)
+        padded[:, : strs.shape[1]] = strs
+        strs = padded
+    valid = np.ascontiguousarray(np.asarray(cols.get("valid", np.ones(len(recid), bool))),
+                                 np.uint8)
+    nblocks = lib.dbt_write_blockfile(os.fsencode(path), recid, num, strs, valid, len(recid))
+    return None if nblocks < 0 else int(nblocks)
+
+
+def generate_pair_native(path1: str, path2: str, nblocks: int, seed: int,
+                         key_range: int) -> int | None:
+    """The reference generator's two files of `nblocks` blocks each
+    (``dbt_generate_pair``: keys below `key_range`, at least 1); the rows
+    written a file, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = lib.dbt_generate_pair(os.fsencode(path1), os.fsencode(path2), nblocks, seed,
+                              max(key_range, 1))
+    return None if n < 0 else int(n)

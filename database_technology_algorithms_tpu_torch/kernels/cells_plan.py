@@ -52,7 +52,8 @@ SPAN = 16384  # rows a count or place block owns (ST_MAX_SPAN in csrc/stage_cell
 MAX_SPAN = 65535  # a warp's 16-bit counters hold up to a span's rows
 PLACE_WARPS = 8  # the most; fewer where the bins' counters would not fit
 OWN_BYTES = 2048  # bytes a place warp marks its step's single lanes in (ST_OWN)
-MAX_ROWS = (1 << 31) - 1  # rows, places and slots are 32-bit on the card
+MAX_ROWS = (1 << 31) - 1  # rows and places are 32-bit on the card
+MAX_SLOTS = (1 << 31) - 1  # and so are a staging's cell slots
 # K10
 TABLE_THREADS = 1024
 TABLE_MIN_SLOTS = 64
@@ -99,7 +100,7 @@ def check_stage(kernel: str, n: int, nparts: int, cap: int, span: int = SPAN) ->
     nbins = nparts + 1
     if n > MAX_ROWS:
         raise ValueError(f"{kernel}: {n} rows; K9's rows and places are 32-bit (at most 2^31 - 1)")
-    if nparts * cap > MAX_ROWS:
+    if nparts * cap > MAX_SLOTS:
         raise ValueError(f"{kernel}: {nparts} cells of {cap} slots pass 2^31 - 1 slots, "
                          f"which K9 addresses in 32 bits")
     if nbins * spans(n, span) > MAX_ROWS:
@@ -111,8 +112,32 @@ def check_stage(kernel: str, n: int, nparts: int, cap: int, span: int = SPAN) ->
             f"{kernel}: {nparts} cells; K9's place pass keeps a span's {nbins} bucket counters "
             f"in shared memory, 6 bytes a bucket and {OWN_BYTES} more for one warp, and "
             f"{SHARED_BYTES} bytes hold at most {MAX_STAGE_BINS - 1} cells (the tiled join "
-            f"needs 16384 near 100M + 100M rows)")
+            f"stages its cells in rounds of at most that many: round_width)")
     return warps
+
+
+def round_width(nb: int, npr: int, ntiles: int, cap_b: int, cap_p: int) -> int:
+    """The cells a round of the tiled join stages: the largest power of two
+    ``W <= ntiles`` (a power of two, so W divides it) with at most
+    ``MAX_STAGE_BINS - 1`` cells for which ``check_stage`` takes both sides
+    (``W * cap`` slots and ``(W + 1) * spans(n)`` count-matrix entries
+    within 2^31 - 1).  Round r stages the cells ``[r * W, (r + 1) * W)``.
+    The plan does not depend on the device, so the CPU runs the card's
+    rounds.  Raises check_stage's error where no width passes: a side of
+    more than 2^31 - 1 rows, or a cell whose capacity alone passes 2^31 - 1
+    slots."""
+    if ntiles < 1 or ntiles & (ntiles - 1):
+        raise ValueError(f"round_width: {ntiles} cells is not a power of two")
+    w = min(ntiles, 1 << ((MAX_STAGE_BINS - 1).bit_length() - 1))
+    while True:
+        try:
+            for n, cap in ((nb, cap_b), (npr, cap_p)):
+                check_stage("stage_to_cells", n, w, cap)
+            return w
+        except ValueError:
+            if w == 1:
+                raise
+            w //= 2
 
 
 def check_boundaries(kernel: str, n: int, nprobes: int, span: int = SPAN) -> None:

@@ -66,3 +66,9 @@ class Timer:
         self.elapsed = time.perf_counter() - self.t0
         return self.elapsed
 
+
+def batch_bytes(nrows: int, with_strings: bool = True) -> int:
+    """Device bytes of a RecordBatch of nrows at full string width
+    (recid + num + valid + strs)."""
+    per_row = 4 + 4 + 1 + (128 if with_strings else 0)
+    return nrows * per_row

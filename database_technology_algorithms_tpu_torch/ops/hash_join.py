@@ -49,10 +49,6 @@ from .sort import materialize_survivors, packed_u32_view_sort, sort_keys, sorted
 
 log = logging.getLogger(__name__)
 
-# K9 addresses a side's cells with 32-bit slots
-_MAX_CELL_SLOTS = (1 << 31) - 1
-
-
 def build_key_multiset(
     build: RecordBatch,
     field,
@@ -283,15 +279,27 @@ def _tiled_matched_mult(
     words ride the cells) and ``group`` cell pairs are joined per step (K10),
     so each step's working set stays within ``cfg.mem_rows`` rows.  K10
     writes the occupied slots' counts compacted, and K9's row map of each
-    probe row's slot returns them to probe order by one gather (K7).  Cell
-    overflow is returned, not handled: ``hash_join_count`` retries with
-    doubled capacity, and the result of an attempt that overflowed is
-    discarded."""
+    probe row's slot returns them to probe order by one gather (K7).
+
+    K9 stages at most ``cells_plan.round_width`` cells a call, so the cells
+    are staged in rounds of that many: round r stages the rows whose cell
+    lies in ``[r * W, (r + 1) * W)`` (the others get a destination at or
+    past W as a u32, which K9 leaves unstaged), joins its pairs, and gathers
+    its counts to probe order; rows of other rounds gather 0, so the rounds'
+    gathers add up.  With one round (every layout K9 takes whole) this is
+    one staging a side and one gather.
+
+    Cell overflow is the sum over the rounds and is returned, not handled:
+    ``hash_join_count`` retries with doubled capacity, and the result of an
+    attempt that overflowed is discarded."""
     nb, npr = build.nrows, probe.nrows
     dev = build.recid.device
     ntiles, cap_b, cap_p, group = _tile_layout(nb, npr, cfg.mem_rows, cap_mult)
+    width = cells_plan.round_width(nb, npr, ntiles, cap_b, cap_p)
+    whole = width == ntiles
+    group = min(group, width)  # both powers of two: a round is whole steps
     # ntiles is a power of two: the mask is the modulo of the unsigned hash,
-    # so no destination exceeds the cells (K9's in_range)
+    # so no destination exceeds the cells (K9's in_range, for one round)
     hb = key_hash(build, field) & (ntiles - 1)
     hp = key_hash(probe, field) & (ntiles - 1)
     bkw = key_words(build, field)
@@ -302,27 +310,32 @@ def _tiled_matched_mult(
     nw = max(len(bkw), len(pkw))
     bkw = bkw + [torch.zeros(nb, dtype=torch.int32, device=dev)] * (nw - len(bkw))
     pkw = pkw + [torch.zeros(npr, dtype=torch.int32, device=dev)] * (nw - len(pkw))
-    bcells, bcnt, _, ovf_b = stage_to_cells(hb, None, ntiles, cap_b, bkw, row_map="none",
-                                            count=build_count, in_range=True)
-    pcells, pcnt, slot_p, ovf_p = stage_to_cells(hp, None, ntiles, cap_p, pkw,
-                                                 row_map="slots", count=probe_count,
-                                                 in_range=True)
-
-    bcells = [w.view(ntiles, cap_b) for w in bcells]
-    pcells = [w.view(ntiles, cap_p) for w in pcells]
-    # the occupied slots' counts, compacted: pair g's live probe rows from the
-    # exclusive sum of the counts; K10 writes every one of them, so nothing
-    # else of mult_slots is read.  Probe row i's count is at first[c] + r for
-    # its slot c * cap_p + r; rows that were not staged carry 0.
-    first = cumsum(pcnt) - pcnt
+    # the occupied slots' counts of a round, compacted: pair g's live probe
+    # rows from the exclusive sum of the counts; K10 writes every one of them,
+    # so nothing else of mult_slots is read.  Probe row i's count is at
+    # first[c] + r for its slot c * cap_p + r; rows that were not staged in
+    # the round carry 0.
     mult_slots = torch.empty(npr, dtype=torch.int32, device=dev)
-    for lo in range(0, ntiles, group):
-        hi = lo + group
-        member_multiplicity_cells(
-            [w[lo:hi] for w in bcells], bcnt[lo:hi], [w[lo:hi] for w in pcells], pcnt[lo:hi],
-            out=mult_slots, out_pos=first[lo:hi])
-    mult_rows = unpermute_gather(slot_p, mult_slots, first, cap_p, probe_count)
-    return mult_rows > 0, mult_rows, ovf_b + ovf_p
+    mult_rows = ovf = None
+    for base in range(0, ntiles, width):
+        db, dp = (hb, hp) if whole else (hb - base, hp - base)
+        bcells, bcnt, _, ovf_b = stage_to_cells(db, None, width, cap_b, bkw, row_map="none",
+                                                count=build_count, in_range=whole)
+        pcells, pcnt, slot_p, ovf_p = stage_to_cells(dp, None, width, cap_p, pkw,
+                                                     row_map="slots", count=probe_count,
+                                                     in_range=whole)
+        bcells = [w.view(width, cap_b) for w in bcells]
+        pcells = [w.view(width, cap_p) for w in pcells]
+        first = cumsum(pcnt) - pcnt
+        for lo in range(0, width, group):
+            hi = lo + group
+            member_multiplicity_cells(
+                [w[lo:hi] for w in bcells], bcnt[lo:hi], [w[lo:hi] for w in pcells],
+                pcnt[lo:hi], out=mult_slots, out_pos=first[lo:hi])
+        got = unpermute_gather(slot_p, mult_slots, first, cap_p, probe_count)
+        mult_rows = got if mult_rows is None else mult_rows.add_(got)
+        ovf = ovf_b + ovf_p if ovf is None else ovf + ovf_b + ovf_p
+    return mult_rows > 0, mult_rows, ovf
 
 
 def _tiled_count_impl(
@@ -343,48 +356,38 @@ def _tiled_count_impl(
     return matched, mult, mult.sum(dtype=torch.int32), ovf
 
 
-def _k9_refusal(nb: int, npr: int, ntiles: int, cap_b: int, cap_p: int) -> str | None:
-    """Why K9 on the card cannot stage the tiled join's two sides into
-    `ntiles` cells (``cells_plan.check_stage``: at most
-    ``cells_plan.MAX_STAGE_BINS - 1`` cells, 32-bit slots and count matrix),
-    or None.  The plain version on the CPU takes any layout."""
-    try:
-        for n, cap in ((nb, cap_b), (npr, cap_p)):
-            cells_plan.check_stage("stage_to_cells", n, ntiles, cap)
-    except ValueError as e:
-        return str(e)
-    return None
-
-
 def _ensure_cells_fit(build: RecordBatch, probe: RecordBatch, field, cfg: EngineConfig,
                       cap_mult: int) -> None:
-    """Raise before a tiled attempt whose cells cannot be addressed or held,
-    or (on the card) staged by K9."""
-    ntiles, cap_b, cap_p, _ = _tile_layout(build.nrows, probe.nrows, cfg.mem_rows, cap_mult)
+    """Raise before a tiled attempt whose cells cannot be staged in any
+    round (a side past 2^31 - 1 rows, or a cell whose capacity alone passes
+    2^31 - 1 slots: ``cells_plan.round_width``), or whose one round of cells
+    the card cannot hold."""
+    nb, npr = build.nrows, probe.nrows
+    ntiles, cap_b, cap_p, _ = _tile_layout(nb, npr, cfg.mem_rows, cap_mult)
+    try:
+        width = cells_plan.round_width(nb, npr, ntiles, cap_b, cap_p)
+    except ValueError as e:
+        if max(nb, npr) > cells_plan.MAX_ROWS:
+            raise RuntimeError(f"tiled hash join: {nb} + {npr} rows; K9 stages at most "
+                               f"2^31 - 1 rows a side: {e}") from None
+        raise RuntimeError(
+            f"tiled hash join: the keys are too skewed for {nb} + {npr} rows: cells "
+            f"overflowed up to cap_mult={cap_mult // 2}, and a cell of {cap_b} + {cap_p} rows "
+            f"at cap_mult={cap_mult} cannot be staged: {e}") from None
     dev = build.recid.device
-    if dev.type == "cuda":
-        refusal = _k9_refusal(build.nrows, probe.nrows, ntiles, cap_b, cap_p)
-        if refusal is not None:
-            raise RuntimeError(
-                f"tiled hash join: {build.nrows} + {probe.nrows} rows under mem_rows="
-                f"{cfg.mem_rows} take {ntiles} cells of {cap_b} + {cap_p} rows at cap_mult="
-                f"{cap_mult}, which K9 cannot stage on the card (kernels/cells_plan.py): "
-                f"{refusal}")
-    nw = max(len(key_words(build, field)), len(key_words(probe, field)))
-    # the key words of both sides' cells, and the probe side's counts
-    need = 4 * ntiles * (nw * (cap_b + cap_p) + cap_p)
-    free = None
-    if dev.type == "cuda":
-        free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
-                - torch.cuda.memory_allocated(dev))
-    if ntiles * max(cap_b, cap_p) <= _MAX_CELL_SLOTS and (free is None or need <= free):
+    if dev.type != "cuda":
         return
-    limit = (f"{need} bytes of cells against {free} free on the card" if free is not None
-             and need > free else f"more than {_MAX_CELL_SLOTS} slots a side")
-    raise RuntimeError(
-        f"tiled hash join: the keys are too skewed for {build.nrows} + {probe.nrows} rows: "
-        f"cells overflowed up to cap_mult={cap_mult // 2}, and {ntiles} cells of "
-        f"{cap_b} + {cap_p} rows at cap_mult={cap_mult} need {limit}")
+    nw = max(len(key_words(build, field)), len(key_words(probe, field)))
+    # the key words of both sides' cells of one round, and the probe side's counts
+    need = 4 * width * (nw * (cap_b + cap_p) + cap_p)
+    free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+    if need > free:
+        raise RuntimeError(
+            f"tiled hash join: the keys are too skewed for {nb} + {npr} rows: cells overflowed "
+            f"up to cap_mult={cap_mult // 2}, and a round of {width} cells of {cap_b} + {cap_p} "
+            f"rows at cap_mult={cap_mult} needs {need} bytes of cells against {free} free on "
+            f"the card")
 
 
 def hash_join_count(
@@ -405,9 +408,10 @@ def hash_join_count(
     attempts, each overflow is logged, and running out of them raises.
 
     The number of cells stays fixed while their capacity doubles, so heavy
-    skew at a large size ends earlier: an attempt whose cells would pass
-    2^31 - 1 slots a side, or the card's free memory, is not made and a
-    ``RuntimeError`` names the skew and the size reached."""
+    skew at a large size ends earlier: an attempt whose one cell would pass
+    2^31 - 1 slots, or whose round of cells would pass the card's free
+    memory, is not made and a ``RuntimeError`` names the skew and the size
+    reached."""
     if build.nrows + probe.nrows <= cfg.mem_rows:
         return hash_join_count_impl(build, probe, field, cfg, build_count, probe_count)
     ntiles = _tile_layout(build.nrows, probe.nrows, cfg.mem_rows)[0]

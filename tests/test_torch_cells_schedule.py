@@ -41,6 +41,8 @@ from database_technology_algorithms_tpu_torch.kernels.member_mult import (
 from database_technology_algorithms_tpu_torch.kernels.stage_cells import (
     stage_to_cells, stage_to_cells_plain, value_boundaries_plain)
 
+from database_technology_algorithms_tpu_torch.ops import hash_join as thash
+
 jhash = importlib.import_module("database_technology_algorithms_tpu.ops.hash_join")
 U32 = np.uint32
 LANES = cells_plan.LANES
@@ -388,6 +390,111 @@ def test_stage_plan():
     with pytest.raises(ValueError, match="probes"):
         cells_plan.check_boundaries("k", 10, cells_plan.MAX_BOUNDARY_BINS)
     cells_plan.check_boundaries("k", 10, cells_plan.MAX_BOUNDARY_BINS - 1)
+
+
+# ---------------------------------------------------------------------------
+# the tiled join's rounds: cells_plan.round_width
+
+
+# (nb, npr, mem_rows, cells, round width): the over-budget run (one round);
+# 65,536 cells at mem_rows 100 and 2, past K9's 38,399; 2^29 + 2^29 rows,
+# whose 65,536 cells also pass the count matrix; and 2^31 - 1 rows a side,
+# where the count matrix alone narrows the round to 8192 cells
+ROUND_LAYOUTS = {
+    "24M+24M": (24 << 20, 24 << 20, 16 << 20, 4096, 4096),
+    "1M+1M mem 100": (1 << 20, 1 << 20, 100, 65536, 32768),
+    "20000+20000 mem 2": (20000, 20000, 2, 65536, 32768),
+    "2^29+2^29": (1 << 29, 1 << 29, 16 << 20, 65536, 32768),
+    "2^31-1 a side": ((1 << 31) - 1, (1 << 31) - 1, 16 << 20, 262144, 8192),
+}
+
+
+def stage_ok(n: int, nparts: int, cap: int) -> bool:
+    try:
+        cells_plan.check_stage("k", n, nparts, cap)
+    except ValueError:
+        return False
+    return nparts < cells_plan.MAX_STAGE_BINS
+
+
+@pytest.mark.parametrize("layout", list(ROUND_LAYOUTS))
+def test_round_width_at_the_tiled_join_layouts(layout):
+    """The round width divides the cells, K9 takes both sides at it, and
+    twice as many cells a round would not be taken."""
+    nb, npr, mem_rows, ntiles_want, width_want = ROUND_LAYOUTS[layout]
+    ntiles, cap_b, cap_p, group = thash._tile_layout(nb, npr, mem_rows)
+    assert ntiles == ntiles_want
+    width = cells_plan.round_width(nb, npr, ntiles, cap_b, cap_p)
+    assert width == width_want
+    assert width & (width - 1) == 0 and ntiles % width == 0
+    assert stage_ok(nb, width, cap_b) and stage_ok(npr, width, cap_p)
+    if width < ntiles:
+        assert not (stage_ok(nb, 2 * width, cap_b) and stage_ok(npr, 2 * width, cap_p))
+        assert not stage_ok(max(nb, npr), ntiles, max(cap_b, cap_p))
+    assert ntiles % min(group, width) == 0  # a round is whole steps of K10
+
+
+@pytest.mark.parametrize("cap_mult", [1, 2, 64])
+@pytest.mark.parametrize("mem_rows", [2, 64, 512, 1 << 20, 1 << 24])
+def test_round_width_is_one_round_where_k9_takes_every_cell(mem_rows, cap_mult):
+    """Every layout that K9 stages whole keeps one round, and so today's
+    launches; the others take the widest round K9 does stage."""
+    sizes = [1, 63, 5000, 16384, 10**6, 24 * 10**6, 1 << 29]
+    for nb in sizes:
+        for npr in sizes:
+            ntiles, cap_b, cap_p, _ = thash._tile_layout(nb, npr, mem_rows, cap_mult)
+            whole = stage_ok(nb, ntiles, cap_b) and stage_ok(npr, ntiles, cap_p)
+            width = cells_plan.round_width(nb, npr, ntiles, cap_b, cap_p)
+            assert (width == ntiles) == whole
+            assert ntiles % width == 0
+            assert stage_ok(nb, width, cap_b) and stage_ok(npr, width, cap_p)
+
+
+def test_round_width_refusals():
+    """Only what no round can avoid is refused: a side past 2^31 - 1 rows,
+    and a cell whose capacity alone passes 2^31 - 1 slots."""
+    with pytest.raises(ValueError, match="rows"):
+        cells_plan.round_width(1 << 31, 10, 1 << 17, 64, 64)
+    with pytest.raises(ValueError, match="slots"):
+        cells_plan.round_width(10, 10, 4, 1 << 31, 64)
+    assert cells_plan.round_width(10, 10, 4, (1 << 31) - 1, 64) == 1
+    with pytest.raises(ValueError, match="power of two"):
+        cells_plan.round_width(10, 10, 12, 64, 64)
+    assert cells_plan.round_width(10, 10, 1, 64, 64) == 1
+
+
+@pytest.mark.parametrize("case", ["uniform", "sink-heavy count", "mask and count", "one cell"])
+@pytest.mark.parametrize("geometry", ["plan", "128x2"])
+@pytest.mark.parametrize("nrounds", [2, 4])
+def test_round_stagings_are_the_whole_staging_in_parts(nrounds, geometry, case):
+    """K9 emulated on each round's destinations (the cell less the round's
+    first, so other rounds' rows land at or past W as u32 and go to the sink,
+    with no in-range promise) gives the whole staging's cells, counts and
+    slots a round at a time, its overflow summed over the rounds, and equals
+    the plain version on the same round."""
+    nparts, cap = 16, 24
+    width = nparts // nrounds
+    span, warps = GEOMETRIES[geometry]
+    dest, active, count = stage_inputs(case, 700, nparts, seed=nrounds)
+    pay = [np.arange(700, dtype=U32) * 7 + 1]
+    whole = emulate_stage(dest, active, count, nparts, cap, pay, "slots", span, warps, True)
+    overflow = 0
+    for r in range(nrounds):
+        base = r * width
+        d = (dest.astype(np.int64) - base).astype(U32)
+        cells, counts, slots, ovf = emulate_stage(d, active, count, width, cap, pay, "slots",
+                                                  span, warps)
+        np.testing.assert_array_equal(cells[0], whole[0][0][base * cap:(base + width) * cap])
+        np.testing.assert_array_equal(counts, whole[1][base:base + width])
+        mine = (whole[2] >= base * cap) & (whole[2] < (base + width) * cap)
+        np.testing.assert_array_equal(slots[mine], whole[2][mine] - base * cap)
+        assert (slots[~mine] == width * cap).all()
+        overflow += ovf
+        act_t = None if active is None else torch.from_numpy(np.asarray(active, bool))
+        same_stage((cells, counts, slots, ovf),
+                   stage_to_cells_plain(t32(d), act_t, width, cap, [t32(pay[0])], "slots",
+                                        count), "slots")
+    assert overflow == whole[3]
 
 
 # ---------------------------------------------------------------------------

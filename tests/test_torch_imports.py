@@ -51,7 +51,8 @@ def test_port_sources_found():
             "expand_sources.py", "fastpath.py", "hash_table.py", "bucket_join.py",
             "sorted_probe.py", "hash_set.py", "bucket_probe.py", "engines_plan.py",
             "mesh.py", "multihost.py", "shuffle.py", "dist_ops.py", "skew.py", "overlap.py",
-            "topk_runs.py", "hot_set.py", "range_dest.py", "dist_plan.py"} <= names
+            "topk_runs.py", "hot_set.py", "range_dest.py", "dist_plan.py", "profiling.py",
+            "roofline.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -9,6 +9,7 @@ run.  Every value is an integer or a bool, so every comparison is exact
 (tolerance 0).
 """
 
+import functools
 import importlib
 import logging
 
@@ -373,39 +374,141 @@ def test_hash_join_retry_gives_up_after_its_last_attempt(monkeypatch):
 @pytest.mark.parametrize("field", [1, 3])
 def test_hash_join_retry_stops_where_cells_cannot_be_addressed(field, monkeypatch, caplog):
     """The number of cells is fixed while their capacity doubles: a skewed
-    input whose next attempt would pass the slot limit of the staging kernel
-    raises an error that names the skew, and that attempt is never made."""
+    input whose next attempt's one cell would pass the slot limit of the
+    staging kernel raises an error that names the skew, and that attempt is
+    never made.  The rounds narrow first (cap_mult 1 in rounds of two cells,
+    2 in rounds of one)."""
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+
     n = 300
     (_, tb), (_, tp) = both_batches(all_equal_cols(n, 1)), both_batches(all_equal_cols(n, 2))
     cfg = TConfig(mem_rows=512)
     ntiles, cap_b, cap_p, _ = thash._tile_layout(n, n, cfg.mem_rows, 2)
-    monkeypatch.setattr(thash, "_MAX_CELL_SLOTS", ntiles * max(cap_b, cap_p))  # cap_mult 2 fits
+    monkeypatch.setattr(cells_plan, "MAX_SLOTS", max(cap_b, cap_p))  # a cell at cap_mult 2 fits
     with caplog.at_level(logging.WARNING, logger=thash.log.name):
         with pytest.raises(RuntimeError, match=r"too skewed for 300 \+ 300 rows.*cap_mult=4"):
             thash.hash_join_count(tb, tp, field, cfg)
     assert len(caplog.records) == 2  # cap_mult 1 and 2 ran and overflowed
 
 
-def test_cells_beyond_k9_are_refused_on_the_card_only():
-    """K9 stages at most cells_plan.MAX_STAGE_BINS - 1 cells on the card: the
-    predicate names that limit for the layouts past it (65536 cells near
-    2^29 + 2^29 rows at the default budget, or under a tiny one), passes the
-    over-budget run's 4096, and the CPU path takes any count, as JAX does."""
+# ---------------------------------------------------------------------------
+# the tiled hash join in rounds (K9 stages at most cells_plan.MAX_STAGE_BINS - 1
+# cells a call): the cell limit made small so that the rounds run at CPU sizes
+
+
+def force_rounds(monkeypatch, nb: int, npr: int, mem_rows: int, nrounds: int,
+                 cap_mult: int = 1) -> list:
+    """Shrink K9's cell limit so that the tiled join of nb + npr rows under
+    `mem_rows` stages its cells in `nrounds` rounds; returns the list that
+    records each K9 call's (cells, row map)."""
     from database_technology_algorithms_tpu_torch.kernels import cells_plan
 
-    assert thash._k9_refusal(24 << 20, 24 << 20, *thash._tile_layout(24 << 20, 24 << 20,
-                                                                    16 << 20)[:3]) is None
-    big = thash._tile_layout(1 << 29, 1 << 29, 16 << 20)
-    assert big[0] == 65536
-    assert "2^31 - 1 entries" in thash._k9_refusal(1 << 29, 1 << 29, *big[:3])
-    assert thash._k9_refusal(100, 100, cells_plan.MAX_STAGE_BINS - 1, 64, 64) is None
-    assert f"at most {cells_plan.MAX_STAGE_BINS - 1} cells" in thash._k9_refusal(
-        100, 100, cells_plan.MAX_STAGE_BINS, 64, 64)
-    assert "2^31 - 1 slots" in thash._k9_refusal(100, 100, 4096, 1 << 20, 64)
-    (_, tb), (_, tp) = both_batches(all_equal_cols(20000, 1)), both_batches(all_equal_cols(20000, 2))
+    ntiles, cap_b, cap_p, _ = thash._tile_layout(nb, npr, mem_rows, cap_mult)
+    assert ntiles % nrounds == 0 and ntiles // nrounds >= 1
+    monkeypatch.setattr(cells_plan, "MAX_STAGE_BINS", ntiles // nrounds + 1)
+    assert cells_plan.round_width(nb, npr, ntiles, cap_b, cap_p) == ntiles // nrounds
+    calls, stage = [], thash.stage_to_cells
+
+    def record(dest, active, nparts, cap, payloads, row_map="slots", **kw):
+        calls.append((nparts, row_map))
+        return stage(dest, active, nparts, cap, payloads, row_map=row_map, **kw)
+
+    monkeypatch.setattr(thash, "stage_to_cells", record)
+    return calls
+
+
+@functools.cache
+def jax_join_count(field: int, mem_rows: int, counts: bool):
+    (jb, _), (jp, _) = join_pair()
+    kw = dict(build_count=jnp.int32(500), probe_count=jnp.int32(650)) if counts else {}
+    want = jhash.hash_join_count(jb, jp, field, JConfig(mem_rows=mem_rows), **kw)
+    return tuple(np.asarray(w) for w in want)
+
+
+@pytest.mark.parametrize("counts", [False, True], ids=["all_rows", "counts"])
+@pytest.mark.parametrize("mem_rows", BUDGETS)
+@pytest.mark.parametrize("field", FIELDS)
+def test_hash_join_count_in_rounds_matches_jax(field, mem_rows, counts, monkeypatch):
+    """Four rounds of a quarter of the cells each: the counts, the match
+    mask and nres equal the JAX package's, which stages every cell at once."""
+    (_, tb), (_, tp) = join_pair()
+    calls = force_rounds(monkeypatch, tb.nrows, tp.nrows, mem_rows, 4)
+    tkw = dict(build_count=torch.tensor(500, dtype=torch.int32),
+               probe_count=torch.tensor(650, dtype=torch.int32)) if counts else {}
+    got = thash.hash_join_count(tb, tp, field, TConfig(mem_rows=mem_rows), **tkw)
+    want = jax_join_count(field, mem_rows, counts)
+    ntiles = thash._tile_layout(tb.nrows, tp.nrows, mem_rows)[0]
+    # four rounds an attempt (field 2's tied strings overflow and retry)
+    assert calls and calls == [(ntiles // 4, "none"), (ntiles // 4, "slots")] * (len(calls) // 2)
+    assert len(calls) % 8 == 0
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    same_u32(got[1], want[1])
+    assert int(got[2]) == int(want[2]) > 0
+    if counts:
+        assert not got[0][650:].any()
+
+
+@pytest.mark.parametrize("mem_rows", BUDGETS)
+@pytest.mark.parametrize("field", FIELDS)
+def test_hash_join_in_rounds_matches_jax(field, mem_rows, monkeypatch):
+    (jb, tb), (jp, tp) = join_pair("short")
+    calls = force_rounds(monkeypatch, tb.nrows, tp.nrows, mem_rows, 2)
+    want, want_n = jhash.hash_join(jb, jp, field, JConfig(mem_rows=mem_rows))
+    got, got_n = thash.hash_join(tb, tp, field, TConfig(mem_rows=mem_rows))
+    assert calls and len(calls) % 4 == 0  # two rounds an attempt
+    assert int(got_n) == int(want_n) > 0
+    assert_same_batch(got, want)
+
+
+@pytest.mark.parametrize("field", [1, 3])
+def test_hash_join_retry_in_rounds_matches_jax(field, monkeypatch, caplog):
+    """All keys equal: the one full cell overflows in its round, the
+    overflow summed over the rounds discards the attempt, and the retries
+    with doubled capacity end equal to the JAX package."""
+    n = 300
+    (jb, tb), (jp, tp) = both_batches(all_equal_cols(n, 1)), both_batches(all_equal_cols(n, 2))
+    cfg = TConfig(mem_rows=512)
+    calls = force_rounds(monkeypatch, n, n, cfg.mem_rows, 2)
+    ntiles = thash._tile_layout(n, n, cfg.mem_rows)[0]
+    with caplog.at_level(logging.WARNING, logger=thash.log.name):
+        got = thash.hash_join_count(tb, tp, field, cfg)
+    assert 1 <= len(caplog.records) <= ntiles.bit_length() - 1
+    assert len(calls) == 4 * (len(caplog.records) + 1)  # two rounds an attempt
+    want = jhash.hash_join_count(jb, jp, field, JConfig(mem_rows=512))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    same_u32(got[1], want[1])
+    assert int(got[2]) == int(want[2]) == (n * n if field == 3 else n)
+
+
+def test_cells_past_k9_take_rounds_on_every_device():
+    """65,536 cells (20,000 + 20,000 rows under mem_rows=2) pass K9's limit:
+    the attempt is not refused, it takes two rounds of 32,768, on the CPU as
+    on the card; the join equals the in-budget one."""
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+
+    cols_b, cols_p = make_cols(20000, seed=41, strings="short"), make_cols(20000, seed=42,
+                                                                            strings="short")
+    (_, tb), (_, tp) = both_batches(cols_b), both_batches(cols_p)
     cfg = TConfig(mem_rows=2)
-    assert thash._tile_layout(tb.nrows, tp.nrows, cfg.mem_rows)[0] == 65536
-    thash._ensure_cells_fit(tb, tp, 1, cfg, 1)  # the plain version takes 65536 cells
+    ntiles, cap_b, cap_p, _ = thash._tile_layout(tb.nrows, tp.nrows, cfg.mem_rows)
+    assert ntiles == 65536 > cells_plan.MAX_STAGE_BINS - 1
+    assert cells_plan.round_width(tb.nrows, tp.nrows, ntiles, cap_b, cap_p) == 32768
+    thash._ensure_cells_fit(tb, tp, 1, cfg, 1)
+    got = thash.hash_join_count(tb, tp, 1, cfg)
+    want = thash.hash_join_count_impl(tb, tp, 1, TConfig())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    assert int(got[2]) == int(want[2]) > 0
+
+
+def test_tiled_join_refuses_only_what_no_round_avoids(monkeypatch):
+    """A side past K9's 32-bit rows (its limit made small here) is refused
+    before any attempt, on every device, naming the rows, not the skew."""
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan
+
+    (_, tb), (_, tp) = join_pair()
+    monkeypatch.setattr(cells_plan, "MAX_ROWS", 800)
+    with pytest.raises(RuntimeError, match=r"700 \+ 900 rows; K9 stages at most"):
+        thash.hash_join_count(tb, tp, 1, TConfig(mem_rows=512))
 
 
 # ---------------------------------------------------------------------------
