@@ -40,7 +40,9 @@ Phases (any failure raises and the script exits non-zero):
      words; K7's scatter at a block's edges, every window, int32 and bool,
      on aligned and shifted views; K7's
      gather with 1-4097 cells, every live-count form and overflowing cells,
-     also against the scatter through K9's "si" on the same staging);
+     also against the scatter through K9's "si" on the same staging; K1's
+     and K5's gather of their extra words, ``gather_words``, packed and
+     direct, 1-9 words, rows that end inside a thread's run);
   3. the staged pipeline: ``make_pipeline_staged(1)`` on 1M + 1M generated
      rows (the bench's key range, 3*rows/10), with every launch counter set
      to 0 just before and read just after; then field 0.  Counters, join
@@ -173,7 +175,15 @@ Phases (any failure raises and the script exits non-zero):
      numpy, the single-card command and ``--dist 4``; then a death after
      the "local" stage checkpointed and a resume that loads it
      (``[multiproc]`` lines);
- 13. timings: each kernel's device time (torch.profiler) beside its plain
+ 13. the forms past the kernels' shared-memory limits, at sizes past the
+     real limits, each against its plain version and numpy, with its
+     device time and its launches (``[limits]`` lines): K19 at k = 1025 and
+     4096 on a Zipf shard, K20 with 32 x 1024 candidates a side, K21 with
+     a list of 65,536 entries, K22 with 14,999 splitters of 4 words, the
+     shuffle's K9 over 40,000 cells and ``value_boundaries`` over 60,002
+     probes (with ``_dest_ranks`` over 60,000 shards), and
+     ``member_multiplicity`` over a build of 2^30 + 1 rows;
+ 14. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
      beside a stable torch.sort, and how many radix passes K1 and K5
@@ -544,6 +554,9 @@ def check_kernels(dev) -> dict:
     for name, err in check_scan_compact_cases(dev, g).items():
         errs[name] = max(errs[name], err)
     errs.update(check_sort_kernels(dev, g, sizes))
+    gather_err = check_gather_words_cases(dev, g)
+    for name in ("radix_sort", "words_sort"):
+        errs[name] = max(errs[name], gather_err)
     errs["adj_equal"] = max(errs["adj_equal"], check_adj_cases(dev, g))
     errs["unpermute"] = max(errs["unpermute"], check_unpermute_cases(dev, g))
     errs["unpermute_gather"] = check_gather_cases(dev, g)
@@ -1005,6 +1018,52 @@ def check_sort_kernels(dev, g, sizes) -> dict:
         f"({RADIX_EDGE_CASES}, with and without the mask); K6 through perm and in place, "
         f"K7 with lo > 0, int32 and bool")
     return errs
+
+
+GATHER_EDGE_ROWS = (1, 5, 4099, 70_001)  # a thread's tail, a block's edge, many blocks
+GATHER_EDGE_WORDS = (1, 2, 3, 4, 5, 8, 9)  # direct, packed groups, past MAX_WORDS = 8
+GATHER_FORMS = {"direct": 1 << 62, "packed": 0}  # GATHER_PACK_BYTES that force each form
+
+
+def check_gather_words_cases(dev, g) -> int:
+    """``gather_words`` (K1's and K5's gather of their extra words, in the
+    form ``radix_plan.gather_packed`` picks) at its edges: both forms, 1-9
+    words (packed groups of 4, a direct word past them, more than
+    MAX_WORDS), rows that end inside a thread's run, extras 1-3 words past
+    16 bytes; each K1 and K5 call's outputs against its plain version."""
+    from database_technology_algorithms_tpu_torch.kernels import radix_plan
+    from database_technology_algorithms_tpu_torch.kernels.radix_sort import (
+        view_sort, view_sort_plain)
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import (
+        words_sort, words_sort_plain)
+
+    err, calls = 0, 0
+    default = radix_plan.GATHER_PACK_BYTES
+    for n in GATHER_EDGE_ROWS:
+        key = torch.from_numpy(g.integers(0, max(n // 2, 1), size=n).astype(np.int32)).to(dev)
+        inact = torch.from_numpy(g.random(n) < 0.2).to(dev)
+        for m in GATHER_EDGE_WORDS:
+            extra = tuple(
+                unaligned(torch.from_numpy(g.integers(-2**31, 2**31, size=n).astype(np.int32))
+                          .to(dev), (m + j) % 4) for j in range(m))
+            want1 = view_sort_plain(inact, key, extra)
+            want5 = words_sort_plain([key], inact, extra)
+            for form, limit in GATHER_FORMS.items():
+                radix_plan.GATHER_PACK_BYTES = limit
+                try:
+                    got1 = view_sort(inact, key, extra)
+                    got5 = words_sort([key], inact, extra)
+                finally:
+                    radix_plan.GATHER_PACK_BYTES = default
+                what = f"gather_words n={n} words={m} {form}"
+                err = max(err, assert_same(f"K1 {what}", got1[:3] + got1[3], want1[:3] + want1[3]))
+                err = max(err, assert_same(f"K5 {what}", got5[:2] + got5[2], want5[:2] + want5[2]))
+                calls += 2
+    torch.cuda.synchronize()
+    log(f"[kernels] gather_words equals the plain versions in {calls} K1 and K5 calls: rows "
+        f"{GATHER_EDGE_ROWS}, words {GATHER_EDGE_WORDS} (extras 0-3 words past 16 bytes), "
+        f"packed and direct")
+    return err
 
 
 ADJ_WORDS = (1, 2, 3, 4, 5, 9, 33, 40)  # K6's key widths: one stage, several, the most
@@ -5593,6 +5652,287 @@ def phase_multiproc(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the forms past the kernels' shared-memory limits, at the real sizes
+
+LIMITS_TOPK = (1025, 4096)  # K19's k past TOPK_MAX_K = 1024
+LIMITS_SHARDS_K20 = 32  # K20: 32 shards x hh_topk 1024 candidates a side, past 29,056
+LIMITS_HOT = 65536  # K21: a list of hh_topk 1024 on 32 shards, both sides, past 58,108
+LIMITS_SPLITTERS = 14999  # K22: 14,999 splitters of 4 words (dist_sort on 15,000 shards)
+LIMITS_K22_ROWS = 65536
+LIMITS_CELLS = 40000  # K9: the shuffle's pack over 40,000 shards, past 38,399 cells
+LIMITS_CELL_CAP = 64
+LIMITS_PROBE_SHARDS = 60000  # K9: _dest_ranks' ndev + 2 = 60,002 probes, past 58,111
+LIMITS_BUILD = (1 << 30) + 1  # K10: a build of 2^30 + 1 rows, past MAX_TABLE_BUILD
+LIMITS_QUERY = 1 << 20
+
+
+def limits_reading(name: str, what: str, fn, card: str, launched: dict, kernels: tuple,
+                   absent: tuple = (), reps: int = 10) -> float:
+    """The device time of one call of a lifted form (torch.profiler, mean of
+    `reps` calls), and its launches: each of `kernels` at least once, none
+    of `absent` (the kernel whose limit it passes)."""
+    from database_technology_algorithms_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] for k in kernels + absent}
+    missing = [k for k in kernels if not counts[k]] + [k for k in absent if counts[k]]
+    if missing:
+        raise AssertionError(f"[limits] {name} ({what}) launched {counts}: expected each of "
+                             f"{kernels} and none of {absent}")
+    launched[name] = counts
+    ms = profile_device(fn, reps=reps, cpu=False)["busy_us"] / 1e3
+    log(f"[limits] {card}: {name} ({what}): {ms:.4f} ms of device time a call, launches "
+        f"{counts}; equal to its plain version and numpy")
+    return ms
+
+
+def numpy_topk(h: np.ndarray, nact: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """lax.top_k's (hash, count) of the runs of sorted `h[:nact]`: count
+    descending, the lower position first, the zero-count positions after."""
+    n = h.shape[0]
+    pos = np.arange(n)
+    start = np.zeros(n, bool)
+    if nact:
+        start[:nact] = np.concatenate([[True], h[1:nact] != h[:nact - 1]])
+    runs = np.flatnonzero(start)
+    counts = np.zeros(n, np.int64)
+    counts[runs] = np.diff(np.append(runs, nact))
+    order = np.lexsort((pos, -counts))[:k]
+    return h[order], counts[order].astype(np.int32)
+
+
+def numpy_hot(gh: np.ndarray, gc: np.ndarray, thr: int) -> np.ndarray:
+    """JAX's hot_hash_set reduction by a group-by: a hash's first candidate
+    is hot where its candidates' counts sum (int32, wrapping) above thr."""
+    uniq, first, inv = np.unique(gh, return_index=True, return_inverse=True)
+    tot = np.bincount(inv, weights=gc.astype(np.float64), minlength=len(uniq)).astype(np.int64)
+    tot = ((tot + 2**31) % 2**32) - 2**31
+    out = np.full(gh.shape[0], 0xFFFFFFFF, np.uint32)
+    hot = (tot > thr) & (uniq != 0xFFFFFFFF)
+    out[first[hot]] = uniq[hot]
+    return out
+
+
+def lex_bytes(words: list) -> np.ndarray:
+    """Rows of u32 words as big-endian byte strings: their order is the
+    words' lexicographic unsigned order."""
+    mat = np.stack([np.asarray(w, np.uint32) for w in words], 1).astype(">u4")
+    return np.ascontiguousarray(mat).view(f"S{4 * len(words)}").reshape(-1)
+
+
+def phase_limits(dev, card: str) -> dict:
+    """Each form the port takes past a kernel's shared-memory limit, on the
+    card at a size past the real limit, against its plain version and numpy,
+    with its device time and launches: K19 at k = 1025 and 4096 on a Zipf
+    shard (K3 and K1 over the runs); K20 with 32 x 1024 candidates a side
+    (K1, K2, K7); K21 with a list of 65,536 entries (K1, K15); K22 with
+    14,999 splitters of 4 words (two rounds); the shuffle's K9 over 40,000
+    cells and value_boundaries over 60,002 probes on one shard's rows
+    (rounds); member_multiplicity over a build of 2^30 + 1 rows (two K10
+    parts)."""
+    from database_technology_algorithms_tpu_torch.batch import u32_bits
+    from database_technology_algorithms_tpu_torch.kernels import cells_plan, hot_set, range_dest
+    from database_technology_algorithms_tpu_torch.kernels import stage_cells
+    from database_technology_algorithms_tpu_torch.kernels import topk_runs as k19
+    from database_technology_algorithms_tpu_torch.ops.hash_join import member_multiplicity
+    from database_technology_algorithms_tpu_torch.ops.keys import key_hash
+    from database_technology_algorithms_tpu_torch.ops.movement import sort_words
+    from database_technology_algorithms_tpu_torch.parallel import shuffle, skew
+    from database_technology_algorithms_tpu_torch.parallel.dist_ops import hash_dest
+
+    g = np.random.default_rng(22)
+    launched, times = {}, {}
+    torch.cuda.empty_cache()
+    # a Zipf shard of BASELINE config 4's skew join
+    cols = dist_cols(DIST_ROWS // DIST_SHARDS, 81, zipf_a=ZIPF_A)
+    shard = to_batch(cols, dev)
+    hashes = key_hash(shard, 1)
+    active = shard.valid
+    (hs,), _ = sort_words([torch.where(active, hashes, hot_set.SENTINEL)])
+    nact = active.sum(dtype=torch.int32)
+    hs_host, nact_host = u32_host(hs), int(nact)
+
+    # K19 past TOPK_MAX_K
+    for k in LIMITS_TOPK:
+        got = k19.topk_runs(hs, nact, k)
+        assert_same(f"[limits] K19 sort form, k = {k}", got, k19.topk_runs_plain(hs, nact, k))
+        wh, wc = numpy_topk(hs_host, nact_host, k)
+        if not (np.array_equal(u32_host(got[0]), wh) and np.array_equal(u32_host(got[1]), wc)):
+            raise AssertionError(f"[limits] K19 sort form, k = {k}: differs from numpy")
+        pub = skew.local_topk_hashes(hashes, active, k)
+        assert_same(f"[limits] local_topk_hashes, k = {k}", pub, got)
+        times[f"k19_k{k}"] = limits_reading(
+            f"topk_runs k={k}", f"{hs.shape[0]} sorted hashes of a Zipf shard, {nact_host} live",
+            lambda k=k: k19.topk_runs(hs, nact, k), card, launched,
+            ("compact", "radix_sort"), ("topk_runs",))
+
+    # K20 past HOT_MAX_CANDIDATES a side
+    m = LIMITS_SHARDS_K20 * 1024
+    pool = g.integers(0, 2**32, size=4000, dtype=np.uint64).astype(np.uint32)
+    sides = []
+    for _ in range(2):
+        gh = pool[np.minimum(g.zipf(1.3, m), len(pool)) - 1]
+        gh[g.random(m) < 0.05] = 0xFFFFFFFF
+        gc = g.integers(1, 3000, size=m).astype(np.int32)
+        sides.append((gh, gc, int(g.integers(10**5, 10**6))))
+    div = LIMITS_SHARDS_K20 * 4
+    args = []
+    for gh, gc, tot in sides:
+        args += [u32_dev(gh, dev), torch.from_numpy(gc).to(dev),
+                 torch.tensor(tot, dtype=torch.int32, device=dev)]
+    got_hot, got_n = hot_set.hot_lists(*args, div)
+    want_hot, want_n = hot_set.hot_lists_plain(*args, div)
+    assert_same("[limits] K20 sort form", (got_hot, got_n), (want_hot, want_n))
+    ref = np.concatenate([numpy_hot(gh, gc, max(tot // div, 1)) for gh, gc, tot in sides])
+    if not np.array_equal(u32_host(got_hot), ref) or int(got_n) != int((ref != 0xFFFFFFFF).sum()):
+        raise AssertionError("[limits] K20 sort form differs from numpy")
+    if not int(got_n):
+        raise AssertionError("[limits] K20 sort form: no hot hash, so nothing was held")
+    del want_hot
+    torch.cuda.empty_cache()
+    times["k20"] = limits_reading(
+        "hot_lists", f"{m} + {m} candidates ({LIMITS_SHARDS_K20} shards x hh_topk 1024), "
+        f"{int(got_n)} hot", lambda: hot_set.hot_lists(*args, div), card, launched,
+        ("radix_sort", "seg_scan", "unpermute"), ("hot_hashes",))
+
+    # K21 past IN_SET_MAX_HOT
+    hot = np.full(LIMITS_HOT, 0xFFFFFFFF, np.uint32)
+    live = g.choice(LIMITS_HOT, LIMITS_HOT // 3, replace=False)
+    hot[live] = g.integers(0, 2**32, size=live.shape[0], dtype=np.uint64).astype(np.uint32)
+    hh_host = u32_host(hashes)
+    hot[live[:500]] = g.choice(hh_host, 500)
+    hot_d = u32_dev(hot, dev)
+    got = hot_set.in_hot_set(hashes, hot_d)
+    assert_same("[limits] K21 sort form", (got,), (hot_set.in_hot_set_plain(hashes, hot_d),))
+    want = np.isin(hh_host, hot[hot != 0xFFFFFFFF])
+    if not np.array_equal(got.cpu().numpy(), want) or not want.any():
+        raise AssertionError("[limits] K21 sort form differs from numpy")
+    times["k21"] = limits_reading(
+        "in_hot_set", f"{hashes.shape[0]} row hashes, a list of {LIMITS_HOT} "
+        f"({live.shape[0]} live)", lambda: hot_set.in_hot_set(hashes, hot_d), card, launched,
+        ("radix_sort", "sorted_probe"), ("in_hot_set",))
+
+    # K22 past its splitter bytes
+    nr, nw = LIMITS_K22_ROWS, 4
+    kw = [g.integers(0, 2**32, size=nr, dtype=np.uint64).astype(np.uint32) for _ in range(nw)]
+    kw[0] = g.integers(0, 50, size=nr).astype(np.uint32)  # ties on the leading words
+    spl = [g.integers(0, 2**32, size=LIMITS_SPLITTERS, dtype=np.uint64).astype(np.uint32)
+           for _ in range(nw)]
+    spl[0] = g.integers(0, 50, size=LIMITS_SPLITTERS).astype(np.uint32)
+    order = np.lexsort(spl[::-1])
+    spl = [s_[order] for s_ in spl]
+    words_d, spl_d = [u32_dev(w, dev) for w in kw], [u32_dev(s_, dev) for s_ in spl]
+    got = range_dest.range_dest(words_d, spl_d)
+    assert_same("[limits] K22 in rounds", (got,), (range_dest.range_dest_plain(words_d, spl_d),))
+    want = np.searchsorted(lex_bytes(spl), lex_bytes(kw), side="right")
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("[limits] K22 in rounds differs from numpy")
+    torch.cuda.empty_cache()
+    times["k22"] = limits_reading(
+        "range_dest", f"{nr} keys of {nw} words, {LIMITS_SPLITTERS} splitters in rounds of "
+        f"{range_dest.dist_plan.range_round(nw, LIMITS_SPLITTERS)}",
+        lambda: range_dest.range_dest(words_d, spl_d), card, launched, ("range_dest",))
+    if launched["range_dest"]["range_dest"] < 2:
+        raise AssertionError("[limits] K22 took one round past its splitter bytes")
+
+    # the shuffle's K9 over 40,000 cells and value_boundaries over 60,002 probes
+    cnt = active.sum(dtype=torch.int32)
+    dest = hash_dest(shard, 1, LIMITS_CELLS)
+    words = shard.payload_words()
+    got = stage_cells.stage_to_cells(dest, None, LIMITS_CELLS, LIMITS_CELL_CAP, words,
+                                     row_map="none", count=cnt)
+    want = stage_cells.stage_to_cells_plain(dest, None, LIMITS_CELLS, LIMITS_CELL_CAP, words,
+                                            row_map="none", count=cnt)
+    assert_same("[limits] K9 cells in rounds", (*got[0], got[1], got[3]),
+                (*want[0], want[1], want[3]))
+    per_cell = np.bincount(u32_host(dest)[:int(cnt)], minlength=LIMITS_CELLS)
+    if not (np.array_equal(got[1].cpu().numpy(), np.minimum(per_cell, LIMITS_CELL_CAP))
+            and int(got[3]) == int(np.maximum(per_cell - LIMITS_CELL_CAP, 0).sum())):
+        raise AssertionError("[limits] K9 cells in rounds: counts or overflow differ from numpy")
+    pub = shuffle.partition_to_slots(shard, cnt, dest, LIMITS_CELLS, LIMITS_CELL_CAP)
+    assert_same("[limits] partition_to_slots in rounds", (pub[2], pub[3]), (got[1], got[3]))
+    del want, pub
+    times["k9_cells"] = limits_reading(
+        "stage_to_cells", f"{shard.nrows} rows ({int(cnt)} live) into {LIMITS_CELLS} cells of "
+        f"{LIMITS_CELL_CAP}, {len(words)} words, rounds of "
+        f"{cells_plan.stage_width(shard.nrows, LIMITS_CELLS)}",
+        lambda: stage_cells.stage_to_cells(dest, None, LIMITS_CELLS, LIMITS_CELL_CAP, words,
+                                           row_map="none", count=cnt),
+        card, launched, ("stage_cells",))
+    dest2 = hash_dest(shard, 1, LIMITS_PROBE_SHARDS)
+    nprobes = LIMITS_PROBE_SHARDS + 2
+    got = stage_cells.value_boundaries(dest2, nprobes)
+    assert_same("[limits] value_boundaries in rounds", (got,),
+                (stage_cells.value_boundaries_plain(dest2, nprobes),))
+    hist = np.bincount(np.minimum(u32_host(dest2), nprobes), minlength=nprobes + 1)[:nprobes]
+    if not np.array_equal(got.cpu().numpy(), np.cumsum(hist) - hist):
+        raise AssertionError("[limits] value_boundaries in rounds differs from numpy")
+    counts, rank = shuffle._dest_ranks(dest2, LIMITS_PROBE_SHARDS)
+    d_host = u32_host(dest2)
+    order = np.argsort(d_host, kind="stable")
+    want_rank = np.empty_like(order)
+    want_rank[order] = np.arange(d_host.shape[0]) - (np.cumsum(hist) - hist)[d_host[order]]
+    if not (np.array_equal(counts.cpu().numpy(), hist[:LIMITS_PROBE_SHARDS + 1])
+            and np.array_equal(rank.cpu().numpy(), want_rank)):
+        raise AssertionError("[limits] _dest_ranks over 60,000 shards differs from numpy")
+    times["k9_probes"] = limits_reading(
+        "value_boundaries", f"{dest2.shape[0]} rows, {nprobes} probes in rounds of "
+        f"{cells_plan.boundary_width(dest2.shape[0], nprobes)}",
+        lambda: stage_cells.value_boundaries(dest2, nprobes), card, launched, ("stage_cells",))
+    del shard, hashes, hs, got, dest, dest2, words, counts, rank
+    torch.cuda.empty_cache()
+
+    # K10 past MAX_TABLE_BUILD: the parts on the card at a shrunk limit against
+    # the unsplit plain version, then 2^30 + 1 build rows against numpy
+    small = torch.from_numpy(g.integers(0, 500, size=3001).astype(np.int32)).to(dev)
+    q = torch.from_numpy(g.integers(0, 600, size=5000).astype(np.int32)).to(dev)
+    lk = torch.from_numpy(g.random(5000) < 0.9).to(dev)
+    want = member_multiplicity([small], 2900, [q], lk)
+    saved = cells_plan.MAX_TABLE_BUILD
+    cells_plan.MAX_TABLE_BUILD = 1000
+    try:
+        got = member_multiplicity([small], 2900, [q], lk)
+    finally:
+        cells_plan.MAX_TABLE_BUILD = saved
+    assert_same("[limits] K10 in parts (limit 1000)", (got,), (want,))
+    from database_technology_algorithms_tpu_torch.kernels.member_mult import (
+        member_multiplicity_cells_plain)
+    assert_same("[limits] K10 in parts against the plain version", (got,),
+                (member_multiplicity_cells_plain([small[None]], torch.tensor(
+                    [2900], dtype=torch.int32, device=dev), [q[None]], None, lk[None])[0],))
+    n, mul = LIMITS_BUILD, 0x9E3779B1
+    period = (n - 1) // 2
+    # (i mod period) * mul mod 2^32, an odd multiplier: every key twice, key 0 three times
+    build = (torch.arange(n, dtype=torch.int32, device=dev) % period) * (mul - (1 << 32))
+    jq = np.concatenate([[0, period - 1, 1], g.integers(0, 2 * period, LIMITS_QUERY - 3)])
+    qd = u32_bits(torch.from_numpy(jq).to(dev) * mul)
+    live_q = torch.ones(LIMITS_QUERY, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = member_multiplicity([build], n, [qd], live_q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = np.where(jq == 0, 3, np.where(jq < period, 2, 0))
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError(f"[limits] member_multiplicity over {n} build rows differs from "
+                             f"numpy")
+    times["k10"] = limits_reading(
+        "member_multiplicity", f"{n} build rows (every key twice, one three times, across the "
+        f"parts), {LIMITS_QUERY} query rows, parts of {cells_plan.table_part(n)}",
+        lambda: member_multiplicity([build], n, [qd], live_q), card, launched,
+        ("member_mult",), reps=1)
+    if launched["member_multiplicity"]["member_mult"] != 2:
+        raise AssertionError("[limits] K10 did not take two parts past MAX_TABLE_BUILD")
+    log(f"[limits] {card}: member_multiplicity over {n} build rows: first call {wall:.2f} s "
+        f"of host wall")
+    del build, qd, got
+    torch.cuda.empty_cache()
+    return {"times": times, "launched": launched}
+
+
 def phase_timings(pipe: dict, command: dict, over: dict, sort: dict, probes: dict, errs: dict,
                   card: str) -> list[dict]:
     from database_technology_algorithms_tpu_torch.batch import RecordBatch, as_u32
@@ -5946,6 +6286,8 @@ def main() -> int:
     done("dist")
     phase_multiproc(dev, card)
     done("multiproc")
+    phase_limits(dev, card)
+    done("limits")
     kernels = (phase_timings(pipe, command, over, sort, probes, errs, card) + agg["recs"]
                + eng["recs"] + dist["recs"])
     done("timings")

@@ -616,11 +616,20 @@ inline int64_t radix_tiles(int64_t n) { return (n + RS_TILE - 1) / RS_TILE; }
 
 // kinds[np] | routes[np] | tile counters[np] | done
 // | hist[RS_HIST_COPIES][np][RS_BUCKETS] | status[2][tiles][RS_BUCKETS]
-// | keys[2][n] | vals[2][n]; everything up to status[1] is zeroed by one
-// memset, status[1] by the first pass that scatters.
+// | keys[2][n] | vals[2][n] | 4 words of slack; everything up to status[1]
+// is zeroed by one memset, status[1] by the first pass that scatters.  After
+// the last pass the keys and vals (4n words) are free: the gather of the
+// extra words packs its rows there, 16-byte aligned (the slack).
 inline int64_t radix_scratch_words(int64_t n, int npasses) {
   return 3 * (int64_t)npasses + 1 + (int64_t)RS_HIST_COPIES * npasses * RS_BUCKETS +
-         2 * radix_tiles(n) * RS_BUCKETS + 4 * n;
+         2 * radix_tiles(n) * RS_BUCKETS + 4 * n + 4;
+}
+
+// The key and value buffers of the scratch (4n words and the slack), free
+// once the last pass has written the outputs.
+inline uint32_t* radix_key_buffers(uint32_t* scratch, int64_t n, int npasses) {
+  return scratch + 3 * (int64_t)npasses + 1 + (int64_t)RS_HIST_COPIES * npasses * RS_BUCKETS +
+         2 * radix_tiles(n) * RS_BUCKETS;
 }
 
 // The whole sort: a memset, the histogram, one launch a pass.  The first
@@ -680,20 +689,180 @@ inline int radix_sort(const RadixIO& io, const int32_t* sched, int npasses, int6
   return 0;
 }
 
-static __global__ void gather_words(const int32_t* perm, int64_t n, WordPtrs w) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t p = perm[i];
-  for (int k = 0; k < w.count; ++k) w.dst[k][i] = w.src[k][p];
+// ---------------------------------------------------------------------------
+// The gather of the extra words: extra_out[j][i] = extra_in[j][perm[i]].
+//
+// Bound on the H100: bytes (the order read, each extra word read and written
+// once).  The order is a sort's permutation, so the reads are random: a
+// 4-byte read of a word costs a 32-byte sector, and one word after another
+// costs a sector each.  Two forms, chosen by the host's plan
+// (kernels/radix_plan.gather_packed) from the words and the rows:
+//
+//   packed  a coalesced pass interleaves a group of 2-4 words into rows of
+//           8 or 16 bytes (a group of 3 is padded to 4) in the sort's free
+//           key buffers, then each row moves by one 8- or 16-byte load: one
+//           sector a row, whatever its words.  More than 4 words go as
+//           groups of 4 (a last group of one word goes direct).  Measured
+//           on the H100, it pays from about 1M rows of 2 words (the pack
+//           pass costs what it saves below): 0.63 ms against 0.97 at 16M
+//           rows, where the packed gather runs at the device memory's rate
+//           of random sectors (tools/gather_sweep.py).
+//   direct  up to MAX_WORDS words a launch, one 4-byte load a word.
+//
+// In both a thread takes GW_ROWS = 4 rows: its 4 entries of the order by
+// one 16-byte load, then every load of its rows before any store, then each
+// word's 4 outputs as one 16-byte store, consecutive threads on consecutive
+// rows (coalesced, column by column).  A thread whose rows pass n takes them
+// one by one.  The order and the outputs must be 16-byte aligned (the
+// wrappers allocate them); the sources and the count n may be anything.
+// 1, 2, 4 and 8 rows a thread measured within 1% of each other on the H100
+// (16M rows of 2-9 words), so the rows are a constant.
+constexpr int GW_THREADS = 256;
+constexpr int GW_ROWS = 4;
+constexpr int GW_PACK_WORDS = 4;  // words of a packed row at most (16 bytes)
+
+template <int G>
+struct GwVec;
+template <>
+struct GwVec<2> {
+  using T = uint2;
+  static __device__ __forceinline__ void put(uint32_t* d, T v) { d[0] = v.x; d[1] = v.y; }
+  static __device__ __forceinline__ T make(const uint32_t* s) { return make_uint2(s[0], s[1]); }
+};
+template <>
+struct GwVec<4> {
+  using T = uint4;
+  static __device__ __forceinline__ void put(uint32_t* d, T v) {
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  }
+  static __device__ __forceinline__ T make(const uint32_t* s) {
+    return make_uint4(s[0], s[1], s[2], s[3]);
+  }
+};
+
+// GW_ROWS consecutive u32 words at p (16-byte aligned when whole).
+__device__ __forceinline__ void gw_load_run(const uint32_t* p, bool whole, int64_t left,
+                                            uint32_t (&v)[GW_ROWS]) {
+  if (whole) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < GW_ROWS; ++r) v[r] = r < left ? __ldg(p + r) : 0u;
 }
 
-// extra_out[j][i] = extra_in[j][perm[i]] for nextra contiguous u32 columns.
+__device__ __forceinline__ void gw_store_run(uint32_t* p, bool whole, int64_t left,
+                                             const uint32_t (&v)[GW_ROWS]) {
+  if (whole) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < GW_ROWS; ++r)
+    if (r < left) p[r] = v[r];
+}
+
+// packed[i * G + k] = src[k][i] for k < count, 0 for the pad words.
+template <int G>
+static __global__ void __launch_bounds__(GW_THREADS)
+    gather_words_pack(int64_t n, WordPtrs w, uint32_t* packed) {
+  const int64_t i = (int64_t)blockIdx.x * GW_THREADS + threadIdx.x;
+  if (i >= n) return;
+  uint32_t row[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) row[k] = k < w.count ? __ldg(w.src[k] + i) : 0u;
+  reinterpret_cast<typename GwVec<G>::T*>(packed)[i] = GwVec<G>::make(row);
+}
+
+// dst[k][i] = packed[perm[i] * G + k] for k < w.count.
+template <int G>
+static __global__ void __launch_bounds__(GW_THREADS)
+    gather_words_packed(const int32_t* perm, int64_t n, const uint32_t* packed, WordPtrs w) {
+  using T = typename GwVec<G>::T;
+  constexpr int R = GW_ROWS;
+  const int64_t i0 = ((int64_t)blockIdx.x * GW_THREADS + threadIdx.x) * R;
+  if (i0 >= n) return;
+  const int64_t left = n - i0;
+  const bool whole = left >= R;
+  uint32_t p[R];
+  gw_load_run(reinterpret_cast<const uint32_t*>(perm) + i0, whole, left, p);
+  T rows[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (whole || r < left) rows[r] = __ldg(reinterpret_cast<const T*>(packed) + p[r]);
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k >= w.count) break;
+    uint32_t v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      uint32_t words[G];
+      GwVec<G>::put(words, rows[r]);
+      v[r] = words[k];
+    }
+    gw_store_run(w.dst[k] + i0, whole, left, v);
+  }
+}
+
+// dst[k][i] = src[k][perm[i]] for k < w.count (at most MAX_WORDS).
+static __global__ void __launch_bounds__(GW_THREADS)
+    gather_words_direct(const int32_t* perm, int64_t n, WordPtrs w) {
+  constexpr int R = GW_ROWS;
+  const int64_t i0 = ((int64_t)blockIdx.x * GW_THREADS + threadIdx.x) * R;
+  if (i0 >= n) return;
+  const int64_t left = n - i0;
+  const bool whole = left >= R;
+  uint32_t p[R];
+  gw_load_run(reinterpret_cast<const uint32_t*>(perm) + i0, whole, left, p);
+  uint32_t v[MAX_WORDS][R];
+#pragma unroll
+  for (int k = 0; k < MAX_WORDS; ++k) {
+    if (k >= w.count) break;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      v[k][r] = (whole || r < left) ? __ldg(w.src[k] + p[r]) : 0u;
+  }
+#pragma unroll
+  for (int k = 0; k < MAX_WORDS; ++k) {
+    if (k >= w.count) break;
+    gw_store_run(w.dst[k] + i0, whole, left, v[k]);
+  }
+}
+
+inline bool gw_aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16u == 0; }
+
+// extra_out[j][i] = extra_in[j][perm[i]] for nextra contiguous u32 columns,
+// under the host's plan: packed (groups of GW_PACK_WORDS words, a group of
+// one direct) or direct (groups of MAX_WORDS).  perm and every extra_out
+// 16-byte aligned.  `free` holds at least 4n + 4 words (the sort's key and
+// value buffers).
 inline int gather_extras(const int32_t* perm, int64_t n, const void* const* extra_in,
-                         void* const* extra_out, int nextra, cudaStream_t st) {
-  for (int first = 0; first < nextra; first += MAX_WORDS) {
-    const int cnt = nextra - first < MAX_WORDS ? nextra - first : MAX_WORDS;
-    gather_words<<<blocks_for(n, 256), 256, 0, st>>>(
-        perm, n, word_ptrs(extra_in, extra_out, first, cnt));
+                         void* const* extra_out, int nextra, int packed, uint32_t* free,
+                         cudaStream_t st) {
+  if (nextra <= 0 || n <= 0) return 0;
+  if ((packed != 0 && packed != 1) || n > (int64_t)INT32_MAX || !gw_aligned(perm))
+    return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < nextra; ++j)
+    if (!gw_aligned(extra_out[j])) return (int)cudaErrorInvalidValue;
+  uint32_t* buf = reinterpret_cast<uint32_t*>((reinterpret_cast<uintptr_t>(free) + 15) &
+                                              ~(uintptr_t)15);
+  const unsigned blocks = blocks_for(n, (int64_t)GW_THREADS * GW_ROWS);
+  const int step = packed ? GW_PACK_WORDS : MAX_WORDS;
+  for (int first = 0; first < nextra; first += step) {
+    const int cnt = nextra - first < step ? nextra - first : step;
+    const WordPtrs w = word_ptrs(extra_in, extra_out, first, cnt);
+    if (!packed || cnt == 1) {
+      gather_words_direct<<<blocks, GW_THREADS, 0, st>>>(perm, n, w);
+    } else if (cnt == 2) {
+      gather_words_pack<2><<<blocks_for(n, GW_THREADS), GW_THREADS, 0, st>>>(n, w, buf);
+      DBT_CHECK_LAUNCH();
+      gather_words_packed<2><<<blocks, GW_THREADS, 0, st>>>(perm, n, buf, w);
+    } else {
+      gather_words_pack<4><<<blocks_for(n, GW_THREADS), GW_THREADS, 0, st>>>(n, w, buf);
+      DBT_CHECK_LAUNCH();
+      gather_words_packed<4><<<blocks, GW_THREADS, 0, st>>>(perm, n, buf, w);
+    }
     DBT_CHECK_LAUNCH();
   }
   return 0;

@@ -21,7 +21,7 @@
 // key's high byte when keys are small and every row is active, the main
 // path's case) is skipped, decided on the card.  The last pass that
 // scatters writes s_key, perm and s_act.  Extra words are gathered by perm
-// afterwards.
+// afterwards (gather_extras in radix.cuh: packed or direct rows, the plan's).
 #include "radix.cuh"
 
 // Scratch of the one-sweep sort (K1, K5) of n rows in npasses passes.
@@ -30,14 +30,17 @@ DBT_API int64_t dbt_radix_scratch_words(int64_t n, int npasses) {
 }
 
 // key u32[n], inact u8[n] -> s_key u32[n], perm i32[n], s_act u8[n];
-// extra_out[j][i] = extra_in[j][perm[i]].  sched: npasses (word, shift,
-// flag) triples on the host, every word 0, the last pass flagged.  scratch:
-// dbt_radix_scratch_words(n, npasses); its first npasses words hold the
-// kinds of the passes afterwards (1 trivial, 2 scattered).
+// extra_out[j][i] = extra_in[j][perm[i]], gathered under the plan
+// (gather_packed: kernels/radix_plan.gather_packed); perm and every
+// extra_out 16-byte aligned.
+// sched: npasses (word, shift, flag) triples on the host, every word 0, the
+// last pass flagged.  scratch: dbt_radix_scratch_words(n, npasses); its
+// first npasses words hold the kinds of the passes afterwards (1 trivial, 2
+// scattered).
 DBT_API int dbt_view_sort(const void* key, const void* inact, int64_t n, const int32_t* sched,
                           int npasses, void* s_key, void* perm, void* s_act,
                           const void* const* extra_in, void* const* extra_out, int nextra,
-                          void* scratch, void* stream) {
+                          int gather_packed, void* scratch, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* words[1] = {key};
@@ -50,5 +53,8 @@ DBT_API int dbt_view_sort(const void* key, const void* inact, int64_t n, const i
   io.act_out = static_cast<uint8_t*>(s_act);
   int err = dbt::radix_sort(io, sched, npasses, n, static_cast<uint32_t*>(scratch), st);
   if (err) return err;
-  return dbt::gather_extras(static_cast<const int32_t*>(perm), n, extra_in, extra_out, nextra, st);
+  return dbt::gather_extras(static_cast<const int32_t*>(perm), n, extra_in, extra_out, nextra,
+                            gather_packed,
+                            dbt::radix_key_buffers(static_cast<uint32_t*>(scratch), n, npasses),
+                            st);
 }

@@ -341,7 +341,7 @@ cells_place(PlaceArgs a) {
           const uint32_t rank = place - __ldg(&a.starts[b[u]]);
           if (rank < a.cap) slot = b[u] * a.cap + rank;
         }
-        if (slot < m) {
+        if (slot < m && pay0) {  // a staging of no payload words writes no cell
           st_keep(&a.cells.ptr[0][slot], p0[u], keep);
           for (int k = 1; k < a.cells.count; ++k)
             st_keep(&a.cells.ptr[k][slot], a.pay.ptr[k][i * a.pay.stride[k]], keep);

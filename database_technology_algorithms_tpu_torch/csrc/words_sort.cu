@@ -30,13 +30,16 @@
 // stride of each in `strides` (host array, in words); inact u8[n] or null
 // (every row active; s_act is then left untouched).  sched: npasses (word,
 // shift, flag) triples on the host, the last pass flagged iff inact is
-// given.  perm i32[n], s_act u8[n]; extra_out[j][i] = extra_in[j][perm[i]].
-// scratch: dbt_radix_scratch_words(n, npasses); its first npasses words hold
-// the kinds of the passes afterwards (1 trivial, 2 scattered).
+// given.  perm i32[n], s_act u8[n]; extra_out[j][i] = extra_in[j][perm[i]],
+// gathered under the plan (gather_packed: kernels/radix_plan.gather_packed),
+// perm and every extra_out 16-byte aligned.  scratch: dbt_radix_scratch_words(n,
+// npasses); its first npasses words hold the kinds of the passes afterwards
+// (1 trivial, 2 scattered).
 DBT_API int dbt_words_sort(const void* const* words, const int64_t* strides, int m,
                            const int32_t* sched, int npasses, const void* inact, int64_t n,
                            void* perm, void* s_act, const void* const* extra_in,
-                           void* const* extra_out, int nextra, void* scratch, void* stream) {
+                           void* const* extra_out, int nextra, int gather_packed,
+                           void* scratch, void* stream) {
   if (m < 1 || m > dbt::MAX_KEY_WORDS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -48,5 +51,7 @@ DBT_API int dbt_words_sort(const void* const* words, const int64_t* strides, int
   io.act_out = inact ? static_cast<uint8_t*>(s_act) : nullptr;
   int err = dbt::radix_sort(io, sched, npasses, n, static_cast<uint32_t*>(scratch), st);
   if (err) return err;
-  return dbt::gather_extras(io.perm_out, n, extra_in, extra_out, nextra, st);
+  return dbt::gather_extras(io.perm_out, n, extra_in, extra_out, nextra, gather_packed,
+                            dbt::radix_key_buffers(static_cast<uint32_t*>(scratch), n, npasses),
+                            st);
 }

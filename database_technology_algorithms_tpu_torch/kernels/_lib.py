@@ -116,11 +116,12 @@ _SIGNATURES = {
     "dbt_error_string": ([_I], ctypes.c_char_p),
     "dbt_seg_scan": ([_P, _P, _I, _P, _P, _I64, _I, _I, _I, _I64, _I64, _P], _I),
     "dbt_radix_scratch_words": ([_I64, _I], _I64),
-    "dbt_view_sort": ([_P, _P, _I64, _PI32, _I, _P, _P, _P, _PP, _PP, _I, _P, _P], _I),
+    "dbt_view_sort": ([_P, _P, _I64, _PI32, _I, _P, _P, _P, _PP, _PP, _I, _I, _P, _P], _I),
     "dbt_compact": ([_P, _I64, _PP, _PU32, _PP, _I, _P, _I64, _I64, _P], _I),
     "dbt_take_fill": ([_P, _I64, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
                       _I),
-    "dbt_words_sort": ([_PP, _PI64, _I, _PI32, _I, _P, _I64, _P, _P, _PP, _PP, _I, _P, _P], _I),
+    "dbt_words_sort": ([_PP, _PI64, _I, _PI32, _I, _P, _I64, _P, _P, _PP, _PP, _I, _I, _P, _P],
+                       _I),
     "dbt_adj_equal": ([_PP, _PI64, _PI32, _PI32, _I, _I, _P, _I64, _P, _I, _P], _I),
     "dbt_unpermute": ([_P, _P, _I64, _I64, _I64, _P, _I, _P], _I),
     "dbt_unpermute_gather": ([_P, _P, _I64, _I64, _P, _I64, _I64, _U64, _I, _P, _I64, _P, _I,

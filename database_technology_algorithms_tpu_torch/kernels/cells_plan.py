@@ -36,7 +36,12 @@ beside a count, and the build row's words are read only on a hash match.
 
 The wrappers hand these numbers to the C entries, which refuse a plan that
 differs from their own checks; ``tests/test_torch_cells_schedule.py``
-emulates both kernels with them on the CPU.
+emulates both kernels with them on the CPU.  Past a limit the wrappers
+split the work, on the CPU as on the card: ``stage_to_cells`` stages its
+cells in rounds of ``stage_width``, ``value_boundaries`` counts its probes
+in rounds of ``boundary_width``, and ``member_multiplicity_cells`` takes a
+pair's build rows in parts of ``table_part`` (``tests/test_torch_limits.py``
+shrinks the constants).
 """
 
 from __future__ import annotations
@@ -140,6 +145,30 @@ def round_width(nb: int, npr: int, ntiles: int, cap_b: int, cap_p: int) -> int:
             w //= 2
 
 
+def stage_width(n: int, nparts: int, span: int = SPAN) -> int:
+    """The cells a ``stage_to_cells`` call stages a round: all `nparts`
+    where K9 takes them, else the most whose bucket counters fit shared
+    memory (``MAX_STAGE_BINS - 1``) and whose count matrix of ``(W + 1) *
+    spans(n)`` entries stays within 2^31 - 1.  Round r stages the cells
+    ``[r * W, (r + 1) * W)``: the others' destinations, less ``r * W``, lie
+    past W as u32 and go to K9's sink.  A width of at least 1 is returned;
+    what K9 still refuses (rows or a cell's slots past 2^31 - 1) is
+    ``check_stage``'s to raise."""
+    return max(min(nparts, MAX_STAGE_BINS - 1, MAX_ROWS // spans(n, span) - 1), 1)
+
+
+def boundary_width(n: int, nprobes: int, span: int = SPAN) -> int:
+    """The probes a ``value_boundaries`` call counts a round: all `nprobes`
+    where K9 takes them, else P with P + 1 probes in a launch (the last one
+    gives the round's total, the next round's offset): at most
+    ``MAX_BOUNDARY_BINS - 2`` and ``(P + 2) * spans(n)`` count-matrix
+    entries within 2^31 - 1."""
+    whole = min(MAX_BOUNDARY_BINS - 1, MAX_ROWS // spans(n, span) - 1)
+    if nprobes <= whole:
+        return max(nprobes, 1)
+    return max(whole - 1, 1)
+
+
 def check_boundaries(kernel: str, n: int, nprobes: int, span: int = SPAN) -> None:
     nbins = nprobes + 1
     if n > MAX_ROWS:
@@ -206,6 +235,13 @@ def table_scratch_words(pairs: int, cap_b: int, m: int, shared: int) -> int:
     if full <= shared:
         return 0
     return pairs * full * slot_bytes(m) // 4
+
+
+def table_part(cap_b: int) -> int:
+    """The build rows of a pair that a K10 launch takes: all `cap_b` within
+    ``MAX_TABLE_BUILD``, else parts of that many, whose multiplicities add
+    up (a multiplicity is a count over the build rows)."""
+    return max(min(cap_b, MAX_TABLE_BUILD), 1)
 
 
 def check_table(kernel: str, cap_b: int) -> None:

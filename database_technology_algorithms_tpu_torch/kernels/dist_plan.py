@@ -48,8 +48,25 @@ K22, the distributed sort's range destination (``csrc/range_dest.cu``).
   view that starts off 16 bytes) a thread takes ``RANGE_ROWS`` rows,
   ``RANGE_THREADS`` apart, by 4-byte loads.  The grid covers the rows once.
 
+Past a kernel's shared-memory limit the wrappers take another form, chosen
+here from the limit constants alone, so that the CPU (whose plain versions
+take any size) walks the card's path when a test shrinks a constant:
+
+- K19 past ``TOPK_MAX_K`` picks (``topk_by_sort``): the run starts
+  compacted (K3), each run's length the distance to the next start, a sort
+  by (count descending, position) (K1), the first k;
+- K20 past ``HOT_MAX_CANDIDATES`` candidates a side (``hot_by_sort``): each
+  side's candidates sorted by hash (K1), each hash's total by a reversed
+  segmented sum (K2), the decisions scattered back to the candidates (K7);
+- K21 past ``IN_SET_MAX_HOT`` entries (``in_set_by_sort``): the list's live
+  entries sorted (K1) and each row's hash searched in them (K15);
+- K22 past ``RANGE_SPLITTER_BYTES`` of splitters (``range_round``): rounds
+  of splitters, whose destinations add up.
+
 The C entries repeat these checks; ``tests/test_torch_dist_schedule.py``
-emulates the four kernels with them on the CPU.
+emulates the four kernels with them on the CPU, and
+``tests/test_torch_limits.py`` holds the other forms against the JAX
+package.
 """
 
 from __future__ import annotations
@@ -78,6 +95,7 @@ IN_SET_BLOCKS = 0  # K21: a cap on the grid (0: none), so that a thread takes se
 RANGE_MAX_WORDS = 4  # K22's key words (MAX_WORDS in csrc/range_dest.cu)
 RANGE_THREADS = 256  # K22's block (THREADS in csrc/range_dest.cu)
 RANGE_ROWS = 4  # K22's rows a thread (ROWS in csrc/range_dest.cu): one 16-byte load a word
+RANGE_SPLITTER_BYTES = SHARED_BYTES  # K22's splitters a launch, 4 bytes a word of each
 
 
 def topk_tiles(n: int) -> int:
@@ -94,16 +112,29 @@ def topk_scratch_words(n: int, k: int) -> int:
 def check_topk(name: str, n: int, k: int) -> None:
     if n > MAX_ROWS:
         raise ValueError(f"{name}: {n} rows; K19's positions are 32-bit (at most {MAX_ROWS})")
-    if not 1 <= k <= min(n, TOPK_MAX_K):
-        raise ValueError(f"{name}: k = {k} for {n} rows; K19 takes 1 <= k <= min(rows, "
-                         f"{TOPK_MAX_K}): past {TOPK_WARP_K} a block keeps its k picks in "
-                         f"shared memory")
+    if not 1 <= k <= n:
+        raise ValueError(f"{name}: k = {k} for {n} rows; K19 (and past {TOPK_MAX_K} its sort "
+                         f"form) takes 1 <= k <= rows")
+
+
+def topk_by_sort(k: int) -> bool:
+    """Whether the top k runs come from a sort of the runs (K3, K1) and not
+    from K19, whose block keeps its k picks in shared memory: k past
+    ``TOPK_MAX_K``."""
+    return k > TOPK_MAX_K
 
 
 def check_candidates(name: str, m: int) -> None:
     if m > HOT_MAX_CANDIDATES:
         raise ValueError(f"{name}: {m} candidates; K20 holds them in shared memory, 8 bytes "
                          f"each, at most {HOT_MAX_CANDIDATES} (ndev * hh_topk)")
+
+
+def hot_by_sort(m_p: int, m_b: int) -> bool:
+    """Whether the hot lists come from a sort of each side's candidates (K1,
+    K2, K7) and not from K20, which holds a side's candidates in shared
+    memory: a side past ``HOT_MAX_CANDIDATES``."""
+    return max(m_p, m_b) > HOT_MAX_CANDIDATES
 
 
 class HotPlan(NamedTuple):
@@ -133,14 +164,28 @@ def check_hot_list(name: str, n: int, mh: int) -> None:
                          f"4 bytes an entry, at most {IN_SET_MAX_HOT}")
 
 
+def in_set_by_sort(mh: int) -> bool:
+    """Whether membership goes through the list's live entries sorted (K1)
+    and searched (K15) and not through K21, which holds the list in shared
+    memory: a list past ``IN_SET_MAX_HOT`` entries."""
+    return mh > IN_SET_MAX_HOT
+
+
 def check_splitters(name: str, n: int, nw: int, ns: int) -> None:
     if n > MAX_ROWS:
         raise ValueError(f"{name}: {n} rows; K22's rows are at most {MAX_ROWS}")
     if not 1 <= nw <= RANGE_MAX_WORDS:
         raise ValueError(f"{name}: {nw} key words; K22 compares 1-{RANGE_MAX_WORDS}")
-    if 4 * nw * ns > SHARED_BYTES:
+    if 4 * nw * ns > RANGE_SPLITTER_BYTES:
         raise ValueError(f"{name}: {ns} splitters of {nw} words; K22 holds them in shared "
-                         f"memory, at most {SHARED_BYTES} bytes")
+                         f"memory, at most {RANGE_SPLITTER_BYTES} bytes (range_round)")
+
+
+def range_round(nw: int, ns: int) -> int:
+    """The splitters of a K22 launch: all `ns` where their ``4 * nw * ns``
+    bytes fit ``RANGE_SPLITTER_BYTES``, else the most that do; a row's
+    destination is a sum over the splitters, so the rounds' add up."""
+    return max(min(ns, RANGE_SPLITTER_BYTES // (4 * max(nw, 1))), 1)
 
 
 def range_plan(n: int, ptrs, strides, dest_ptr: int) -> tuple[bool, int]:

@@ -4,7 +4,9 @@
 K20 replaces the candidate reduction of the JAX package's ``hot_hash_set``
 (``parallel/skew.py:68-88``): ``hot_lists`` takes both sides of the skew
 join in one launch, ``hot_hashes`` one side.  K21 replaces its
-``in_hash_set`` (``parallel/skew.py:91-96``).
+``in_hash_set`` (``parallel/skew.py:91-96``).  Past their shared-memory
+limits both take a sorted form of kernels the port already has
+(``dist_plan.hot_by_sort``, ``dist_plan.in_set_by_sort``), on the CPU too.
 """
 
 from __future__ import annotations
@@ -12,6 +14,10 @@ from __future__ import annotations
 import torch
 
 from . import _lib, dist_plan
+from .radix_sort import view_sort
+from .seg_scan import seg_scan
+from .sorted_probe import sorted_probe
+from .unpermute import unpermute
 
 SENTINEL = -1  # 0xFFFFFFFF as int32 bits: no hot hash
 
@@ -48,10 +54,13 @@ def hot_hashes(gh: torch.Tensor, gc: torch.Tensor, threshold) -> torch.Tensor:
     int32[m]: the hash where hot, else ``SENTINEL``.  K20's one-sided launch.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Past ``dist_plan.HOT_MAX_CANDIDATES`` both take ``hot_hashes_sorted``.
     """
     m = gh.shape[0]
     if gc.shape != (m,):
         raise ValueError("hot_hashes: gh and gc must be [m]")
+    if dist_plan.hot_by_sort(m, 0):
+        return hot_hashes_sorted(gh, gc, _threshold(threshold, gh.device))
     plan = dist_plan.hot_plan(m, 0, "hot_hashes")
     if gh.device.type == "cpu":
         return hot_hashes_plain(gh, gc, threshold)
@@ -80,6 +89,30 @@ def hot_hashes_plain(gh: torch.Tensor, gc: torch.Tensor, threshold) -> torch.Ten
     return torch.where(hot, gh, SENTINEL)
 
 
+def hot_hashes_sorted(gh: torch.Tensor, gc: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """``hot_hashes`` for any number of candidates, from a sort: the
+    candidates by hash, stably (K1, the gathered position breaking ties, so
+    a hash's first candidate leads its run), each run's total by a reversed
+    segmented sum that restarts at the run's last row (K2, wrapping as
+    int32), the decision on each run's first row, and the decisions
+    scattered back to the candidates' positions (K7).  `threshold` is a 0-d
+    int32 tensor on the candidates' device; nothing is read back to the
+    host."""
+    m = gh.shape[0]
+    dev = gh.device
+    if m == 0:
+        return gh.clone()
+    s_hash, perm, _, (s_count,) = view_sort(torch.zeros(m, dtype=torch.bool, device=dev), gh,
+                                            (gc,))
+    change = s_hash[1:] != s_hash[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    first = torch.cat([one, change])
+    last = torch.cat([change, one])
+    tot = seg_scan(last, s_count, "add", signed=True, reverse=True)
+    hot = first & (tot > threshold) & (s_hash != SENTINEL)
+    return unpermute(perm, torch.where(hot, s_hash, SENTINEL))
+
+
 def hot_lists(gh_p: torch.Tensor, gc_p: torch.Tensor, tot_p: torch.Tensor, gh_b: torch.Tensor,
               gc_b: torch.Tensor, tot_b: torch.Tensor,
               div: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -100,6 +133,10 @@ def hot_lists(gh_p: torch.Tensor, gc_p: torch.Tensor, tot_p: torch.Tensor, gh_b:
         raise ValueError("hot_lists: each side's gh and gc must be [m]")
     if int(div) < 1:
         raise ValueError(f"hot_lists: div {div} < 1")
+    if dist_plan.hot_by_sort(m_p, m_b):
+        hot = torch.cat([hot_hashes_sorted(h, c, (t.reshape(()) // div).clamp(min=1).to(h.device))
+                         for h, c, t in ((gh_p, gc_p, tot_p), (gh_b, gc_b, tot_b))])
+        return hot, (hot != SENTINEL).sum(dtype=torch.int32)
     plan = dist_plan.hot_plan(m_p, m_b)
     if gh_p.device.type == "cpu":
         return hot_lists_plain(gh_p, gc_p, tot_p, gh_b, gc_b, tot_b, div)
@@ -132,8 +169,12 @@ def in_hot_set(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
     mode (the live entries scanned, or a long list sorted and searched).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Past ``dist_plan.IN_SET_MAX_HOT`` entries both take ``in_hot_set_sorted``.
     """
     n, mh = hashes.shape[0], hot.shape[0]
+    if dist_plan.in_set_by_sort(mh):
+        dist_plan.check_hot_list("in_hot_set", n, 0)
+        return in_hot_set_sorted(hashes, hot)
     dist_plan.check_hot_list("in_hot_set", n, mh)
     if hashes.device.type == "cpu":
         return in_hot_set_plain(hashes, hot)
@@ -152,6 +193,17 @@ def in_hot_set(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
     _lib.raise_on_error(err, "in_hot_set")
     _lib.LAUNCHES["in_hot_set"] += 1
     return out
+
+
+def in_hot_set_sorted(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:
+    """``in_hot_set`` for a list of any length: the list's live entries
+    sorted to the front (K1 with the sentinels inactive, so they stay
+    behind as ``U32_MAX``, which the probe takes as the tail) and each row's
+    hash searched among them (K15, the live count on the device)."""
+    live = hot != SENTINEL
+    s_hot, _, _, _ = view_sort(~live, hot)
+    hit, _ = sorted_probe(s_hot, live.sum(dtype=torch.int32), hashes)
+    return hit
 
 
 def in_hot_set_plain(hashes: torch.Tensor, hot: torch.Tensor) -> torch.Tensor:

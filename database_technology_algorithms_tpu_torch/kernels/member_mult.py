@@ -41,12 +41,30 @@ def member_multiplicity_cells(
     where `out_pos` is the exclusive sum of `n_kkeys`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    A pair's build rows past ``cells_plan.MAX_TABLE_BUILD`` go in parts of
+    ``cells_plan.table_part`` rows (one launch each on the card), whose
+    counts are added on the device.
     """
     bwords, kwords = list(bwords), list(kwords)
     if not bwords or len(bwords) != len(kwords):
         raise ValueError("member_multiplicity: build and query keys need the same words, >= 1")
     if (out is None) != (out_pos is None) or (out is not None and n_kkeys is None):
         raise ValueError("member_multiplicity: out and out_pos go together, with n_kkeys")
+    cap_b = bwords[0].shape[-1]
+    part = cells_plan.table_part(cap_b)
+    if part < cap_b:
+        for lo in range(0, cap_b, part):
+            hi = min(lo + part, cap_b)
+            args = ([w[:, lo:hi].contiguous() for w in bwords],
+                    (n_bkeys - lo).clamp(0, hi - lo).to(torch.int32), kwords, n_kkeys, live_k)
+            if lo == 0:
+                out = member_multiplicity_cells(*args, out=out, out_pos=out_pos)
+            elif out_pos is None:
+                out += member_multiplicity_cells(*args)
+            else:
+                out += member_multiplicity_cells(*args, out=torch.zeros_like(out),
+                                                 out_pos=out_pos)
+        return out
     if bwords[0].device.type == "cpu":
         return member_multiplicity_cells_plain(bwords, n_bkeys, kwords, n_kkeys, live_k,
                                                out, out_pos)

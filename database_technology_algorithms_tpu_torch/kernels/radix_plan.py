@@ -14,6 +14,14 @@ histogram holds all n rows.  The kernel reads that from its upfront
 histogram on the card and skips the pass (where every pass is trivial, the
 last one copies the input through); ``trivial_passes`` computes the same
 decision from the inputs.
+
+After the sort both kernels gather their extra words through the order
+(``gather_words_*`` in ``csrc/radix.cuh``): packed (a coalesced pass
+interleaves a group of 2-4 words into 8- or 16-byte rows in the sort's free
+key buffers, then one vector load moves a row) where ``gather_packed`` says
+so, else direct (a 4-byte load a word); a thread takes 4 rows, its order
+entries and output runs by 16-byte accesses.
+``tests/test_torch_gather_schedule.py`` emulates both forms.
 """
 
 from __future__ import annotations
@@ -33,6 +41,10 @@ TILE = 4096  # rows a block ranks in one pass (RS_TILE in csrc/radix.cuh)
 MAX_ROWS = (1 << 30) - 1
 MAX_WORDS = 40  # MAX_KEY_WORDS in csrc/common.cuh
 KIND_TRIVIAL, KIND_SCATTERED = 1, 2  # RS_KIND_* in csrc/radix.cuh
+# the gather of the extra words (csrc/radix.cuh)
+GATHER_PACK_WORDS = 4  # words of a packed row at most (GW_PACK_WORDS: 16 bytes)
+GATHER_DIRECT_WORDS = 8  # words of a direct launch at most (MAX_WORDS in csrc/common.cuh)
+GATHER_PACK_BYTES = 4 << 20  # extras' bytes past which packing pays (tools/gather_sweep.py)
 
 Pass = tuple[int, int, int]
 
@@ -62,6 +74,26 @@ def check_rows(kernel: str, n: int) -> None:
         raise ValueError(
             f"{kernel}: {n} rows; the radix sort takes at most 2^30 - 1, because its "
             f"look-back status word holds a 2-bit flag beside a 30-bit count")
+
+
+def gather_packed(n: int, nextra: int) -> bool:
+    """The gather's form for n rows and `nextra` words: packed (groups of
+    ``GATHER_PACK_WORDS`` interleaved first) where there are at least two
+    words and their bytes pass ``GATHER_PACK_BYTES`` (one random sector a row
+    instead of one a word; below it the launch that packs costs what it
+    saves), else direct."""
+    return nextra >= 2 and 4 * n * nextra > GATHER_PACK_BYTES
+
+
+def gather_groups(nextra: int, packed: bool) -> list[tuple[int, int, int]]:
+    """The launches' word groups: (first word, words, packed row width: 2 or
+    4, 0 for direct), as ``gather_extras`` walks them."""
+    step = GATHER_PACK_WORDS if packed else GATHER_DIRECT_WORDS
+    out = []
+    for first in range(0, nextra, step):
+        cnt = min(step, nextra - first)
+        out.append((first, cnt, 0 if not packed or cnt == 1 else 2 if cnt == 2 else 4))
+    return out
 
 
 def schedule_array(sched: Sequence[Pass]) -> ctypes.Array:

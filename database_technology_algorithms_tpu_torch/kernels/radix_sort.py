@@ -22,7 +22,8 @@ def view_sort(
     extra word gathered by perm.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, for
-    at most 2^30 - 1 rows (``radix_plan.MAX_ROWS``).
+    at most 2^30 - 1 rows (``radix_plan.MAX_ROWS``), and gather the extra
+    words under ``radix_plan.gather_packed``.
     """
     if key.device.type == "cpu":
         return view_sort_plain(inact, key, extra)
@@ -52,7 +53,8 @@ def view_sort(
             radix_plan.schedule_array(sched), len(sched),
             s_key.data_ptr(), perm.data_ptr(), s_act.data_ptr(),
             _lib.ptr_array(extra), _lib.ptr_array(ex_out), len(extra),
-            scratch.data_ptr(), _lib.stream_of(key),
+            int(radix_plan.gather_packed(n, len(extra))), scratch.data_ptr(),
+            _lib.stream_of(key),
         )
     _lib.raise_on_error(err, "view_sort")
     _lib.LAUNCHES["radix_sort"] += 1

@@ -27,11 +27,20 @@ def range_dest(words: Sequence[torch.Tensor], splitters: Sequence[torch.Tensor])
     and aligned, 4-byte loads otherwise.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Splitters past ``dist_plan.RANGE_SPLITTER_BYTES`` go in rounds of
+    ``dist_plan.range_round`` (one launch each on the card), whose
+    destinations are added on the device.
     """
     words, splitters = list(words), list(splitters)
     if not words or len(words) != len(splitters):
         raise ValueError("range_dest: one splitter column a key word, at least one")
     n, ns = words[0].shape[0], splitters[0].shape[0]
+    per = dist_plan.range_round(len(words), ns)
+    if per < ns:
+        dest = range_dest(words, [s[:per] for s in splitters])
+        for lo in range(per, ns, per):
+            dest += range_dest(words, [s[lo:lo + per] for s in splitters])
+        return dest
     dist_plan.check_splitters("range_dest", n, len(words), ns)
     if words[0].device.type == "cpu":
         return range_dest_plain(words, splitters)

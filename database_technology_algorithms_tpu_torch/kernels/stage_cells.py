@@ -11,7 +11,7 @@ from typing import Sequence
 
 import torch
 
-from ..batch import as_u32
+from ..batch import as_u32, u32_bits
 from . import _lib, cells_plan, rowmove_plan
 from .words_sort import words_sort
 
@@ -24,8 +24,19 @@ def value_boundaries(d: torch.Tensor, nprobes: int) -> torch.Tensor:
     the differences of ``value_boundaries(d, nparts + 1)``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    count and scan (``cells_plan``), for at most 58111 probes.
+    count and scan (``cells_plan``).  Past what one launch counts (58111
+    probes) both count in rounds of ``cells_plan.boundary_width`` probes:
+    round r counts ``d - base`` (as u32) below each of its probes and one
+    more, the round's total, which offsets the next round on the device.
     """
+    per = cells_plan.boundary_width(d.shape[0], nprobes)
+    if per < nprobes:
+        outs, below = [], None
+        for base in range(0, nprobes, per):
+            got = value_boundaries(u32_bits(d.long() - base), min(per, nprobes - base) + 1)
+            outs.append(got[:-1] if below is None else got[:-1] + below)
+            below = got[-1] if below is None else below + got[-1]
+        return torch.cat(outs)
     if d.device.type == "cpu":
         return value_boundaries_plain(d, nprobes)
     _lib.check_cuda("value_boundaries d", d, torch.int32)
@@ -99,6 +110,8 @@ def stage_to_cells(
     and nothing of the call waits for the host.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    More cells than one launch stages (38399) go in rounds on both
+    (``_stage_rounds``).
     """
     if row_map not in ROW_MAPS:
         raise ValueError(f"stage_to_cells: unknown row_map {row_map!r}")
@@ -106,6 +119,9 @@ def stage_to_cells(
         raise ValueError("stage_to_cells: nparts and cap must be positive")
     payloads = list(payloads)
     fill = _fill_bits(fill)
+    width = cells_plan.stage_width(dest.shape[0], nparts)
+    if width < nparts:
+        return _stage_rounds(dest, active, nparts, cap, payloads, row_map, count, fill, width)
     if dest.device.type == "cpu":
         return stage_to_cells_plain(dest, active, nparts, cap, payloads, row_map, count, fill)
     dev = dest.device
@@ -161,6 +177,47 @@ def stage_to_cells(
             word = torch.where(rows < cnt, word, nparts)
         order, _, _ = words_sort([word])
         sink.copy_(sink[order.long()])
+    return cells, counts, si, overflow
+
+
+def _stage_rounds(dest, active, nparts: int, cap: int, payloads: list, row_map: str, count,
+                  fill: int, width: int):
+    """``stage_to_cells`` in rounds of `width` cells (``cells_plan.stage_width``).
+
+    Round r stages ``dest - r * width`` (as u32) into its ``min(width,
+    nparts - r * width)`` cells: rows of other rounds lie past them and go
+    to the sink.  The rounds' cells and counts follow one another, their
+    overflows add up, and a row's slot is its round's slot plus the round's
+    first slot (rows that no round staged keep ``nparts * cap``).  "si" is
+    the stable order of the rows by destination, inactive rows as `nparts`:
+    one K5 sort of that word."""
+    cells = [[] for _ in payloads]
+    counts, overflow, slots = [], None, None
+    for base in range(0, nparts, width):
+        w = min(width, nparts - base)
+        got, cnt, slot, ovf = stage_to_cells(
+            u32_bits(dest.long() - base), active, w, cap, payloads,
+            "slots" if row_map == "slots" else "none", count, False, fill)
+        for acc, c in zip(cells, got):
+            acc.append(c)
+        counts.append(cnt)
+        overflow = ovf if overflow is None else overflow + ovf
+        if row_map == "slots":
+            mine = torch.where(slot < w * cap, slot + base * cap, nparts * cap)
+            slots = mine if slots is None else torch.where(slot < w * cap, mine, slots)
+    cells = [torch.cat(c) for c in cells]
+    counts = torch.cat(counts)
+    if row_map == "slots":
+        return cells, counts, slots.to(torch.int32), overflow
+    if row_map == "none":
+        return cells, counts, None, overflow
+    n = dest.shape[0]
+    word = dest
+    if active is not None:
+        word = torch.where(active, word, nparts)
+    if count is not None:
+        word = torch.where(rowmove_plan.live_positions(n, count, dest.device), word, nparts)
+    si, _, _ = words_sort([word.to(torch.int32).contiguous()])
     return cells, counts, si, overflow
 
 

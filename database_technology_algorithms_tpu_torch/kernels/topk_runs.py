@@ -11,6 +11,8 @@ import torch
 
 from ..batch import as_u32
 from . import _lib, dist_plan, rowmove_plan
+from .compact import compact_words
+from .radix_sort import view_sort
 
 
 def topk_runs(hs: torch.Tensor, nact, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -27,10 +29,13 @@ def topk_runs(hs: torch.Tensor, nact, k: int) -> tuple[torch.Tensor, torch.Tenso
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
     launch and a memset of its done counter: the tiles' top k, then, in
-    the last block to finish, the top k of those; ``dist_plan``).
+    the last block to finish, the top k of those; ``dist_plan``).  Past
+    ``dist_plan.TOPK_MAX_K`` picks both take ``topk_runs_sorted``.
     """
     n = hs.shape[0]
     dist_plan.check_topk("topk_runs", n, k)
+    if dist_plan.topk_by_sort(k):
+        return topk_runs_sorted(hs, nact, k)
     if hs.device.type == "cpu":
         return topk_runs_plain(hs, nact, k)
     dev = hs.device
@@ -68,3 +73,26 @@ def topk_runs_plain(hs: torch.Tensor, nact, k: int) -> tuple[torch.Tensor, torch
     run_counts = torch.where(new_run, counts[seg], 0)
     order = torch.sort(run_counts, descending=True, stable=True).indices[:k]
     return hs[order], run_counts[order].to(torch.int32)
+
+
+def topk_runs_sorted(hs: torch.Tensor, nact, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``topk_runs`` for any k, from a sort of the runs: the run starts
+    compacted to the front in position order, the other positions after
+    them in order (K3 with the row index as payload); a run's count is the
+    distance to the next start, or to `nact` for the last run, and every
+    other position counts 0; a stable sort by the count descending (K1 on
+    ``~count``, the compacted order breaking ties: the lower position
+    first, as ``lax.top_k`` does) puts the top k first.  No count is read
+    back to the host."""
+    n = hs.shape[0]
+    dev = hs.device
+    live = rowmove_plan.live_positions(n, nact, dev)
+    start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), hs[1:] != hs[:-1]]) & live
+    nruns, (pos,) = compact_words(start, (0,))
+    idx = torch.arange(n, device=dev)
+    nxt = torch.cat([pos[1:], pos[:1]])
+    nxt = torch.where(idx + 1 < nruns, nxt, torch.as_tensor(nact, dtype=torch.int32, device=dev))
+    count = torch.where(idx < nruns, nxt - pos, 0).to(torch.int32)
+    _, _, _, (top_pos, top_count) = view_sort(torch.zeros(n, dtype=torch.bool, device=dev),
+                                              ~count, (pos, count))
+    return hs[top_pos[:k].long()], top_count[:k]

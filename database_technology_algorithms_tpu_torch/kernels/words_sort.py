@@ -31,7 +31,8 @@ def words_sort(
     is gathered by perm.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, for
-    at most 2^30 - 1 rows and 40 words (``radix_plan``).
+    at most 2^30 - 1 rows and 40 words (``radix_plan``), and gather the extra
+    words under ``radix_plan.gather_packed``.
     """
     words = list(words)
     if not words:
@@ -68,7 +69,8 @@ def words_sort(
             None if inact is None else inact.data_ptr(), n,
             perm.data_ptr(), s_act.data_ptr(),
             _lib.ptr_array(extra), _lib.ptr_array(ex_out), len(extra),
-            scratch.data_ptr(), _lib.stream_of(perm),
+            int(radix_plan.gather_packed(n, len(extra))), scratch.data_ptr(),
+            _lib.stream_of(perm),
         )
     _lib.raise_on_error(err, "words_sort")
     _lib.LAUNCHES["words_sort"] += 1

@@ -11,12 +11,14 @@ gather, ``copy_sweep`` K11's unit, ring and blocks an SM, and
 ``probe_sweep`` K15's index tree, threads and blocks an SM and K18's span
 and threads, and ``hash_sweep`` K16's keys a thread, threads and window
 and K21's rows a thread, threads and grid, and ``expand_sweep`` K14's
-threads and merge items a thread, on the card
+threads and merge items a thread, and ``gather_sweep`` the form and rows a
+thread of K1's and K5's gather of their extra words, on the card
 only; ``checkout_ab`` times named sets of calls (the tiled join; K6 and
 K7's scatter; the ``pipeline`` command's K6 and K7 by field; K11 and K22;
 K19 and K13 by launch; K15, K18 and their engines' ``hash_join_count``;
 K16, K17, the "table" engine, K21 and the skew step; K14,
-``materialize_field3_device``, K20 and the skew step's kernels) of several
+``materialize_field3_device``, K20 and the skew step's kernels;
+``gather_words`` in K1's largest call and in ``group_aggregate``) of several
 checkouts in turn."""
 
 from __future__ import annotations

@@ -65,6 +65,16 @@ arguments are the same in every checkout.  The sets:
   expanded rows, the step's hot list (K21's argument), nres, overflow and
   n_hot.
 
+- ``gather``: K1's gather of its extra words (``gather_words``) in a
+  ``view_sort`` of 16,777,216 rows with 2 extra words (the shape of the 24M +
+  24M run's largest call: keys at the bench's range drawn on the card from
+  a seed, every seventh row inactive, the extras random words) and in the
+  ``view_sort`` calls with extras that ``group_aggregate`` makes at field 1
+  over the filtered 16,777,200-row uniform table (``chip_smoke.agg_table``,
+  ``recorded_extra_sorts``): the gather's device time a call (its launches'
+  sum, torch.profiler, mean of 10 calls), the whole call's, ``index_select``
+  of the same words through the same order, and checksums of the outputs.
+
 Printed a line a checkout; the results (checksums, counters, nres) must be
 equal across checkouts, or the tool fails.
 
@@ -582,8 +592,50 @@ def hot_list_section_ms(skew, hot_set, mesh, tp, tb, reps: int = 51) -> tuple[fl
     return statistics.median(issue), statistics.median(wall)
 
 
+def gather(cs, dev) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from database_technology_algorithms_tpu_torch.kernels.radix_sort import view_sort
+    from database_technology_algorithms_tpu_torch.ops import filter as F
+    from database_technology_algorithms_tpu_torch.ops.aggregate import group_aggregate
+
+    ms, sums = {}, {}
+    n = 16_777_216
+    gen = torch.Generator(device=dev).manual_seed(22)
+    key = torch.randint(0, 3 * n // 10, (n,), generator=gen, device=dev, dtype=torch.int32)
+    inact = torch.arange(n, device=dev) % 7 == 3
+    extra = tuple(torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                                dtype=torch.int32) for _ in range(2))
+    calls = {f"view_sort, {n} rows, 2 extra words": ((inact, key, extra), {})}
+    cols = cs.agg_table(cs.AGG_NBLOCKS, 71, None)
+    t = cs.to_batch(cols, dev)
+    live_num = np.sort(cols["num"][cols["valid"]])
+    lo, hi = int(live_num[len(live_num) // 4]), int(live_num[3 * len(live_num) // 4])
+    filtered, n_kept = F.filter_batch(t, F.pred_and(F.pred_valid(), F.pred_num_range(lo, hi)))
+    with cs.recorded_extra_sorts() as recorded:
+        group_aggregate(filtered, 1, count=n_kept)
+    for i, (name, args, kw) in enumerate(recorded):
+        if name == "view_sort":
+            calls[f"group_aggregate's view_sort {i}, {args[1].shape[0]} rows, "
+                  f"{len(cs.sort_extras(name, args, kw))} extra words"] = (args, kw)
+    del t, filtered, recorded
+    for what, (args, kw) in calls.items():
+        got = view_sort(*args, **kw)
+        perm, ex = got[1], cs.sort_extras("view_sort", args, kw)
+        sums[what] = [int((w.to(torch.int64) & 0xFFFFFFFF).sum()) for w in got[3]]
+        prof = cs.profile_device(lambda a=args, k=kw: view_sort(*a, **k), reps=10)
+        by = {short_name(nm): us / 1e3 for nm, us in prof["top"] if "gather_words" in nm}
+        ms[what] = {"gather": sum(by.values()), "gather by launch": by,
+                    "view_sort": prof["busy_us"] / 1e3,
+                    "index_select": cs.device_ms(lambda p=perm, e=ex: [
+                        torch.index_select(w, 0, p) for w in e])}
+    return {"ms": ms}, sums
+
+
 SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range,
-        "topk_agg": topk_agg, "probe": probe, "hash_hot": hash_hot, "expand_hot": expand_hot}
+        "topk_agg": topk_agg, "probe": probe, "hash_hot": hash_hot, "expand_hot": expand_hot,
+        "gather": gather}
 
 
 def one(sets: list[str], root: str) -> dict:

@@ -384,9 +384,13 @@ def test_k19_count_on_the_device_and_refusals():
     assert dist_plan.topk_scratch_words(len(hs), k) == 2 + 2 * k * dist_plan.topk_tiles(len(hs))
     assert dist_plan.TOPK_TILE == 4096 and dist_plan.TOPK_MAX_K + (
         dist_plan.TOPK_BIG_ROUND * dist_plan.TOPK_THREADS) <= dist_plan.TOPK_BIG_SORT
-    for bad in (0, len(hs) + 1, dist_plan.TOPK_MAX_K + 1):
+    for bad in (0, len(hs) + 1):
         with pytest.raises(ValueError, match="K19"):
             topk_runs(t32(hs), nact, bad)
+    # past K19's shared memory the runs are sorted instead (no refusal)
+    big = dist_plan.TOPK_MAX_K + 1
+    assert all(torch.equal(x, y) for x, y in zip(topk_runs(t32(hs), nact, big),
+                                                 topk_runs_plain(t32(hs), nact, big)))
 
 
 # ---------------------------------------------------------------------------
@@ -436,9 +440,18 @@ def test_k20_emulation_matches_plain(case, thr):
 
 
 def test_k20_refuses_past_shared_memory():
+    """K20's plan refuses past its shared memory; the wrapper sorts the
+    candidates there instead (the plain version's [m, m] matrix would take
+    gigabytes, so the group-by reference holds it)."""
     n = dist_plan.HOT_MAX_CANDIDATES + 1
     with pytest.raises(ValueError, match="K20"):
-        hot_hashes(torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32), 1)
+        dist_plan.hot_plan(n, 0, "hot_hashes")
+    g = np.random.default_rng(20)
+    gh = g.integers(0, 500, n).astype(np.uint32) * np.uint32(2654435761)
+    gh[::11] = M32
+    gc = g.integers(0, 50, n).astype(np.int32)
+    np.testing.assert_array_equal(
+        torch_to_u32(hot_hashes(t32(gh), torch.from_numpy(gc), 100)), k20_reference(gh, gc, 100))
     assert hot_hashes_plain(torch.zeros(0, dtype=torch.int32),
                             torch.zeros(0, dtype=torch.int32), 1).numel() == 0
 
@@ -1134,9 +1147,10 @@ def test_k22_strided_key_words_and_refusals():
     assert dist_plan.range_plan(8, [16, 32], [1, 1], 8)[0] is False  # the output misaligned
     with pytest.raises(ValueError, match="K22"):
         range_dest([strw[:, 0]] * 5, [spl[0]] * 5)
-    with pytest.raises(ValueError, match="K22"):  # the splitters past shared memory
-        ns = dist_plan.SHARED_BYTES // 16 + 1
-        range_dest([num] * 4, [torch.zeros(ns, dtype=torch.int32)] * 4)
+    # splitters past shared memory: in rounds, no refusal
+    ns = dist_plan.SHARED_BYTES // 16 + 1
+    spl_big = [torch.zeros(ns, dtype=torch.int32)] * 4
+    assert torch.equal(range_dest([num] * 4, spl_big), range_dest_plain([num] * 4, spl_big))
     with pytest.raises(ValueError, match="K22"):
         dist_plan.check_splitters("range_dest", dist_plan.MAX_ROWS + 1, 1, 3)
     dist_plan.check_splitters("range_dest", dist_plan.MAX_ROWS, 4, dist_plan.SHARED_BYTES // 16)

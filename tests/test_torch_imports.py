@@ -52,7 +52,7 @@ def test_port_sources_found():
             "sorted_probe.py", "hash_set.py", "bucket_probe.py", "engines_plan.py",
             "mesh.py", "multihost.py", "shuffle.py", "dist_ops.py", "skew.py", "overlap.py",
             "topk_runs.py", "hot_set.py", "range_dest.py", "dist_plan.py", "profiling.py",
-            "roofline.py"} <= names
+            "roofline.py", "gather_sweep.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
