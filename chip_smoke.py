@@ -182,7 +182,10 @@ Phases (any failure raises and the script exits non-zero):
      a list of 65,536 entries, K22 with 14,999 splitters of 4 words, the
      shuffle's K9 over 40,000 cells and ``value_boundaries`` over 60,002
      probes (with ``_dest_ranks`` over 60,000 shards), and
-     ``member_multiplicity`` over a build of 2^30 + 1 rows;
+     ``member_multiplicity`` over a build of 2^30 + 1 rows; K1 and K5 (2
+     strided words) past 2^30 rows, at 2^30 + 65 rows (one digit of a
+     scattering pass holding 2^30 + 1 rows) against their plain versions and
+     at 2^31 - 1 rows against the stable sort's definition, in chunks;
  14. timings: each kernel's device time (torch.profiler) beside its plain
      version's, one PyTorch call for the same function where there is one
      (a yardstick only) and its memory-bound floor; K1 also at 16M rows
@@ -5665,10 +5668,21 @@ LIMITS_CELL_CAP = 64
 LIMITS_PROBE_SHARDS = 60000  # K9: _dest_ranks' ndev + 2 = 60,002 probes, past 58,111
 LIMITS_BUILD = (1 << 30) + 1  # K10: a build of 2^30 + 1 rows, past MAX_TABLE_BUILD
 LIMITS_QUERY = 1 << 20
+# K1 and K5 past 2^30 rows: every key word below 2^24 but on LIMITS_SORT_OTHER
+# rows (10 inactive, the rest with a high byte in each word), so that each
+# word's top pass scatters with one digit holding all the other rows: 2^30 + 1
+# at the first size, past a 30-bit count; then the 32-bit row index's limit
+LIMITS_SORT_OTHER = 64
+LIMITS_SORT_INACTIVE = 10
+LIMITS_SORT_ROWS = ((1 << 30) + 1 + LIMITS_SORT_OTHER, (1 << 31) - 1)
+LIMITS_SORT_DIGIT = 1 << 30  # rows of the big digit at least
+LIMITS_SORT_CHUNK = 1 << 26  # rows a chunk of the checks on the card
+LIMITS_SORT_PROBE = 1 << 24  # rows of the plain version's memory probe
 
 
 def limits_reading(name: str, what: str, fn, card: str, launched: dict, kernels: tuple,
-                   absent: tuple = (), reps: int = 10) -> float:
+                   absent: tuple = (), reps: int = 10,
+                   checked: str = "equal to its plain version and numpy") -> float:
     """The device time of one call of a lifted form (torch.profiler, mean of
     `reps` calls), and its launches: each of `kernels` at least once, none
     of `absent` (the kernel whose limit it passes)."""
@@ -5685,8 +5699,169 @@ def limits_reading(name: str, what: str, fn, card: str, launched: dict, kernels:
     launched[name] = counts
     ms = profile_device(fn, reps=reps, cpu=False)["busy_us"] / 1e3
     log(f"[limits] {card}: {name} ({what}): {ms:.4f} ms of device time a call, launches "
-        f"{counts}; equal to its plain version and numpy")
+        f"{counts}; {checked}")
     return ms
+
+
+def big_sort_inputs(dev, n: int, nwords: int, seed: int) -> tuple[list, torch.Tensor]:
+    """`nwords` key words (an [n, nwords] matrix's columns, strided where
+    nwords > 1) below 2^24, drawn on the card from `seed`, and the inactive
+    mask: LIMITS_SORT_INACTIVE of LIMITS_SORT_OTHER rows (among them the
+    first and the last) inactive, the others with a random high byte in
+    every word."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mat = torch.randint(0, 1 << 24, (n, nwords), generator=gen, dtype=torch.int32, device=dev)
+    g = np.random.default_rng(seed)
+    rows = np.concatenate([[0, n - 1], g.choice(n - 2, LIMITS_SORT_OTHER - 2, replace=False) + 1])
+    high = g.integers(1, 256, size=(LIMITS_SORT_OTHER - LIMITS_SORT_INACTIVE, nwords))
+    idx = torch.from_numpy(rows[LIMITS_SORT_INACTIVE:]).to(dev)
+    mat[idx] |= torch.from_numpy((high << 24).astype(np.uint32).view(np.int32)).to(dev)
+    inact = torch.zeros(n, dtype=torch.bool, device=dev)
+    inact[torch.from_numpy(rows[:LIMITS_SORT_INACTIVE]).to(dev)] = True
+    return ([mat.view(n)] if nwords == 1 else [mat[:, j] for j in range(nwords)]), inact
+
+
+def largest_digits(words: list, inact, sched) -> list[int]:
+    """The rows of each pass's largest digit (bucket of the 512), counted in
+    chunks on the card."""
+    from database_technology_algorithms_tpu_torch.kernels import radix_plan
+
+    n = words[0].shape[0]
+    hist = torch.zeros((len(sched), 512), dtype=torch.int64, device=words[0].device)
+    for lo in range(0, n, LIMITS_SORT_CHUNK):
+        ws = [w[lo:lo + LIMITS_SORT_CHUNK] for w in words]
+        ia = None if inact is None else inact[lo:lo + LIMITS_SORT_CHUNK]
+        for i, p in enumerate(sched):
+            hist[i] += torch.bincount(radix_plan.pass_digits(ws, ia, p), minlength=512)
+    return hist.max(1).values.tolist()
+
+
+def sort_is_defined(what: str, words: list, inact, perm, s_act, s_key=None) -> None:
+    """The stable sort's definition, in chunks on the card: perm is a
+    permutation of the rows; (inact, words as u32, row index) increases
+    strictly from each sorted row to the next (the keys non-decreasing, the
+    row index increasing within ties); s_act = ~inact[perm] (all true with no
+    mask) and s_key = words[0][perm]."""
+    from database_technology_algorithms_tpu_torch.batch import as_u32
+
+    n = perm.shape[0]
+    seen = torch.zeros(n, dtype=torch.bool, device=perm.device)
+    for lo in range(0, n, LIMITS_SORT_CHUNK):
+        a, hi = max(lo - 1, 0), min(lo + LIMITS_SORT_CHUNK, n)
+        p = perm[a:hi].long()
+        if int(p.min()) < 0 or int(p.max()) >= n:
+            raise AssertionError(f"[limits] {what}: perm[{a}:{hi}] leaves [0, {n})")
+        seen[p] = True
+        cols = ([] if inact is None else [inact[p].to(torch.int8)]) + [as_u32(w[p]) for w in words]
+        cols.append(p)
+        less = torch.zeros(hi - a - 1, dtype=torch.bool, device=p.device)
+        same = torch.ones_like(less)
+        for c in cols:
+            less |= same & (c[:-1] < c[1:])
+            same &= c[:-1] == c[1:]
+        if not bool(less.all()):
+            raise AssertionError(f"[limits] {what}: rows {a}-{hi} out of order")
+        want_act = torch.ones_like(p, dtype=torch.bool) if inact is None else ~inact[p]
+        if not torch.equal(s_act[a:hi], want_act):
+            raise AssertionError(f"[limits] {what}: s_act differs from ~inact[perm] in {a}-{hi}")
+        if s_key is not None and not torch.equal(s_key[a:hi], words[0][p]):
+            raise AssertionError(f"[limits] {what}: s_key differs from key[perm] in {a}-{hi}")
+    if not bool(seen.all()):
+        raise AssertionError(f"[limits] {what}: perm is not a permutation")
+
+
+def chunked_max_abs_err(a: tuple, b: tuple) -> int:
+    worst = 0
+    for x, y in zip(a, b, strict=True):
+        if x.shape != y.shape:
+            raise AssertionError(f"shape {tuple(x.shape)} != {tuple(y.shape)}")
+        for lo in range(0, x.shape[0], LIMITS_SORT_CHUNK):
+            xs, ys = x[lo:lo + LIMITS_SORT_CHUNK], y[lo:lo + LIMITS_SORT_CHUNK]
+            worst = max(worst, int((xs.long() - ys.long()).abs().max()))
+    return worst
+
+
+def plain_bytes_a_row(plain, words: list, inact) -> float:
+    """The plain version's peak of device memory a row, measured on the
+    first LIMITS_SORT_PROBE rows."""
+    m = LIMITS_SORT_PROBE
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = plain([w[:m] for w in words], inact[:m])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / m
+
+
+def limits_big_sorts(dev, card: str, launched: dict, times: dict) -> None:
+    """K1 and K5 (2 strided words, with the mask) past 2^30 rows: at each of
+    LIMITS_SORT_ROWS, the passes the kernel scattered and their largest
+    digits, then the kernel against its plain version where the plain
+    version's reckoned peak (its bytes a row on LIMITS_SORT_PROBE rows, with
+    10% to spare) fits the free memory beside the kernel's outputs, else
+    against the stable sort's definition; then its device time and
+    launches."""
+    from database_technology_algorithms_tpu_torch.kernels import radix_plan
+    from database_technology_algorithms_tpu_torch.kernels.radix_sort import (
+        view_sort, view_sort_plain)
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import (
+        words_sort, words_sort_plain)
+
+    sorts = {"view_sort": (1, lambda w, ia: view_sort(ia, w[0])[:3],
+                           lambda w, ia: view_sort_plain(ia, w[0])[:3], "radix_sort",
+                           radix_plan.view_sort_schedule()),
+             "words_sort": (2, lambda w, ia: words_sort(w, ia)[:2],
+                            lambda w, ia: words_sort_plain(w, ia)[:2], "words_sort",
+                            radix_plan.words_sort_schedule(2, True))}
+    for n in LIMITS_SORT_ROWS:
+        for name, (nwords, kernel, plain, counter, sched) in sorts.items():
+            what = f"{n} rows, {nwords} word{'s' * (nwords > 1)} below 2^24 but on " \
+                   f"{LIMITS_SORT_OTHER} rows ({LIMITS_SORT_INACTIVE} inactive)"
+            torch.cuda.empty_cache()
+            words, inact = big_sort_inputs(dev, n, nwords, seed=n % 1000 + nwords)
+            per_row = plain_bytes_a_row(plain, words, inact)
+            with radix_plan.record_pass_kinds() as kinds:
+                got = kernel(words, inact)
+            torch.cuda.synchronize()
+            kinds = kinds[0].tolist()
+            torch.cuda.empty_cache()
+            largest = largest_digits(words, inact, sched)
+            if kinds != [radix_plan.KIND_TRIVIAL if c == n else radix_plan.KIND_SCATTERED
+                         for c in largest]:
+                raise AssertionError(f"[limits] {name} ({what}): passes {kinds}, largest digits "
+                                     f"{largest}")
+            big = [c for c, k in zip(largest, kinds) if k == radix_plan.KIND_SCATTERED
+                   and c >= LIMITS_SORT_DIGIT]
+            if not big:
+                raise AssertionError(f"[limits] {name} ({what}): no scattering pass has a digit "
+                                     f"of {LIMITS_SORT_DIGIT} rows: {largest}")
+            free = torch.cuda.mem_get_info(dev)[0]
+            need = 1.1 * per_row * n
+            if need < free:
+                want = plain(words, inact)
+                err = chunked_max_abs_err(got, want)
+                del want
+                if err:
+                    raise AssertionError(f"[limits] {name} ({what}): max abs err {err} against "
+                                         f"the plain version")
+                checked = "equal to its plain version, max abs err 0"
+            else:
+                perm, s_act = (got[1], got[2]) if name == "view_sort" else got
+                sort_is_defined(f"{name} ({what})", words, inact, perm, s_act,
+                                got[0] if name == "view_sort" else None)
+                checked = "the stable sort's definition holds (the plain version does not fit)"
+            del got
+            torch.cuda.empty_cache()
+            log(f"[limits] {card}: {name} ({what}): passes {kinds}; largest digits {largest}, "
+                f"{big} in scattering passes; plain version's peak {per_row:.1f} B a row, "
+                f"{need / 1e9:.1f} GB against {free / 1e9:.1f} GB free: {checked}")
+            times[f"{name}_{n}"] = limits_reading(
+                f"{name} n={n}", what, lambda w=words, ia=inact, k=kernel: k(w, ia), card,
+                launched, (counter,), reps=3, checked=checked)
+            del words, inact
+    torch.cuda.empty_cache()
 
 
 def numpy_topk(h: np.ndarray, nact: int, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -5732,7 +5907,7 @@ def phase_limits(dev, card: str) -> dict:
     14,999 splitters of 4 words (two rounds); the shuffle's K9 over 40,000
     cells and value_boundaries over 60,002 probes on one shard's rows
     (rounds); member_multiplicity over a build of 2^30 + 1 rows (two K10
-    parts)."""
+    parts); K1 and K5 past 2^30 rows (limits_big_sorts)."""
     from database_technology_algorithms_tpu_torch.batch import u32_bits
     from database_technology_algorithms_tpu_torch.kernels import cells_plan, hot_set, range_dest
     from database_technology_algorithms_tpu_torch.kernels import stage_cells
@@ -5930,6 +6105,7 @@ def phase_limits(dev, card: str) -> dict:
         f"of host wall")
     del build, qd, got
     torch.cuda.empty_cache()
+    limits_big_sorts(dev, card, launched, times)
     return {"times": times, "launched": launched}
 
 

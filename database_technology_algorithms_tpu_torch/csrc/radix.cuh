@@ -31,13 +31,15 @@
 //                  into registers, ranks it stably (the peers of a digit
 //                  within a warp by one ballot a digit bit, counts per warp in
 //                  shared memory, a prefix over the warps), publishes its
-//                  per-digit counts in status words (a 2-bit flag beside a
-//                  30-bit count: aggregate, or inclusive prefix), reorders the
-//                  tile by digit in shared memory, looks back over earlier
-//                  tiles for its exclusive per-digit offset (decoupled
-//                  look-back, RS_LOOKBACK tiles a load round) and writes each
-//                  digit run with consecutive threads on consecutive
-//                  addresses.
+//                  per-digit counts in status words (one word a tile and
+//                  digit: 0 before it is published, then the tile's count
+//                  plus one, then the inclusive prefix with bit 31 set, so
+//                  that one flag bit leaves 31 bits for the prefix), reorders
+//                  the tile by digit in shared memory, looks back over
+//                  earlier tiles for its exclusive per-digit offset
+//                  (decoupled look-back, RS_LOOKBACK tiles a load round) and
+//                  writes each digit run with consecutive threads on
+//                  consecutive addresses.
 // A pass whose digit is the same for every row (one bucket of the histogram
 // holds all n rows: NUL bytes of short strings, the high byte of small
 // numbers, the flag when every row is active) would leave the order as it
@@ -51,7 +53,7 @@
 // the main path) for one word of routing a pass.
 //
 // The value that moves is the row index with the row's inactive flag in bit
-// 31 (n < 2^30), made by the first pass that scatters; the last writes perm
+// 31 (n < 2^31), made by the first pass that scatters; the last writes perm
 // = val & 0x7FFFFFFF and act = !flag.  The first pass of a word to scatter
 // reads the word through the order so far, words[w][val * stride] (strided
 // columns of a row-major matrix are read where they lie; in row order when
@@ -85,11 +87,15 @@ constexpr int RS_TILE = RS_THREADS * RS_ITEMS;
 constexpr int RS_BUCKETS = 512;  // the most a pass has: 8 key bits and the flag
 constexpr int RS_WORD_PASSES = 4;  // 8-bit digits of a u32 word
 constexpr int RS_MAX_PASSES = RS_WORD_PASSES * MAX_KEY_WORDS;
-constexpr int64_t RS_MAX_ROWS = ((int64_t)1 << 30) - 1;  // the status word's count
-constexpr uint32_t RS_COUNT_MASK = (1u << 30) - 1u;
-constexpr uint32_t RS_AGGREGATE = 1u << 30;
-constexpr uint32_t RS_PREFIX = 2u << 30;
-constexpr uint32_t RS_FLAG_BIT = 0x80000000u;
+// the row index is 31 bits of the value (bit 31 is the flag), and a status
+// word's prefix 31 bits
+constexpr int64_t RS_MAX_ROWS = 0x7FFFFFFF;
+// A status word (one a tile and digit): 0 until the tile publishes; then its
+// aggregate, the tile's count of the digit plus one (at most RS_TILE + 1);
+// then its inclusive prefix over tiles 0..t, RS_PREFIX | prefix (prefix <= n).
+constexpr uint32_t RS_PREFIX = 0x80000000u;
+constexpr uint32_t RS_COUNT_MASK = 0x7FFFFFFFu;
+constexpr uint32_t RS_FLAG_BIT = 0x80000000u;  // the value's inactive flag
 constexpr int RS_HIST_BLOCKS = 256;  // blocks of the histogram at most
 // copies of the global histogram, block b adding into copy b % RS_HIST_COPIES,
 // so that fewer blocks queue on each counter's atomics
@@ -197,12 +203,13 @@ __device__ __forceinline__ uint32_t rs_lookback(const uint32_t* status, int64_t 
     bool done = false;
 #pragma unroll
     for (int w = 0; w < RS_LOOKBACK; ++w) {
-      if (!done && used == w && (sw[w] & ~RS_COUNT_MASK) != 0u) {
+      if (!done && used == w && sw[w] != 0u) {
         excl += sw[w] & RS_COUNT_MASK;
         used = w + 1;
         done = (sw[w] & RS_PREFIX) != 0u;
       }
     }
+    excl -= (uint32_t)(used - (int)done);  // each aggregate is its count plus one
     if (done) return excl;
     u -= used;
   }
@@ -548,7 +555,7 @@ __global__ void __launch_bounds__(RS_THREADS) onesweep_pass(PassArgs a) {
         s.whist[w][d] = run;
         run += x;
       }
-      rs_publish(&st[d], (t == 0 ? RS_PREFIX : RS_AGGREGATE) | run);
+      rs_publish(&st[d], t == 0 ? RS_PREFIX | run : run + 1u);
     }
     cnt[j] = run;
   }

@@ -37,8 +37,15 @@ from ..batch import as_u32
 DIGIT_BITS = 8
 WORD_SHIFTS = (0, 8, 16, 24)
 TILE = 4096  # rows a block ranks in one pass (RS_TILE in csrc/radix.cuh)
-# the look-back status word holds a 2-bit flag beside a 30-bit count
-MAX_ROWS = (1 << 30) - 1
+# the row index is 31 bits of the value a pass moves (bit 31 is the inactive
+# flag): RS_MAX_ROWS, the JAX sorts' own limit (int32 positions)
+MAX_ROWS = (1 << 31) - 1
+# The look-back's status word, one a tile and digit (csrc/radix.cuh): 0 until
+# the tile publishes, then its count of the digit plus one (at most TILE +
+# 1), then STATUS_PREFIX | its inclusive prefix over the tiles before and
+# itself (at most MAX_ROWS).
+STATUS_PREFIX = 1 << 31  # RS_PREFIX
+LOOKBACK = 16  # predecessor tiles read at once (RS_LOOKBACK)
 MAX_WORDS = 40  # MAX_KEY_WORDS in csrc/common.cuh
 KIND_TRIVIAL, KIND_SCATTERED = 1, 2  # RS_KIND_* in csrc/radix.cuh
 # the gather of the extra words (csrc/radix.cuh)
@@ -69,11 +76,11 @@ def words_sort_schedule(m: int, with_inact: bool) -> tuple[Pass, ...]:
 
 
 def check_rows(kernel: str, n: int) -> None:
-    """Refuse a row count that the look-back status word cannot count."""
+    """Refuse a row count that the sort's 32-bit row index cannot hold."""
     if n > MAX_ROWS:
         raise ValueError(
-            f"{kernel}: {n} rows; the radix sort takes at most 2^30 - 1, because its "
-            f"look-back status word holds a 2-bit flag beside a 30-bit count")
+            f"{kernel}: {n} rows; the radix sort's row index is 32-bit (at most {MAX_ROWS}, "
+            f"bit 31 carries the inactive flag)")
 
 
 def gather_packed(n: int, nextra: int) -> bool:

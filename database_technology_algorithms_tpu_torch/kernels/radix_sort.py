@@ -22,7 +22,7 @@ def view_sort(
     extra word gathered by perm.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, for
-    at most 2^30 - 1 rows (``radix_plan.MAX_ROWS``), and gather the extra
+    at most 2^31 - 1 rows (``radix_plan.MAX_ROWS``), and gather the extra
     words under ``radix_plan.gather_packed``.
     """
     if key.device.type == "cpu":

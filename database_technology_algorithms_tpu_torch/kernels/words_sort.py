@@ -31,7 +31,7 @@ def words_sort(
     is gathered by perm.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, for
-    at most 2^30 - 1 rows and 40 words (``radix_plan``), and gather the extra
+    at most 2^31 - 1 rows and 40 words (``radix_plan``), and gather the extra
     words under ``radix_plan.gather_packed``.
     """
     words = list(words)

@@ -1,5 +1,6 @@
 """The probes of the repository's ``tools/`` that hold Pallas kernels, on the
-card: ``bench_pallas_dma`` (K11) and ``bench_permute_prims`` (K12).  Each
+card: ``bench_pallas_dma`` (K11) and ``bench_permute_prims`` (K12, and the
+library calls that stand for its XLA measurements P1-P3).  Each
 runs as ``python -m database_technology_algorithms_tpu_torch.tools.<name>``,
 on the card, or with ``--cpu`` through the plain versions for correctness
 only.  ``radix_phases`` times the phases of the one-sweep radix pass (K1, K5)
@@ -18,8 +19,8 @@ K7's scatter; the ``pipeline`` command's K6 and K7 by field; K11 and K22;
 K19 and K13 by launch; K15, K18 and their engines' ``hash_join_count``;
 K16, K17, the "table" engine, K21 and the skew step; K14,
 ``materialize_field3_device``, K20 and the skew step's kernels;
-``gather_words`` in K1's largest call and in ``group_aggregate``) of several
-checkouts in turn."""
+``gather_words`` in K1's largest call and in ``group_aggregate``; K1 and K5
+at the main path's shapes) of several checkouts in turn."""
 
 from __future__ import annotations
 

@@ -75,6 +75,15 @@ arguments are the same in every checkout.  The sets:
   sum, torch.profiler, mean of 10 calls), the whole call's, ``index_select``
   of the same words through the same order, and checksums of the outputs.
 
+- ``sort``: K1 (``view_sort``) on the staged 1M + 1M run's R || S (2M rows
+  from ``chip_smoke.gen_pair``: ``num`` and ``~valid``) and on the 8M + 8M
+  staged run's keys (16,777,216 rows at the bench's range drawn on the card
+  from seed 9, every row active), and K5 (``words_sort``) on the
+  ``pipeline`` command's field-2 key (2M rows, the 2 strided ``strw``
+  words of R || S) with every 97th row inactive and with no mask.  Each
+  call's device time (torch.profiler, mean of 10 calls) and checksums of
+  its outputs.
+
 Printed a line a checkout; the results (checksums, counters, nres) must be
 equal across checkouts, or the tool fails.
 
@@ -633,9 +642,41 @@ def gather(cs, dev) -> tuple[dict, dict]:
     return {"ms": ms}, sums
 
 
+def sort(cs, dev) -> tuple[dict, dict]:
+    import torch
+
+    from database_technology_algorithms_tpu_torch.batch import RecordBatch
+    from database_technology_algorithms_tpu_torch.kernels.radix_sort import view_sort
+    from database_technology_algorithms_tpu_torch.kernels.words_sort import words_sort
+
+    r_cols, s_cols = cs.gen_pair(cs.ROWS)
+    both = RecordBatch.concat([cs.to_batch(r_cols, dev), cs.to_batch(s_cols, dev)])
+    big = 2 * cs.BIG_ROWS
+    b_key = torch.randint(0, 3 * cs.BIG_ROWS // 10, (big,), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(9))
+    b_inact = torch.zeros(big, dtype=torch.bool, device=dev)
+    cmd = RecordBatch.concat(command_tables(cs, dev))
+    words = [cmd.strw[:, j] for j in range(cmd.strw.shape[1])]
+    mask = torch.arange(cmd.nrows, device=dev) % 97 == 0
+    calls = {
+        f"K1 {both.nrows} rows": lambda: view_sort(~both.valid, both.num),
+        f"K1 {big} rows": lambda: view_sort(b_inact, b_key),
+        f"K5 {cmd.nrows} rows x {len(words)} words, mask": lambda: words_sort(words, mask),
+        f"K5 {cmd.nrows} rows x {len(words)} words, no mask": lambda: words_sort(words),
+    }
+    ms, sums = {}, {}
+    for name, fn in calls.items():
+        out = fn()
+        perm = out[1] if name.startswith("K1") else out[0]
+        pos = torch.arange(perm.shape[0], device=dev, dtype=torch.int64)
+        sums[name] = int((perm.to(torch.int64) * (pos % 1009 + 1)).sum())
+        ms[name] = cs.device_ms(fn)
+    return {"ms": ms}, sums
+
+
 SETS = {"tiled_join": tiled_join, "perm": perm, "command": command, "copy_range": copy_range,
         "topk_agg": topk_agg, "probe": probe, "hash_hot": hash_hot, "expand_hot": expand_hot,
-        "gather": gather}
+        "gather": gather, "sort": sort}
 
 
 def one(sets: list[str], root: str) -> dict:

@@ -29,6 +29,12 @@ HBM_GBPS = {
 OPS_PER_S = {
     "NVIDIA H100 80GB HBM3": 67e12,
 }
+# peak dense tensor-core rate by operand type, operations a second (a
+# multiply-add is two): NVIDIA's H100 SXM5 data sheet, without sparsity; the
+# probes' one-hot products read it (tools/bench_permute_prims.py)
+TENSOR_OPS_PER_S = {
+    "NVIDIA H100 80GB HBM3": {"bf16": 989e12, "int8": 1979e12},
+}
 
 
 def _device(device) -> torch.device:
@@ -65,6 +71,12 @@ def chip_ops_per_s(device=None) -> float:
     """Peak 32-bit operation rate of a CUDA `device` (default: the current
     one), operations a second."""
     return peak_for(_card_name(_device(device)), OPS_PER_S)
+
+
+def chip_tensor_ops_per_s(kind: str, device=None) -> float:
+    """Peak dense tensor-core rate of a CUDA `device` (default: the current
+    one) for operands of `kind` ("bf16" or "int8"), operations a second."""
+    return peak_for(_card_name(_device(device)), TENSOR_OPS_PER_S)[kind]
 
 
 ROW_BYTES_FULL = 4 + 4 + 128 + 1  # recid + num + strs(padded) + valid

@@ -413,5 +413,6 @@ def test_probe_mains_check_on_the_cpu(capsys):
     assert tdma.main(["--cpu"]) == 0
     assert tprims.main(["--cpu"]) == 0
     out = capsys.readouterr().out
-    assert out.count("ok=True") == len(tdma.GS) + 2 and "ok=False" not in out
-    assert "P1: an XLA primitive measurement" in out
+    # K11 a G; P1 a shape, P2, P3 (the port's counterparts of the XLA measurements); P4, P5
+    assert out.count("ok=True") == len(tdma.GS) + len(tprims.P1_SHAPES) + 4
+    assert "ok=False" not in out and "not ported" not in out
